@@ -1,0 +1,95 @@
+"""The port's CUDA kernels on the card: each against its plain version,
+bit-exact, at small and edge-case shapes, plus a block round trip.
+
+Marked `cuda`; every test skips where torch sees no CUDA device (the
+decision is made inside the fixture, never at import).  On a machine with
+a card:  python -m pytest tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
+from xsqueezeit_tpu_torch.ops import pbwt_kernels, wah_kernels, wah_torch
+from xsqueezeit_tpu_torch.reference import GtBlockEncoder
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _equal(a, b):
+    if isinstance(a, tuple):
+        return all(_equal(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and torch.equal(a.cpu().to(torch.int64),
+                                              b.cpu().to(torch.int64))
+
+
+@pytest.mark.parametrize("n_ch,C,H", [(1, 16, 1), (3, 16, 31), (5, 7, 513),
+                                      (8, 16, 5008), (2, 16, 28928)])
+def test_chain_kernels_match_plain(dev, n_ch, C, H):
+    rng = np.random.default_rng(H)
+    ss = torch.from_numpy(rng.random((n_ch, C)) < 0.8).to(dev)
+    q0 = torch.from_numpy(rng.integers(0, 1 << C, (n_ch, H),
+                                       dtype=np.int32)).to(dev)
+    n0 = pbwt_kernels.launches["chain_encode"]
+    assert _equal(pbwt_kernels.chain_encode(q0, ss),
+                  pbwt_kernels.chain_encode_plain(q0, ss))
+    assert pbwt_kernels.launches["chain_encode"] == n0 + 1
+    yc = torch.from_numpy((rng.random((n_ch, C, H)) < 0.4)
+                          .astype(np.uint8)).to(dev)
+    assert _equal(pbwt_kernels.chain_decode(yc, ss),
+                  pbwt_kernels.chain_decode_plain(yc, ss))
+
+
+def test_chain_kernels_refuse_above_the_bound(dev):
+    H = pbwt_kernels.MAX_H_DECODE + 1
+    yc = torch.zeros((1, 16, H), dtype=torch.uint8, device=dev)
+    ss = torch.ones((1, 16), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        pbwt_kernels.chain_decode(yc, ss)
+
+
+@pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
+                                 (6, 64976), (3, 16383 * 15 + 60)])
+def test_wah_kernels_match_plain(dev, L, H):
+    rng = np.random.default_rng(L + H)
+    p = rng.choice([0.0, 0.001, 0.3, 0.999, 1.0], (L, 1))
+    bits = torch.from_numpy((rng.random((L, H)) < p).astype(np.uint8))
+    words = wah_torch.pack_bits(bits)
+    got = wah_kernels.wah_compress(words.to(dev))
+    want = wah_kernels.wah_compress_plain(words)
+    assert _equal(got, want)
+    keep = torch.arange(words.shape[1])[None, :] < want[1][:, None]
+    stream = torch.cat([want[0][keep], torch.zeros(5, dtype=torch.uint16)])
+    W = words.shape[1]
+    for n_lines in (L, L + 2):
+        out = wah_kernels.wah_expand(stream.to(dev), n_lines, W)
+        assert _equal(out, wah_kernels.wah_expand_plain(stream, n_lines, W))
+        assert _equal(out[:L], words)
+
+
+def test_block_roundtrip_on_card(dev):
+    rng = np.random.default_rng(3)
+    n_samples, L = 300, 700
+    p = rng.choice([0.0005, 0.005, 0.2, 0.6, 0.9995], (L, 1))
+    alleles = (rng.random((L, 2 * n_samples)) < p).astype(np.int32)
+    gt = ((alleles + 1) << 1) | (np.arange(2 * n_samples) & 1)
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=3,
+              default_phasing=1, aet_dtype=np.uint16)
+    ref = GtBlockEncoder(**kw)
+    enc = encoder_torch.TorchBlockEncoder(device=dev, **kw)
+    for row in gt:
+        ref.encode_record(row, 2)
+        enc.encode_record(row, 2)
+    payload = enc.serialize()
+    assert payload == ref.serialize()
+    out = decoder_torch.decode_block_records(
+        payload, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev)
+    np.testing.assert_array_equal(np.stack(out), gt)

@@ -1,0 +1,178 @@
+"""xsqueezeit-compatible command line interface on the torch codec.
+
+Port of xsqueezeit_tpu/cli.py (compress, extract, info):
+
+    python -m xsqueezeit_tpu_torch.cli -c -f in.{vcf,vcf.gz,bcf} -o out.xsi
+        [--zstd] [--maf F] [--variant-block-length N] [--zstd-level L]
+        [--wah-encode-missing] [-v] [--device cuda|cpu|numpy]
+    python -m xsqueezeit_tpu_torch.cli -x -f out.xsi -o out.bcf
+        [-O b|u|z|v|x] [-r REGIONS] [-R FILE] [-t TARGETS] [-s SAMPLES]
+        [-S FILE] [-H] [-p] [--device cuda|cpu|numpy]
+    python -m xsqueezeit_tpu_torch.cli -i -f out.xsi
+
+--device cuda (the default) runs the CUDA kernels and fails when there is
+no card; cpu runs their plain versions on CPU tensors; numpy is the JAX
+package's host codec.  Output files are byte-identical across devices.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import struct
+import sys
+
+from xsqueezeit_tpu.format.constants import (
+    DEFAULT_BLOCK_LENGTH,
+    DEFAULT_MAF,
+    DEFAULT_ZSTD_LEVEL,
+)
+
+from .utils.devprobe import DEVICES, DeviceUnavailable
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="xsqueezeit",
+        description="xSqueezeIt - VCF/BCF Compressor (PyTorch + CUDA)")
+    p.add_argument("-f", "--file", default="-", help="Input file name")
+    p.add_argument("-o", "--output", default="-", help="Output file name")
+    p.add_argument("-O", "--output-type", default="b", choices="buzvx",
+                   help="Output type b|u|z|v|x")
+    p.add_argument("-p", "--fast-pipe", action="store_true",
+                   help="Outputs uncompressed BCF (-Ou) when writing to "
+                        "stdout")
+    p.add_argument("-c", "--compress", action="store_true", help="Compress")
+    p.add_argument("-d", "--decompress", action="store_true",
+                   help="Decompress")
+    p.add_argument("-x", "--extract", action="store_true",
+                   dest="decompress", help="Extract (Decompress)")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="Verbose, prints progress")
+    p.add_argument("--zstd", action="store_true",
+                   help="Compress blocks with zstd")
+    p.add_argument("--zstd-level", "--zl", type=int,
+                   default=DEFAULT_ZSTD_LEVEL, help="zstd compression level")
+    p.add_argument("--maf", type=float, default=DEFAULT_MAF,
+                   help="Minor Allele Frequency threshold")
+    p.add_argument("-i", "--info", action="store_true",
+                   help="Get info on file")
+    p.add_argument("--variant-block-length", type=int,
+                   default=DEFAULT_BLOCK_LENGTH,
+                   help="Number of VCF lines to compress together")
+    p.add_argument("--wah-encode-missing", action="store_true",
+                   help="Encode missing alleles with WAH strategy")
+    p.add_argument("-s", "--samples", default="",
+                   help='Comma-separated samples to include ("^" to exclude)')
+    p.add_argument("-S", "--samples-file", default="",
+                   help="File of sample names (one per line)")
+    p.add_argument("-r", "--regions", default="",
+                   help="chr|chr:pos|chr:beg-end[,...]")
+    p.add_argument("-R", "--regions-file", default="", help="Region file")
+    p.add_argument("-t", "--targets", default="",
+                   help="Targets (POS-only filter, streamed)")
+    p.add_argument("-H", "--no-header", action="store_true",
+                   help="Suppress the header in VCF output")
+    p.add_argument("--device", default="cuda", choices=DEVICES,
+                   help="cuda: CUDA kernels (fails without a card); cpu: "
+                        "their plain versions on CPU tensors; numpy: the "
+                        "host codec")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    from xsqueezeit_tpu.utils.malltune import tune_glibc_malloc
+    tune_glibc_malloc()
+
+    args = build_parser().parse_args(argv)
+    if args.variant_block_length < 1:
+        print("xsqueezeit: error: --variant-block-length must be >= 1",
+              file=sys.stderr)
+        return 1
+    try:
+        return _dispatch(args)
+    except BrokenPipeError:
+        # downstream closed the pipe: exit quietly like htslib tools
+        try:
+            sys.stdout.close()
+        except Exception:
+            pass
+        return 141  # 128 + SIGPIPE
+    except KeyboardInterrupt:
+        return 130
+    except (ValueError, OSError, EOFError, NotImplementedError,
+            DeviceUnavailable, struct.error) as exc:
+        # one-line diagnostics for user-level failures (XSI_DEBUG=1
+        # re-raises for development)
+        if os.environ.get("XSI_DEBUG"):
+            raise
+        msg = str(exc) or exc.__class__.__name__
+        print(f"xsqueezeit: error: {msg}", file=sys.stderr)
+        return 1
+
+
+def _read_regions_file(path: str) -> list[str]:
+    out = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts or line.startswith("#"):
+                continue
+            if len(parts) >= 3:
+                out.append(f"{parts[0]}:{parts[1]}-{parts[2]}")
+            elif len(parts) == 2:
+                out.append(f"{parts[0]}:{parts[1]}")
+            else:
+                out.append(parts[0])
+    return out
+
+
+def _dispatch(args) -> int:
+    if args.info:
+        from xsqueezeit_tpu.format.header import XsiHeader
+        with open(args.file, "rb") as f:
+            header = XsiHeader.unpack(f.read(256))
+        print(header.info_string(), file=sys.stderr)
+        return 0
+
+    if args.compress:
+        from .codec.compressor import CompressorOptions, compress_file
+        opts = CompressorOptions(
+            maf=args.maf, block_length=args.variant_block_length,
+            zstd=args.zstd, zstd_level=args.zstd_level,
+            wah_encode_missing=args.wah_encode_missing,
+            verbose=args.verbose, device=args.device)
+        stats = compress_file(args.file, args.output, opts)
+        if args.verbose:
+            print(f"Compressed {stats['entries']} entries "
+                  f"({stats['variants']} variants) of {stats['n_samples']} "
+                  f"samples into {stats['xsi_bytes']} + "
+                  f"{stats['variant_bytes']} bytes", file=sys.stderr)
+        return 0
+
+    if args.decompress:
+        from .codec.decompressor import Decompressor, DecompressorOptions
+        regions = args.regions
+        if args.regions_file:
+            regions = ",".join([r for r in [regions] if r]
+                               + _read_regions_file(args.regions_file))
+        output_type = args.output_type
+        out = args.output
+        if out == "-" and output_type == "b":
+            # text to stdout unless -p, which pipes uncompressed BCF (-Ou)
+            output_type = "u" if args.fast_pipe else "v"
+        if out.endswith(".vcf"):
+            output_type = "v" if output_type in ("b", "u") else output_type
+        opts = DecompressorOptions(
+            regions=regions, targets=args.targets, samples=args.samples,
+            samples_file=args.samples_file, output_type=output_type,
+            no_header=args.no_header, verbose=args.verbose,
+            device=args.device)
+        Decompressor(args.file, opts).decompress(out)
+        return 0
+
+    build_parser().print_help()
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,387 @@
+"""Block decoder on PyTorch tensors: the CUDA fast path.
+
+Port of xsqueezeit_tpu/codec/decoder_jax.py (the uniform-ploidy path).
+One block decodes as
+
+    WAH stream --(expand kernel)--> 15-bit groups[Lw, W] --(unpack)-->
+    arrangement-ordered bits --(PBWT chunk chains + composition)-->
+    natural-order bits of the WAH lines; sparse carriers scatter into the
+    other lines, negated lines flip; then per-ALT overlays on the host.
+
+Uniformly diploid and uniformly haploid blocks take this path (haploid
+ones at H = n_samples).  Any other block -- mixed ploidy, or a LINE_SORT
+track that differs from LINE_SELECT -- decodes with the NumPy
+GtBlockDecoder, as the JAX decoder's random-access fallback does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xsqueezeit_tpu.codec.gt_block_decoder import GtBlockDecoder
+from xsqueezeit_tpu.format.constants import INT32_VECTOR_END, WeirdnessStrategy
+from xsqueezeit_tpu.ops import pbwt_np, wah_np
+from xsqueezeit_tpu.ops.sparse_np import msb as _msb, sparse_line_offsets
+
+from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
+from .encoder_torch import LATER
+
+
+def _decode_wah_and_scan(stream, sorts, h: int, w: int) -> torch.Tensor:
+    """Decode a block's WAH lines (compacted: WAH lines only) to
+    natural-order bits uint8[Lw, h].  stream: uint16[N] the lines' words
+    back to back; sorts: bool[Lw]."""
+    w15 = wah_kernels.wah_expand(stream, sorts.shape[0], w)
+    ys = wah_torch.unpack_bits(w15, h)
+    vals, _ = pbwt_torch.pbwt_decode_chunked(ys, sorts)
+    return vals
+
+
+def _decode_block_vals(stream, sorts, rank, is_wah, neg, car_line, car_idx,
+                       h: int, w: int) -> torch.Tensor:
+    """Decode a whole block (WAH + sparse lines) to natural-order bits.
+
+    stream: uint16[N]; sorts: bool[Lw] per WAH line; rank: int64[L] WAH
+    row of each line (read only where is_wah); is_wah: bool[L]; neg:
+    uint8[L] 1 for negated sparse lines; car_line/car_idx: int64[Nc] the
+    sparse carriers (no padding pairs).  Returns uint8[L, h].
+
+    The stored indices of a negated line are its REF positions: they
+    scatter as 1s and the row XOR turns them into 0s, everything else 1s.
+    """
+    L = is_wah.shape[0]
+    vals = torch.zeros((L, h), dtype=torch.uint8, device=is_wah.device)
+    if sorts.shape[0]:
+        vals_w = _decode_wah_and_scan(stream, sorts, h, w)
+        vals = torch.where(is_wah[:, None], vals_w.index_select(0, rank),
+                           vals)
+    vals[car_line, car_idx] = 1
+    return vals ^ neg[:, None]
+
+
+def _fold_biallelic_impl(vals: torch.Tensor,
+                         default_phasing: int) -> torch.Tensor:
+    """htslib gt codes for biallelic records: ((allele+1) << 1) | phase."""
+    h = vals.shape[1]
+    phase = (torch.arange(h, dtype=torch.int32, device=vals.device) & 1) \
+        * int(default_phasing)
+    return ((vals.to(torch.int32) + 1) << 1) | phase[None, :]
+
+
+def _decode_block_full_gt(stream, sorts, rank, is_wah, neg, car_line,
+                          car_idx, default_phasing: int, h: int,
+                          w: int) -> torch.Tensor:
+    """Payload streams to htslib int32 gt codes int32[L, h] in one go."""
+    vals = _decode_block_vals(stream, sorts, rank, is_wah, neg, car_line,
+                              car_idx, h, w)
+    return _fold_biallelic_impl(vals, default_phasing)
+
+
+def track_carriers(stream: np.ndarray, flagged_lines: np.ndarray,
+                   aet_dtype) -> tuple[np.ndarray, np.ndarray]:
+    """Flat (line, haplotype) carrier pairs of a WS_SPARSE exception-track
+    stream (rows in flagged-line order, heads [count] with no negation)."""
+    msb = _msb(np.dtype(aet_dtype))
+    offs = sparse_line_offsets(stream, len(flagged_lines))
+    heads = stream[offs[:-1]].astype(np.int64)
+    counts = heads & (msb - 1)
+    car_line = np.repeat(np.asarray(flagged_lines, np.int64), counts)
+    take = np.ones(int(offs[-1]), bool)
+    take[offs[:-1]] = False
+    return car_line, stream[:offs[-1]][take].astype(np.int64)
+
+
+class TorchBlockDecoder:
+    """Decodes a whole GT block into per-record allele matrices."""
+
+    def __init__(self, payload: memoryview | bytes, n_samples: int,
+                 n_haps: int, aet_dtype=np.uint32,
+                 device: str | torch.device = "cuda"):
+        self.n_samples = n_samples
+        self.n_haps = n_haps
+        self.aet_dtype = np.dtype(aet_dtype)
+        self.device = torch.device(device)
+        # header/metadata parsing and the random-access fallback
+        self.meta = GtBlockDecoder(payload, n_samples, n_haps, aet_dtype)
+        self._vals: np.ndarray | None = None   # natural-order bits
+        self._neg: np.ndarray | None = None
+        # Uniformly-haploid blocks are an N-element PBWT over samples: the
+        # same kernels decode them with H = n_samples.
+        self.uniform_haploid = (self.meta.binary_lines > 0
+                                and bool(self.meta.haploid_line.all()))
+        self.n_eff = n_samples if self.uniform_haploid else n_haps
+
+    @property
+    def eligible(self) -> bool:
+        """Uniformly diploid or uniformly haploid, and sort == select (the
+        chunk chains partition after every WAH line)."""
+        return ((self.uniform_haploid
+                 or not bool(self.meta.haploid_line.any()))
+                and self.meta.binary_lines > 0
+                and bool(np.array_equal(self.meta.line_is_sorting,
+                                        self.meta.line_is_wah)))
+
+    def host_inputs(self) -> tuple:
+        """Parse the payload streams into the decode inputs (numpy):
+        (stream u16[N], sorts bool[Lw], rank i64[L], is_wah bool[L],
+        neg u8[L], car_line i64[Nc], car_idx i64[Nc], H, W, L, n_wah).
+        Nothing is padded: the carriers are exactly the stored ones."""
+        m = self.meta
+        H = self.n_eff
+        W = wah_torch.n_words_for(H)
+        L = m.binary_lines
+        is_wah = m.line_is_wah.astype(bool)
+        stream = (m.wah_stream if m.wah_stream is not None
+                  else np.zeros(0, np.uint16))
+        n_wah = int(is_wah.sum())
+        sorts = np.ones(n_wah, bool)
+        rank = np.clip(np.cumsum(is_wah) - 1, 0, None).astype(np.int64)
+        neg = np.zeros(L, np.uint8)
+        car_line = np.zeros(0, np.int64)
+        car_idx = np.zeros(0, np.int64)
+        if (~is_wah).any():
+            sp = m.sparse_stream
+            msb = _msb(self.aet_dtype)
+            sparse_lines = np.flatnonzero(~is_wah)
+            offs = sparse_line_offsets(sp, len(sparse_lines))
+            heads = sp[offs[:-1]].astype(np.int64)
+            counts = heads & (msb - 1)
+            neg[sparse_lines] = (heads & msb) != 0
+            if int(counts.sum()):
+                # every sparse element that is not a head, with its line
+                car_line = np.repeat(sparse_lines, counts).astype(np.int64)
+                take = np.ones(int(offs[-1]), bool)
+                take[offs[:-1]] = False
+                car_idx = sp[:offs[-1]][take].astype(np.int64)
+        return (np.array(stream), sorts, rank, is_wah, neg,
+                car_line, car_idx, H, W, L, n_wah)
+
+    def device_inputs(self) -> tuple:
+        """host_inputs moved to the decoder's device, plus (H, W, L)."""
+        (stream, sorts, rank, is_wah, neg, car_line, car_idx,
+         H, W, L, _n_wah) = self.host_inputs()
+        if H > pbwt_kernels.MAX_H_DECODE:
+            raise NotImplementedError(
+                f"blocks wider than {pbwt_kernels.MAX_H_DECODE} haplotypes "
+                f"(the chain kernel's shared-memory bound) are {LATER}")
+        t = [torch.from_numpy(x).to(self.device)
+             for x in (stream, sorts, rank, is_wah, neg, car_line, car_idx)]
+        return (*t, H, W, L)
+
+    def decode_all(self) -> np.ndarray:
+        """Decode the whole block; returns carrier bits uint8[L, H] in
+        natural haplotype order (cached; record_alleles folds records)."""
+        *args, H, W, L = self.device_inputs()
+        vals = _decode_block_vals(*args, H, W)
+        self._vals = vals.cpu().numpy()
+        self._neg = args[4].cpu().numpy().astype(bool)
+        return self._vals
+
+    def record_alleles(self, first_line: int, n_alleles: int) -> np.ndarray:
+        """Fold a record's binary lines into allele codes [H].
+
+        Overlay order of GtBlockDecoder.fill_genotype_array_advance: later
+        ALT lines overwrite, and a negated sparse line (whose stored bits
+        are the complement {allele != 0}) marks all currently-REF slots as
+        this ALT and then restores the stored (REF) indices."""
+        vals = self._vals
+        neg = self._neg
+        if n_alleles <= 1:
+            return np.zeros(self.n_eff, np.int16)
+        out = vals[first_line].astype(np.int16)
+        for j in range(1, n_alleles - 1):
+            row = vals[first_line + j].astype(bool)
+            alt = j + 1
+            if neg[first_line + j]:
+                out = np.where(out == 0, alt, out).astype(np.int16)
+                out = np.where(~row & (out == alt), 0, out).astype(np.int16)
+            else:
+                out = np.where(row, alt, out).astype(np.int16)
+        return out
+
+
+def decode_block_records(payload, n_samples, n_haps, aet_dtype,
+                         n_alleles_per_record: list[int],
+                         offsets: list[int] | None = None,
+                         predecoded: TorchBlockDecoder | None = None,
+                         device: str | torch.device = "cuda"
+                         ) -> list[np.ndarray]:
+    """Decode records of a block to htslib gt arrays (device decode of the
+    block's bits, host overlays).  Blocks that are not eligible decode with
+    the NumPy GtBlockDecoder.
+
+    `offsets` gives each record's first binary line (BM & 0x7FFF) for
+    region/target-filtered runs where the records are a non-contiguous
+    subset of the block; omitted, records are consecutive from line 0.
+    `predecoded` supplies a decoder whose bits were already produced."""
+    contiguous = True
+    if offsets is not None:
+        pos = 0
+        for off, na in zip(offsets, n_alleles_per_record):
+            if off != pos:
+                contiguous = False
+                break
+            pos += max(na - 1, 0)
+
+    dev = predecoded or TorchBlockDecoder(payload, n_samples, n_haps,
+                                          aet_dtype, device=device)
+    m = dev.meta
+
+    def numpy_random_access():
+        out = []
+        pos = 0
+        for i, na in enumerate(n_alleles_per_record):
+            m.seek(offsets[i] if offsets is not None else pos)
+            out.append(m.fill_genotype_array_advance(na))
+            pos += max(na - 1, 0)
+        return out
+
+    if not dev.eligible:
+        return numpy_random_access()
+
+    # Haploid records carry one slot per sample and no phase bit.
+    dp = 0 if dev.uniform_haploid else m.default_phasing
+    H = dev.n_eff
+    idx = np.arange(H)
+    phase_term = ((idx & 1) & dp).astype(np.int32)
+    # Zero-ALT records own no binary line; the NumPy decoder emits them at
+    # full diploid width with default phasing regardless of block ploidy.
+    zero_alt_gt = (np.int32(1 << 1)
+                   | ((np.arange(n_haps) & 1)
+                      & m.default_phasing)).astype(np.int32)
+
+    no_weird = ((m.line_has_missing is None or not m.line_has_missing.any())
+                and (m.line_has_eov is None or not m.line_has_eov.any())
+                and (m.line_has_nup is None or not m.line_has_nup.any()))
+    if not no_weird and not contiguous:
+        # exception-track cursors only replay sequentially; filtered subsets
+        # of weird blocks use the random-access NumPy decoder
+        return numpy_random_access()
+
+    if dev._vals is None:
+        dev.decode_all()
+
+    # All-biallelic, no exception tracks: one elementwise pass.
+    if no_weird and all(na == 2 for na in n_alleles_per_record):
+        rows = (np.asarray(offsets) if offsets is not None
+                else np.arange(len(n_alleles_per_record)))
+        gt_all = ((dev._vals[rows].astype(np.int32) + 1) << 1) \
+            | phase_term[None, :]
+        return list(gt_all)
+
+    # All-biallelic, WS_SPARSE tracks, no phase exceptions: the missing/EOV
+    # streams parse in one vectorized walk and overlay with two scatters
+    # (missing takes the bare phase bit, then EOV overwrites).  Contiguous
+    # was checked above, so record i sits at line i.
+    if (m.weirdness_strat == WeirdnessStrategy.WS_SPARSE
+            and (m.line_has_nup is None or not m.line_has_nup.any())
+            and all(na == 2 for na in n_alleles_per_record)):
+        n = len(n_alleles_per_record)
+        gt_all = ((dev._vals[:n].astype(np.int32) + 1) << 1) \
+            | phase_term[None, :]
+        if m.line_has_missing is not None and m.line_has_missing.any():
+            car_rec, car_idx = track_carriers(
+                m.missing_sparse, np.flatnonzero(m.line_has_missing),
+                aet_dtype)
+            keep = car_rec < n
+            gt_all[car_rec[keep], car_idx[keep]] = \
+                phase_term[car_idx[keep]]
+        if m.line_has_eov is not None and m.line_has_eov.any():
+            car_rec, car_idx = track_carriers(
+                m.eov_sparse, np.flatnonzero(m.line_has_eov), aet_dtype)
+            keep = car_rec < n
+            gt_all[car_rec[keep], car_idx[keep]] = np.int32(INT32_VECTOR_END)
+        return list(gt_all)
+
+    if not contiguous:
+        # no exception tracks: fold each selected record's lines directly
+        out = []
+        for off, na in zip(offsets, n_alleles_per_record):
+            if na <= 1:
+                out.append(zero_alt_gt.copy())
+                continue
+            alleles = dev.record_alleles(off, na)
+            out.append((((alleles.astype(np.int32) + 1) << 1)
+                        | phase_term).astype(np.int32))
+        return out
+
+    # host-side exception streams, replayed record by record
+    ws = m.weirdness_strat
+    wah_weird = ws in (WeirdnessStrategy.WS_WAH, WeirdnessStrategy.WS_PBWT_WAH)
+    miss_pos = eov_pos = phs_pos = 0
+    a_weird = np.arange(H)
+    msb = 1 << (np.dtype(aet_dtype).itemsize * 8 - 1)
+    # a WS_PBWT_WAH (v4) block chains a_weird by each weird line's own
+    # bits; uniform-haploid blocks never sort it
+    chain = ws == WeirdnessStrategy.WS_PBWT_WAH and not dev.uniform_haploid
+
+    out = []
+    first_line = 0
+    for na in n_alleles_per_record:
+        if na <= 1:
+            # zero-ALT record: no binary line, all-REF with default phasing
+            # (first_line belongs to the NEXT record: no overlays apply)
+            out.append(zero_alt_gt.copy())
+            continue
+        alleles = dev.record_alleles(first_line, na)
+        gt = ((alleles.astype(np.int32) + 1) << 1) | phase_term
+
+        if m.line_has_missing is not None and m.line_has_missing[first_line]:
+            if wah_weird:
+                y, _ = wah_np.wah_decode(m.missing_wah[miss_pos:], H)
+                tgt = a_weird[y.astype(bool)]
+            else:
+                cnt = int(m.missing_sparse[miss_pos]) & (msb - 1)
+                tgt = m.missing_sparse[
+                    miss_pos + 1:miss_pos + 1 + cnt].astype(np.int64)
+            gt[tgt] = phase_term[tgt]
+        if m.line_has_eov is not None and m.line_has_eov[first_line]:
+            if wah_weird:
+                y, _ = wah_np.wah_decode(m.eov_wah[eov_pos:], H)
+                tgt = a_weird[y.astype(bool)]
+            else:
+                cnt = int(m.eov_sparse[eov_pos]) & (msb - 1)
+                tgt = m.eov_sparse[
+                    eov_pos + 1:eov_pos + 1 + cnt].astype(np.int64)
+            gt[tgt] = np.int32(INT32_VECTOR_END)
+        if m.line_has_nup is not None and m.line_has_nup[first_line]:
+            y, _ = wah_np.wah_decode(m.phase_wah[phs_pos:], H)
+            sel = y.astype(bool) & (gt != np.int32(INT32_VECTOR_END))
+            gt[sel] ^= (idx[sel] & 1).astype(np.int32)
+
+        # advance the exception cursors over this record's binary lines
+        for j in range(na - 1):
+            p = first_line + j
+            y_m = y_e = None
+            if m.line_has_missing is not None and m.line_has_missing[p]:
+                if not wah_weird:
+                    miss_pos += 1 + (int(m.missing_sparse[miss_pos])
+                                     & (msb - 1))
+                elif chain:
+                    y_m, used = wah_np.wah_decode(m.missing_wah[miss_pos:], H)
+                    miss_pos += used
+                else:
+                    miss_pos += wah_np.wah_words_consumed(
+                        m.missing_wah[miss_pos:], H)
+            if m.line_has_eov is not None and m.line_has_eov[p]:
+                if not wah_weird:
+                    eov_pos += 1 + (int(m.eov_sparse[eov_pos]) & (msb - 1))
+                elif chain:
+                    y_e, used = wah_np.wah_decode(m.eov_wah[eov_pos:], H)
+                    eov_pos += used
+                else:
+                    eov_pos += wah_np.wah_words_consumed(
+                        m.eov_wah[eov_pos:], H)
+            if y_m is not None and y_e is not None:
+                a_weird = pbwt_np.pbwt_sort_two_bool(a_weird, y_m[:H],
+                                                     y_e[:H])
+            elif y_m is not None:
+                a_weird = pbwt_np.pbwt_sort_bool(a_weird, y_m[:H])
+            elif y_e is not None:
+                a_weird = pbwt_np.pbwt_sort_bool(a_weird, y_e[:H])
+            if m.line_has_nup is not None and m.line_has_nup[p]:
+                phs_pos += wah_np.wah_words_consumed(m.phase_wah[phs_pos:], H)
+
+        out.append(gt.astype(np.int32))
+        first_line += na - 1
+    return out

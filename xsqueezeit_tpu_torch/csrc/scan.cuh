@@ -1,0 +1,53 @@
+// Block-wide scans shared by the port's kernels.
+//
+// One int per thread, warp shuffles inside each warp and one shared int per
+// warp across warps.  blockDim.x must be a multiple of 32 (every launch in
+// this package uses a fixed power of two).  Each scan ends with a barrier,
+// so `scratch` may be reused by the next scan right away.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+struct SumOp {
+    __device__ static int identity() { return 0; }
+    __device__ static int apply(int a, int b) { return a + b; }
+};
+
+struct MaxOp {
+    // every value scanned with MaxOp in this package is >= -1
+    __device__ static int identity() { return -1; }
+    __device__ static int apply(int a, int b) { return a > b ? a : b; }
+};
+
+// Inclusive scan of `v` over the block in thread order.  `scratch` holds 32
+// ints of shared memory; `*total` receives the scan of the whole block.
+template <typename Op>
+__device__ __forceinline__ int block_inclusive_scan(int v, int* scratch,
+                                                    int* total) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x = Op::apply(x, y);
+    }
+    if (lane == 31) scratch[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+        int s = lane < nwarps ? scratch[lane] : Op::identity();
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, s, o);
+            if (lane >= o) s = Op::apply(s, y);
+        }
+        scratch[lane] = s;
+    }
+    __syncthreads();
+    if (warp > 0) x = Op::apply(scratch[warp - 1], x);
+    *total = scratch[nwarps - 1];
+    __syncthreads();
+    return x;
+}

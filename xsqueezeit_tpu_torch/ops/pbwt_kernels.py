@@ -1,0 +1,133 @@
+"""PBWT chunk chains: CUDA kernels (csrc/pbwt_chain.cu) and their plain
+versions.
+
+Port of xsqueezeit_tpu/ops/pbwt_pallas.py (chain_encode, chain_decode).
+A chunk holds C <= 16 lines; its state is one value per haplotype slot in
+arrangement order, and every sorting line stably partitions the slots by
+the line's bit (zeros first, order kept).  Each wrapper launches its kernel
+for CUDA tensors and calls the plain version for CPU tensors; there is no
+fallback from one to the other.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+#: Shared memory one CTA may use on an H100, less 1 KiB kept for the
+#: kernels' static scratch.
+_SMEM_BYTES = 227 * 1024 - 1024
+#: Largest H each kernel holds: a double-buffered row of 16-bit registers
+#: (encode) or of 32-bit (slot << 16 | beta) states (decode).
+MAX_H_ENCODE = _SMEM_BYTES // (2 * 2)
+MAX_H_DECODE = _SMEM_BYTES // (2 * 4)
+
+#: Kernel launches since the last reset, by kernel name.
+launches = {"chain_encode": 0, "chain_decode": 0}
+
+
+def _partition_dest(y: torch.Tensor, sorts: torch.Tensor) -> torch.Tensor:
+    """Destination slot of every element under a stable partition by y
+    (rows of [n_ch, H]); identity on rows whose sort flag is off."""
+    H = y.shape[1]
+    iota = torch.arange(H, device=y.device)
+    ones_incl = torch.cumsum(y, 1)
+    ones_before = ones_incl - y
+    n_zeros = H - ones_incl[:, -1:]
+    dest = torch.where(y == 0, iota - ones_before, n_zeros + ones_before)
+    return torch.where(sorts[:, None], dest, iota)
+
+
+def chain_encode_plain(q0: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+    """q0: int32[n_ch, H] chunk-start registers (bit j = the haplotype's
+    bit on chunk line j, slots in chunk-start arrangement order); ss:
+    bool[n_ch, C] sort flags.  Returns uint8[n_ch, C, H]: line j's bits in
+    the arrangement in force before line j."""
+    n_ch, H = q0.shape
+    C = ss.shape[1]
+    q = q0.to(torch.int64)
+    sorts = ss.to(torch.bool)
+    ys = torch.empty((n_ch, C, H), dtype=torch.uint8, device=q0.device)
+    for j in range(C):
+        y = (q >> j) & 1
+        ys[:, j] = y.to(torch.uint8)
+        dest = _partition_dest(y, sorts[:, j])
+        q = torch.empty_like(q).scatter_(1, dest, q)
+    return ys
+
+
+def chain_decode_plain(yc: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+    """yc: uint8[n_ch, C, H] bits in arrangement order; ss: bool[n_ch, C].
+    Returns int64[n_ch, H]: per end-of-chunk slot, (chunk-start slot << 16)
+    | beta, where bit j of beta is the element's bit on chunk line j."""
+    n_ch, C, H = yc.shape
+    sorts = ss.to(torch.bool)
+    iota = torch.arange(H, device=yc.device)
+    p = (iota << 16).expand(n_ch, H).clone()
+    for j in range(C):
+        y = yc[:, j].to(torch.int64)
+        p = p | (y << j)
+        dest = _partition_dest(y, sorts[:, j])
+        p = torch.empty_like(p).scatter_(1, dest, p)
+    return p
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.dtype != dtype or t.dim() != dim:
+        raise ValueError(f"{name}: expected {dim}-D {dtype}, got "
+                         f"{t.dim()}-D {t.dtype}")
+
+
+def _flags(name: str, ss: torch.Tensor, n_ch: int,
+           device: torch.device) -> torch.Tensor:
+    if ss.dtype not in (torch.bool, torch.uint8) or ss.dim() != 2 \
+            or ss.shape[0] != n_ch or not 1 <= ss.shape[1] <= 16 \
+            or ss.device != device:
+        raise ValueError(f"{name}: ss must be bool[{n_ch}, C <= 16] on "
+                         f"{device}, got {ss.dtype} {tuple(ss.shape)} on "
+                         f"{ss.device}")
+    return ss.contiguous().view(torch.uint8)
+
+
+def chain_encode(q0: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+    """Encode chunk chains (see chain_encode_plain for the contract)."""
+    if q0.device.type == "cpu":
+        return chain_encode_plain(q0, ss)
+    _check("chain_encode", q0, torch.int32, 2)
+    n_ch, H = q0.shape
+    if H > MAX_H_ENCODE:
+        raise ValueError(f"chain_encode holds at most {MAX_H_ENCODE} "
+                         f"haplotypes in shared memory (got {H})")
+    flags = _flags("chain_encode", ss, n_ch, q0.device)
+    C = flags.shape[1]
+    q0 = q0.contiguous()
+    y = torch.empty((n_ch, C, H), dtype=torch.uint8, device=q0.device)
+    _build.launch(q0.device, "xsi_chain_encode", q0.data_ptr(),
+                  flags.data_ptr(), y.data_ptr(), n_ch, H, C)
+    launches["chain_encode"] += 1
+    return y
+
+
+def chain_decode(yc: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+    """Decode chunk chains (see chain_decode_plain for the contract)."""
+    if yc.device.type == "cpu":
+        return chain_decode_plain(yc, ss)
+    _check("chain_decode", yc, torch.uint8, 3)
+    n_ch, C, H = yc.shape
+    if H > MAX_H_DECODE:
+        raise ValueError(f"chain_decode holds at most {MAX_H_DECODE} "
+                         f"haplotypes in shared memory (got {H})")
+    flags = _flags("chain_decode", ss, n_ch, yc.device)
+    if flags.shape[1] != C:
+        raise ValueError(f"chain_decode: {flags.shape[1]} sort flags for "
+                         f"{C} lines per chunk")
+    yc = yc.contiguous()
+    # the kernel writes uint32 states; torch's uint32 lacks shifts, so the
+    # bits land in an int32 buffer and widen to int64 here
+    out = torch.empty((n_ch, H), dtype=torch.int32, device=yc.device)
+    _build.launch(yc.device, "xsi_chain_decode", yc.data_ptr(),
+                  flags.data_ptr(), out.data_ptr(), n_ch, H, C)
+    launches["chain_decode"] += 1
+    return out.to(torch.int64) & 0xFFFFFFFF
