@@ -3,30 +3,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the XSI block encoder and decoder at 1KGP3
-geometry (2504 samples = 5008 haplotypes x 8192 lines, MAF threshold 10,
-the rare-heavy mix of bench.py) -- and checks every result exactly:
+Drives the port's paths through their entry points and checks every result
+exactly:
 
 1. machine facts (card, power limit, torch/CUDA/nvcc versions);
-2. builds the kernels from xsqueezeit_tpu_torch/csrc with nvcc;
-3. each kernel against its plain PyTorch version on the card at main-path
-   shapes, bit-exact, with both times;
-4. block encode + decode: the payload must be byte-equal to the host
-   GtBlockEncoder's and the decode bit-exact on every line; prints ms/block
-   and GB/s in bench.py's unit (L * H * 4 logical gt bytes) and the
-   compression ratio;
-5. every kernel's launch count over the main-path run must be > 0.
+2. builds the kernels from xsqueezeit_tpu_torch/csrc with nvcc (one
+   process per source, side by side);
+3. each kernel route against its plain PyTorch version on the card,
+   bit-exact, with both times: the one-CTA chains and the WAH kernels at
+   1KGP3 shapes, the cluster chains at HRC width (H = 64,976) and forced
+   at H = 5008 (also against the one-CTA route), the WAH kernels at HRC
+   width (w = 4332);
+4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
+   threshold 10, the rare-heavy mix of bench.py) and the HRC block (32,488
+   samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
+   mix): TorchBlockEncoder's payload must be byte-equal to the host
+   GtBlockEncoder's and decode_block_records bit-exact on every line;
+   every launch counter is set to 0 just before each block's run and read
+   just after, and each kernel route of that path must have launched.
+   Prints ms/block and GB/s in bench.py's unit (L * H * 4 logical gt
+   bytes), the compression ratio and the peak device memory;
+5. the file level: a synthetic 1KGP3-width BCF of two blocks through
+   `cli -c --device cuda` and `--device numpy` (byte-identical .xsi) and
+   `cli -x --device cuda` back to BCF (the input's genotypes on every
+   record).
 
-The file-level CLI round trip is not part of this script: the container
-module imports `zstandard` at module level, and the script has to run
-where only torch and numpy are installed (PERF.md, ROADMAP.md).  The CPU
-tests cover that path.  Any failure exits non-zero; the last line of
-standard output is the result JSON.
+Any failure exits non-zero; the last line of standard output is the result
+JSON, the line before it the card's name and power limit.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -37,19 +46,40 @@ import torch
 from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
 from xsqueezeit_tpu_torch.ops import _build, pbwt_kernels, wah_kernels
 from xsqueezeit_tpu_torch.ops import wah_torch
-from xsqueezeit_tpu_torch.reference import GtBlockEncoder
+from xsqueezeit_tpu_torch.reference import GtBlockEncoder, GtInput, synth_bcf
 
-N_SAMPLES = 2504
-H = 2 * N_SAMPLES
-L = 8192
-MAF_THRESHOLD = int(H * 0.001)        # = 10
-SEED = 20
+REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
+L = 8192                              # lines per block, the XSI default
+SEED = 20
+#: (name, samples, seed of the block); MAF 0.001 sets the MAC threshold
+BLOCKS = (("1KGP3", 2504, SEED), ("HRC", 32488, SEED + 1))
+HRC_H = 2 * 32488
+#: Kernel routes each block's path must launch (the others must not).
+PATH_KERNELS = {
+    "1KGP3": ("chain_encode", "chain_decode", "wah_expand", "wah_compress"),
+    "HRC": ("chain_encode_cluster", "chain_decode_cluster", "wah_expand",
+            "wah_compress"),
+}
+#: Kernel-check shapes: 1KGP3 and HRC widths.
+KERNEL_SHAPES = dict(H=5008, C=16, n_ch=256, n_lines=4096)
+HRC_SHAPES = dict(H=HRC_H, C=16, n_ch=64, n_lines=4096)
+#: The file-level phase: 1KGP3 width, two blocks.
+FILE_SAMPLES, FILE_RECORDS = 2504, 2 * L
 
-KERNEL_SHAPES = dict(H=H, C=16, n_ch=256, n_lines=4096, w=(H + 14) // 15)
+SRC = "xsqueezeit_tpu_torch/csrc/"
+PALLAS = "xsqueezeit_tpu/ops/"
+ROUTES = {  # name -> (source, TPU kernel it replaces)
+    "chain_encode": ("pbwt_chain.cu", "pbwt_pallas.py:133"),
+    "chain_decode": ("pbwt_chain.cu", "pbwt_pallas.py:76"),
+    "wah_expand": ("wah.cu", "wah_pallas.py:51"),
+    "wah_compress": ("wah.cu", "wah_pallas.py:112"),
+    "chain_encode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:133"),
+    "chain_decode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:76"),
+}
 
 
-def make_block(rng):
+def make_block(rng, H: int):
     """bench.py's workload: a rare-heavy MAF mix approximating 1KGP3 chr20
     (plus a near-fixed tail that encodes as negated sparse lines)."""
     kind = rng.random(L)
@@ -58,7 +88,17 @@ def make_block(rng):
         np.where(kind < 0.78, rng.uniform(0.0015, 0.05, L),
                  np.where(kind < 0.98, rng.uniform(0.05, 0.95, L),
                           rng.uniform(0.999, 1.0, L))))
-    return (rng.random((L, H)) < freqs[:, None]).astype(np.int8)
+    return bernoulli_rows(rng, freqs, H).view(np.int8)
+
+
+def bernoulli_rows(rng, dens, H: int, slice_lines: int = 512):
+    """uint8[len(dens), H] bits, row i set with probability dens[i];
+    drawn in slices of rows, the draws are those of one [rows, H] call."""
+    out = np.empty((len(dens), H), np.uint8)
+    for a in range(0, len(dens), slice_lines):
+        b = min(len(dens), a + slice_lines)
+        out[a:b] = rng.random((b - a, H)) < np.asarray(dens[a:b])[:, None]
+    return out
 
 
 def run(cmd: list[str]) -> str:
@@ -105,10 +145,26 @@ def require(cond: bool, msg: str) -> None:
 
 def diff(a, b) -> int:
     """Largest absolute difference of two integer tensors (0 = equal)."""
+    if isinstance(a, tuple):          # wah_compress: (words, counts)
+        return max(diff(x, y) for x, y in zip(a, b))
     if a.shape != b.shape:
         raise SystemExit(f"chip_smoke: FAIL: shapes {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def counters() -> tuple[dict, ...]:
+    return (pbwt_kernels.launches, wah_kernels.launches)
+
+
+def reset_counts() -> None:
+    for c in counters():
+        for k in c:
+            c[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
 
 
 def machine_facts() -> str:
@@ -128,8 +184,9 @@ def machine_facts() -> str:
 def build_kernels() -> None:
     _build.build(force=True)
     _build.library()
-    print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} -> {_build.LIB_PATH} "
-          f"in {_build.last_build_seconds:.2f} s")
+    print(f"build: {len(_build.sources())} x nvcc "
+          f"{' '.join(_build.NVCC_FLAGS)} -c, side by side, + link -> "
+          f"{_build.LIB_PATH} in {_build.last_build_seconds:.2f} s")
 
 
 def wah_rows(bits):
@@ -139,82 +196,123 @@ def wah_rows(bits):
     return words[keep]
 
 
-def check_kernels(card: str) -> list[dict]:
-    """Each kernel vs its plain version on the card at main-path shapes,
-    bit-exact; both timed by CUDA events."""
-
-    s = KERNEL_SHAPES
-    dev = torch.device(DEVICE)
-    rng = np.random.default_rng(1)
+def chain_inputs(rng, s, dev):
     ss = torch.from_numpy(rng.random((s["n_ch"], s["C"])) < 0.9).to(dev)
     q0 = torch.from_numpy(rng.integers(0, 1 << 16, (s["n_ch"], s["H"]),
                                        dtype=np.int32)).to(dev)
-    p = rng.choice([0.002, 0.05, 0.3, 0.7, 0.99], (s["n_ch"], s["C"], 1))
-    yc = torch.from_numpy(
-        (rng.random((s["n_ch"], s["C"], s["H"])) < p).astype(np.uint8)).to(dev)
+    p = rng.choice([0.002, 0.05, 0.3, 0.7, 0.99], s["n_ch"] * s["C"])
+    yc = torch.from_numpy(bernoulli_rows(rng, p, s["H"]).reshape(
+        s["n_ch"], s["C"], s["H"])).to(dev)
+    return ss, q0, yc
+
+
+def wah_inputs(rng, s, dev):
     dens = rng.choice([0.0, 0.0005, 0.01, 0.3, 0.9, 0.999, 1.0],
-                      (s["n_lines"], 1))
-    bits = torch.from_numpy(
-        (rng.random((s["n_lines"], s["H"])) < dens).astype(np.uint8))
+                      s["n_lines"])
+    bits = torch.from_numpy(bernoulli_rows(rng, dens, s["H"]))
     words_cpu = wah_torch.pack_bits(bits)
     stream = torch.cat([wah_rows(bits), torch.zeros(64, dtype=torch.uint16)])
-    words = words_cpu.to(dev)
-    stream = stream.to(dev)
+    return words_cpu, words_cpu.to(dev), stream.to(dev)
 
-    cases = [
-        ("chain_encode", "pbwt_chain.cu", "ops/pbwt_pallas.py:133",
-         lambda: pbwt_kernels.chain_encode(q0, ss),
-         lambda: pbwt_kernels.chain_encode_plain(q0, ss)),
-        ("chain_decode", "pbwt_chain.cu", "ops/pbwt_pallas.py:76",
-         lambda: pbwt_kernels.chain_decode(yc, ss),
-         lambda: pbwt_kernels.chain_decode_plain(yc, ss)),
-        ("wah_expand", "wah.cu", "ops/wah_pallas.py:51",
-         lambda: wah_kernels.wah_expand(stream, s["n_lines"], s["w"]),
-         lambda: wah_kernels.wah_expand_plain(stream, s["n_lines"], s["w"])),
-        ("wah_compress", "wah.cu", "ops/wah_pallas.py:112",
-         lambda: wah_kernels.wah_compress(words),
-         lambda: wah_kernels.wah_compress_plain(words)),
-    ]
-    rows = []
-    for name, src, replaces, kern, plain in cases:
+
+def check_kernels(card: str) -> tuple[dict, list[dict]]:
+    """Each kernel route vs its plain version on the card, bit-exact; both
+    timed by CUDA events.  Returns the JSON rows of the kernels line (by
+    route) and every check made."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(1)
+    cases = []    # (route, width, shape, kernel fn, plain fn, extra check)
+    for label, s in (("1KGP3", KERNEL_SHAPES), ("HRC", HRC_SHAPES)):
+        ss, q0, yc = chain_inputs(rng, s, dev)
+        words_cpu, words, stream = wah_inputs(rng, s, dev)
+        w = words.shape[1]
+        shape = f"H={s['H']} C={s['C']} n_ch={s['n_ch']}"
+        wshape = f"n_lines={s['n_lines']} w={w}"
+        sfx = "" if label == "1KGP3" else "_cluster"
+        cases += [
+            (f"chain_encode{sfx}", label, shape,
+             lambda q0=q0, ss=ss: pbwt_kernels.chain_encode(q0, ss),
+             lambda q0=q0, ss=ss: pbwt_kernels.chain_encode_plain(q0, ss),
+             None),
+            (f"chain_decode{sfx}", label, shape,
+             lambda yc=yc, ss=ss: pbwt_kernels.chain_decode(yc, ss),
+             lambda yc=yc, ss=ss: pbwt_kernels.chain_decode_plain(yc, ss),
+             None),
+            ("wah_expand", label, wshape,
+             lambda st=stream, s=s, w=w: wah_kernels.wah_expand(
+                 st, s["n_lines"], w),
+             lambda st=stream, s=s, w=w: wah_kernels.wah_expand_plain(
+                 st, s["n_lines"], w),
+             ("the encoded words", lambda got, wc=words_cpu: diff(
+                 got.cpu(), wc))),
+            ("wah_compress", label, wshape,
+             lambda wd=words: wah_kernels.wah_compress(wd),
+             lambda wd=words: wah_kernels.wah_compress_plain(wd), None),
+        ]
+        if label == "1KGP3":
+            # the cluster route forced at 1KGP3 width, against the plain
+            # version and the one-CTA route
+            for name, K, args in (("chain_encode", 2, (q0, ss)),
+                                  ("chain_decode", 4, (yc, ss))):
+                kern = getattr(pbwt_kernels, name)
+                plain = getattr(pbwt_kernels, f"{name}_plain")
+                cases.append((
+                    f"{name}_cluster", "1KGP3 forced", f"{shape} K={K}",
+                    lambda f=kern, a=args, K=K: f(*a, cluster=K),
+                    lambda f=plain, a=args: f(*a),
+                    ("the one-CTA route", lambda got, f=kern, a=args:
+                     diff(got, f(*a, cluster=1)))))
+
+    rows, checks = {}, []
+    for name, label, shape, kern, plain, extra in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        if isinstance(got, tuple):   # wah_compress: (words, counts)
-            err = max(diff(g, w) for g, w in zip(got, want))
-        else:
-            err = diff(got, want)
-        require(err == 0, f"{name}: kernel differs from its plain version "
-                          f"(max abs err {err})")
-        if name == "wah_expand":     # and from the words that were encoded
-            err2 = diff(got.cpu(), words_cpu)
-            require(err2 == 0, f"wah_expand: expansion differs from the "
-                               f"encoded words (max abs err {err2})")
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        print(f"kernel {name}: bit-exact vs plain; {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms ({card})")
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"xsqueezeit_tpu_torch/csrc/{src}",
-                     "replaces": f"xsqueezeit_tpu/{replaces}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    return rows
+        err = diff(got, want)
+        require(err == 0, f"{name} at {shape}: kernel differs from its plain "
+                          f"version (max abs err {err})")
+        note = ""
+        if extra is not None:
+            err2 = extra[1](got)
+            require(err2 == 0, f"{name} at {shape}: differs from "
+                               f"{extra[0]} (max abs err {err2})")
+            note = f" and vs {extra[0]}"
+        del got, want
+        iters = 10 if label == "HRC" else 20
+        ms, plain_ms = cuda_ms(kern, iters=iters), cuda_ms(plain, iters=iters)
+        print(f"kernel {name} [{label}: {shape}]: bit-exact vs plain{note}; "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms ({card})")
+        checks.append({"name": name, "width": label, "shape": shape,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        # the kernels line holds each route at its own path's width: the
+        # cluster chains at HRC, the rest at 1KGP3
+        if name not in rows and ("cluster" in name) == (label == "HRC"):
+            src, replaces = ROUTES[name]
+            rows[name] = {"name": name, "route": "cuda",
+                          "source": SRC + src, "replaces": PALLAS + replaces,
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return rows, checks
 
 
-def block_level(card: str) -> dict:
-    """The main path at 1KGP3 geometry; returns the launch counts of its
-    one run, then times encode and decode."""
-
-    alleles = make_block(np.random.default_rng(SEED))
+def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
+    """One block through the main path's entry points, checked exactly;
+    returns the launch counts of that one run and the timings."""
+    H = 2 * n_samples
+    mac = int(H * 0.001)
+    t0 = time.perf_counter()
+    alleles = make_block(np.random.default_rng(seed), H)
     gt = (alleles.astype(np.int32) + 1) << 1          # unphased biallelic
-    kw = dict(n_samples=N_SAMPLES, block_bcf_lines=L,
-              mac_threshold=MAF_THRESHOLD, default_phasing=0,
-              aet_dtype=np.uint16)
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=mac,
+              default_phasing=0, aet_dtype=np.uint16)
+    print(f"[{name}] block of {L} x {H} made in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     ref = GtBlockEncoder(**kw)
     for row in gt:
         ref.encode_record(row, 2)
     ref_payload = ref.serialize()
-    print(f"host GtBlockEncoder reference: {len(ref_payload)} B in "
+    del ref
+    print(f"[{name}] host GtBlockEncoder reference: {len(ref_payload)} B in "
           f"{time.perf_counter() - t0:.1f} s")
 
     def ingest():
@@ -225,38 +323,44 @@ def block_level(card: str) -> dict:
         return enc
 
     enc = ingest()
-    counters = (pbwt_kernels.launches, wah_kernels.launches)
-    # ---- the main path, once, with every launch counter at 0 ----------
-    for c in counters:
-        for k in c:
-            c[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the path, once, with every launch counter at 0 ----------------
+    reset_counts()
     payload = enc.serialize()
     recs = decoder_torch.decode_block_records(
-        payload, N_SAMPLES, H, np.uint16, [2] * L, device=DEVICE)
+        payload, n_samples, H, np.uint16, [2] * L, device=DEVICE)
     torch.cuda.synchronize()
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = read_counts()
     # --------------------------------------------------------------------
-    print(f"main-path launches: {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{name}] path launches: {launches}")
     require(payload == ref_payload,
-            f"payload differs from GtBlockEncoder's ({len(payload)} vs "
-            f"{len(ref_payload)} B)")
-    got = np.stack(recs)
-    bad = int((got != gt).any(1).sum())
-    require(bad == 0, f"{bad} of {L} decoded lines differ from the input")
+            f"{name}: payload differs from GtBlockEncoder's ({len(payload)} "
+            f"vs {len(ref_payload)} B)")
+    bad = sum(int((r != g).any()) for r, g in zip(recs, gt))
+    require(len(recs) == L and bad == 0,
+            f"{name}: {bad} of {L} decoded lines differ from the input")
+    del recs
     for k, n in launches.items():
-        require(n > 0, f"kernel {k} was not launched by the main path")
+        if k in PATH_KERNELS[name]:
+            require(n > 0, f"{name}: kernel {k} was not launched by the path")
+        else:
+            require(n == 0, f"{name}: route {k} was launched by the path")
 
     # line classes, as the payload stores them
     ac = alleles.sum(1, dtype=np.int64)
-    mac = np.minimum(ac, H - ac)
-    n_wah = int((mac > MAF_THRESHOLD).sum())
-    n_neg = int(((mac <= MAF_THRESHOLD) & (ac != mac)).sum())
-    print(f"block: {L} lines x {H} haplotypes; {n_wah} WAH lines, "
+    mac_l = np.minimum(ac, H - ac)
+    n_wah = int((mac_l > mac).sum())
+    n_neg = int(((mac_l <= mac) & (ac != mac_l)).sum())
+    print(f"[{name}] block: {L} lines x {H} haplotypes; {n_wah} WAH lines, "
           f"{L - n_wah} sparse lines ({n_neg} negated); payload "
           f"{len(payload)} B byte-equal to GtBlockEncoder's; decode "
-          f"bit-exact on all {L} lines")
+          f"bit-exact on all {L} lines; peak device memory of the run "
+          f"{peak_gb:.3f} GB")
 
     # ---- timing, in bench.py's unit (L * H * 4 logical gt bytes) ------
+    wide = H > 2 * 5008
     prep = enc.prepare(pad=False)
     dev = torch.device(DEVICE)
 
@@ -266,55 +370,144 @@ def block_level(card: str) -> dict:
     staged = (t(prep["alleles_p"]), t(prep["alts_p"]),
               t(prep["wah_rows_p"], torch.int64), t(prep["sorts_w"]),
               t(prep["sparse_rows_p"], torch.int64), t(prep["negated_s"]))
-    cap = max(MAF_THRESHOLD, 1)
+    del prep, enc
+    cap = max(mac, 1)
+    torch.cuda.reset_peak_memory_stats()
     enc_ms = cuda_ms(lambda: encoder_torch.encode_block_core_compact(
-        *staged, cap), iters=10, warmup=2)
-    ser_ms = wall_ms(lambda: ingest().serialize(), iters=3, warmup=1)
+        *staged, cap), iters=5 if wide else 10, warmup=1 if wide else 2)
+    enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del staged
+    host_iters, host_warm = (2, 1) if wide else (3, 1)
+    ser_ms = wall_ms(lambda: ingest().serialize(), iters=host_iters,
+                     warmup=host_warm)
 
-    dec = decoder_torch.TorchBlockDecoder(payload, N_SAMPLES, H, np.uint16,
+    dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, np.uint16,
                                           device=dev)
     *dstaged, h, w, _ = dec.device_inputs()
     gt_dev = decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
     require(bool((gt_dev.cpu().numpy() == gt).all()),
-            "fused decode to gt codes is not bit-exact")
+            f"{name}: fused decode to gt codes is not bit-exact")
+    del gt_dev
 
     def decode_once():
         dec.host_inputs()                 # the per-block host parse
         return decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
 
-    dec_ms = wall_ms(decode_once)
+    torch.cuda.reset_peak_memory_stats()
+    dec_ms = wall_ms(decode_once, iters=5 if wide else 10,
+                     warmup=1 if wide else 2)
+    dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del dstaged
     rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
-        payload, N_SAMPLES, H, np.uint16, [2] * L, device=DEVICE),
-        iters=3, warmup=1)
+        payload, n_samples, H, np.uint16, [2] * L, device=DEVICE),
+        iters=host_iters, warmup=host_warm)
     gt_bytes = L * H * 4
     ratio = gt_bytes / len(payload)
-    print(f"encode core: {enc_ms:.3f} ms/block = "
-          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s | decode to gt codes (host "
-          f"parse + device): {dec_ms:.3f} ms/block = "
-          f"{gt_bytes / dec_ms / 1e6:.2f} GB/s | serialize (ingest + "
-          f"prepare + device + assemble): {ser_ms:.1f} ms | "
-          f"decode_block_records: {rec_ms:.1f} ms | compression "
-          f"{ratio:.2f}x ({card})")
-    return {"launches": launches, "encode_ms": enc_ms, "decode_ms": dec_ms,
-            "serialize_ms": ser_ms, "decode_records_ms": rec_ms,
-            "compression_ratio": ratio, "payload_bytes": len(payload)}
+    print(f"[{name}] encode core: {enc_ms:.3f} ms/block = "
+          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
+          f"| decode to gt codes (host parse + device): {dec_ms:.3f} "
+          f"ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
+          f"{dec_peak_gb:.3f} GB) | serialize (ingest + prepare + device + "
+          f"assemble): {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
+          f"ms | compression {ratio:.2f}x ({card})")
+    return {"launches": launches, "H": H, "encode_ms": enc_ms,
+            "decode_ms": dec_ms, "serialize_ms": ser_ms,
+            "decode_records_ms": rec_ms, "compression_ratio": ratio,
+            "payload_bytes": len(payload), "wah_lines": n_wah,
+            "sparse_lines": L - n_wah, "negated_lines": n_neg,
+            "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
+                               "decode": dec_peak_gb}}
+
+
+def file_phase(card: str) -> dict:
+    """The CLI on files: -c on the card and on the host codec give the same
+    .xsi bytes; -x on the card gives the input's genotypes back."""
+    work = os.path.join(REPO, ".bench_work", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    secs = {}
+
+    def path(f):
+        return os.path.join(work, f)
+
+    def cli(key, *args):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "xsqueezeit_tpu_torch.cli",
+                        *args], cwd=REPO, check=True)
+        secs[key] = time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        synth_bcf(path("in.bcf"), FILE_RECORDS, FILE_SAMPLES, seed=SEED)
+        secs["synth_bcf"] = time.perf_counter() - t0
+        block = ["--variant-block-length", str(L)]
+        cli("compress_cuda", "-c", "-f", path("in.bcf"), "-o",
+            path("cuda.xsi"), "--device", DEVICE, *block)
+        cli("compress_numpy", "-c", "-f", path("in.bcf"), "-o",
+            path("numpy.xsi"), "--device", "numpy", *block)
+        with open(path("cuda.xsi"), "rb") as a, \
+                open(path("numpy.xsi"), "rb") as b:
+            xsi_a, xsi_b = a.read(), b.read()
+        require(xsi_a == xsi_b, f".xsi of --device {DEVICE} "
+                                f"({len(xsi_a)} B) differs from --device "
+                                f"numpy's ({len(xsi_b)} B)")
+        cli("extract_cuda", "-x", "-f", path("cuda.xsi"), "-o",
+            path("out.bcf"), "--device", DEVICE)
+        t0 = time.perf_counter()
+        src, out = GtInput(path("in.bcf")), GtInput(path("out.bcf"))
+        n = bad = 0
+        for a, b in zip(src, out):
+            n += 1
+            bad += int(a.n_alleles != b.n_alleles
+                       or not np.array_equal(a.gt, b.gt))
+        n_out = n + sum(1 for _ in out)
+        src.close()
+        out.close()
+        secs["compare"] = time.perf_counter() - t0
+        require(n == FILE_RECORDS and n_out == n and bad == 0,
+                f"-x --device {DEVICE}: {bad} of {n} records differ "
+                f"({n_out} records read back, {FILE_RECORDS} written)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[file] {FILE_RECORDS} records x {FILE_SAMPLES} samples, "
+          f"{len(xsi_a)} B .xsi byte-identical across --device {DEVICE} / "
+          f"numpy, -x genotypes equal on every record; seconds: "
+          f"{json.dumps({k: round(v, 3) for k, v in secs.items()})} ({card})")
+    return {"xsi_bytes": len(xsi_a), "records": FILE_RECORDS,
+            "samples": FILE_SAMPLES, "seconds": secs}
 
 
 def main() -> int:
-    # The native host library links libzstd; pin the NumPy host paths so
-    # the run does not depend on it.
-    os.environ.setdefault("XSI_NATIVE", "0")
-    os.environ.setdefault("XSI_NATIVE_ENCODE", "0")
+    # The native host library links libzstd and libdeflate; pin the NumPy
+    # host paths so the run does not depend on it, nor try to build it
+    # (the CLI subprocesses inherit this).
+    for flag in ("XSI_NATIVE", "XSI_NATIVE_ENCODE", "XSI_NATIVE_PARSE"):
+        os.environ.setdefault(flag, "0")
+    phases = {}
 
-    card = machine_facts()
-    build_kernels()
-    rows = check_kernels(card)
-    blk = block_level(card)
-    for r in rows:
-        r["launches"] = blk["launches"][r["name"]]
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"block": {k: v for k, v in blk.items()
-                                if k != "launches"}, "card": card}))
+    def phase(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[key] = time.perf_counter() - t0
+        print(f"phase {key}: {phases[key]:.1f} s", flush=True)
+        return out
+
+    card = phase("machine", machine_facts)
+    phase("build", build_kernels)
+    rows, checks = phase("kernels", check_kernels, card)
+    blocks = {name: phase(f"block_{name}", block_phase, name, n, seed, card)
+              for name, n, seed in BLOCKS}
+    files = phase("file", file_phase, card)
+
+    for r in rows.values():
+        r["launches"] = sum(b["launches"][r["name"]] for b in blocks.values())
+    print(json.dumps({"kernel_checks": checks, "card": card}))
+    print(json.dumps({"blocks": {k: {x: v for x, v in b.items()
+                                     if x != "launches"}
+                                 for k, b in blocks.items()},
+                      "file": files, "phase_seconds": phases,
+                      "card": card}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

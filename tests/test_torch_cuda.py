@@ -49,11 +49,45 @@ def test_chain_kernels_match_plain(dev, n_ch, C, H):
 
 
 def test_chain_kernels_refuse_above_the_bound(dev):
+    # the one-CTA route refuses a row its shared memory cannot hold; the
+    # default route takes a cluster there, and nothing takes H > 65,535
     H = pbwt_kernels.MAX_H_DECODE + 1
     yc = torch.zeros((1, 16, H), dtype=torch.uint8, device=dev)
     ss = torch.ones((1, 16), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        pbwt_kernels.chain_decode(yc, ss)
+        pbwt_kernels.chain_decode(yc, ss, cluster=1)
+    wide = torch.zeros((1, 16, pbwt_kernels.MAX_H + 1), dtype=torch.uint8,
+                       device=dev)
+    with pytest.raises(ValueError, match="16 bits"):
+        pbwt_kernels.chain_decode(wide, ss)
+
+
+@pytest.mark.parametrize("n_ch,C,H,K_enc,K_dec", [
+    (4, 16, 5008, 2, 4),        # forced cluster at 1KGP3 width
+    (2, 16, 57857, None, None),  # just above the one-CTA encode bound
+    (3, 16, 64976, None, None),  # HRC: K = 2 (encode), 4 (decode)
+    (3, 16, 64976, 8, 8),
+    (2, 9, 1001, 3, 3),          # H not divisible by K
+    (2, 16, 3, 8, 8),            # CTAs whose slot range is empty
+])
+def test_chain_cluster_routes_match_plain(dev, n_ch, C, H, K_enc, K_dec):
+    rng = np.random.default_rng(H + C)
+    ss = torch.from_numpy(rng.random((n_ch, C)) < 0.8).to(dev)
+    ss[0] = True                 # one chain that sorts on every line
+    q0 = torch.from_numpy(rng.integers(0, 1 << C, (n_ch, H),
+                                       dtype=np.int32)).to(dev)
+    n0 = dict(pbwt_kernels.launches)
+    assert _equal(pbwt_kernels.chain_encode(q0, ss, cluster=K_enc),
+                  pbwt_kernels.chain_encode_plain(q0, ss))
+    yc = torch.from_numpy((rng.random((n_ch, C, H)) < 0.4)
+                          .astype(np.uint8)).to(dev)
+    assert _equal(pbwt_kernels.chain_decode(yc, ss, cluster=K_dec),
+                  pbwt_kernels.chain_decode_plain(yc, ss))
+    n1 = pbwt_kernels.launches
+    assert n1["chain_encode_cluster"] == n0["chain_encode_cluster"] + 1
+    assert n1["chain_decode_cluster"] == n0["chain_decode_cluster"] + 1
+    assert n1["chain_encode"] == n0["chain_encode"]
+    assert n1["chain_decode"] == n0["chain_decode"]
 
 
 @pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
@@ -75,21 +109,27 @@ def test_wah_kernels_match_plain(dev, L, H):
         assert _equal(out[:L], words)
 
 
-def test_block_roundtrip_on_card(dev):
+@pytest.mark.parametrize("n_samples,L,mac,route", [
+    (300, 700, 3, ""),
+    (32488, 64, 64, "_cluster"),   # HRC width: the chains' cluster routes
+])
+def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
     rng = np.random.default_rng(3)
-    n_samples, L = 300, 700
     p = rng.choice([0.0005, 0.005, 0.2, 0.6, 0.9995], (L, 1))
     alleles = (rng.random((L, 2 * n_samples)) < p).astype(np.int32)
     gt = ((alleles + 1) << 1) | (np.arange(2 * n_samples) & 1)
-    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=3,
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=mac,
               default_phasing=1, aet_dtype=np.uint16)
     ref = GtBlockEncoder(**kw)
     enc = encoder_torch.TorchBlockEncoder(device=dev, **kw)
     for row in gt:
         ref.encode_record(row, 2)
         enc.encode_record(row, 2)
+    n0 = dict(pbwt_kernels.launches)
     payload = enc.serialize()
     assert payload == ref.serialize()
     out = decoder_torch.decode_block_records(
         payload, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev)
     np.testing.assert_array_equal(np.stack(out), gt)
+    for k in ("chain_encode", "chain_decode"):
+        assert pbwt_kernels.launches[k + route] == n0[k + route] + 1

@@ -27,6 +27,7 @@ from xsqueezeit_tpu.format.constants import (
     DEFAULT_ZSTD_LEVEL,
 )
 
+from .format.zstd_shim import ZstdUnavailable
 from .utils.devprobe import DEVICES, DeviceUnavailable
 
 
@@ -100,7 +101,7 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         return 130
     except (ValueError, OSError, EOFError, NotImplementedError,
-            DeviceUnavailable, struct.error) as exc:
+            DeviceUnavailable, ZstdUnavailable, struct.error) as exc:
         # one-line diagnostics for user-level failures (XSI_DEBUG=1
         # re-raises for development)
         if os.environ.get("XSI_DEBUG"):

@@ -15,6 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+# before the container: it imports zstandard, which may be missing
+from ..format import zstd_shim  # noqa: F401  isort: skip
 from xsqueezeit_tpu.codec import compressor as _base
 from xsqueezeit_tpu.format.constants import (
     XSI_BCF_VAR_EXTENSION,

@@ -24,7 +24,7 @@ from xsqueezeit_tpu.ops import pbwt_np, wah_np
 from xsqueezeit_tpu.ops.sparse_np import msb as _msb, sparse_line_offsets
 
 from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
-from .encoder_torch import LATER
+from .encoder_torch import LATER, TOO_WIDE
 
 
 def _decode_wah_and_scan(stream, sorts, h: int, w: int) -> torch.Tensor:
@@ -160,10 +160,8 @@ class TorchBlockDecoder:
         """host_inputs moved to the decoder's device, plus (H, W, L)."""
         (stream, sorts, rank, is_wah, neg, car_line, car_idx,
          H, W, L, _n_wah) = self.host_inputs()
-        if H > pbwt_kernels.MAX_H_DECODE:
-            raise NotImplementedError(
-                f"blocks wider than {pbwt_kernels.MAX_H_DECODE} haplotypes "
-                f"(the chain kernel's shared-memory bound) are {LATER}")
+        if H > pbwt_kernels.MAX_H:
+            raise NotImplementedError(f"{TOO_WIDE} (got {H})")
         t = [torch.from_numpy(x).to(self.device)
              for x in (stream, sorts, rank, is_wah, neg, car_line, car_idx)]
         return (*t, H, W, L)

@@ -12,6 +12,8 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
+# before the container: it imports zstandard, which may be missing
+from ..format import zstd_shim  # noqa: F401  isort: skip
 from xsqueezeit_tpu.codec import decompressor as _base
 from xsqueezeit_tpu.format.constants import BM_BLOCK_BITS
 

@@ -26,6 +26,10 @@ from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
 
 #: Later PR of the port that brings the cases this slice refuses.
 LATER = "not ported to the CUDA path yet (a later PR of the port)"
+#: Why blocks above the chunked PBWT's 16-bit slot field are refused.
+TOO_WIDE = (f"blocks wider than {pbwt_kernels.MAX_H} haplotypes need the "
+            f"pbwt_encode_scan / pbwt_decode_blocked fallbacks, which are "
+            f"{LATER} (ROADMAP.md: wider than HRC)")
 
 
 def carrier_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
@@ -92,11 +96,8 @@ class TorchBlockEncoder(BlockEncoderBase):
     def serialize_prepared(self, prep: dict) -> bytes:
         if prep["mixed"]:
             raise NotImplementedError(f"mixed-ploidy blocks are {LATER}")
-        H = prep["H"]
-        if H > pbwt_kernels.MAX_H_ENCODE:   # also below the 16-bit bound
-            raise NotImplementedError(
-                f"blocks wider than {pbwt_kernels.MAX_H_ENCODE} haplotypes "
-                f"(the chain kernel's shared-memory bound) are {LATER}")
+        if prep["H"] > pbwt_kernels.MAX_H:
+            raise NotImplementedError(f"{TOO_WIDE} (got {prep['H']})")
 
         def dev(a, dtype=None):
             t = torch.from_numpy(np.ascontiguousarray(a))

@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libxsi_kernels.so")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +36,8 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     "xsi_chain_encode": (_P, _P, _P, _I, _I, _I, _P),
     "xsi_chain_decode": (_P, _P, _P, _I, _I, _I, _P),
+    "xsi_chain_encode_cluster": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "xsi_chain_decode_cluster": (_P, _P, _P, _I, _I, _I, _I, _P),
     "xsi_wah_expand": (_P, _P, _P, _I, _I, _P),
     "xsi_wah_compress": (_P, _P, _P, _I, _I, _P),
 }
@@ -70,21 +72,41 @@ def _stale() -> bool:
     return any(os.path.getmtime(p) > built for p in deps)
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    one that fails, after all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(c) + "\n" + out)
+
+
 def build(force: bool = False) -> str:
     """Compile the kernels if the library is missing or stale; returns its
-    path.  The library is written under a temporary name and renamed into
-    place, so a reader never sees a half-written file."""
+    path.  Each source compiles to an object in its own nvcc process, all
+    at once, and one more links them.  The library is written under a
+    temporary name and renamed into place, so a reader never sees a
+    half-written file."""
     global last_build_seconds
     if not force and not _stale():
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + f".{tag}.o")
+            for src in sources()]
+    tmp = f"{LIB_PATH}.{tag}"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + r.stdout + r.stderr)
+    try:
+        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+                  for src, obj in zip(sources(), objs)])
+        _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
     os.replace(tmp, LIB_PATH)
     last_build_seconds = time.perf_counter() - t0
     return LIB_PATH

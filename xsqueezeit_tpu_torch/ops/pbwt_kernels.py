@@ -4,9 +4,16 @@ versions.
 Port of xsqueezeit_tpu/ops/pbwt_pallas.py (chain_encode, chain_decode).
 A chunk holds C <= 16 lines; its state is one value per haplotype slot in
 arrangement order, and every sorting line stably partitions the slots by
-the line's bit (zeros first, order kept).  Each wrapper launches its kernel
+the line's bit (zeros first, order kept).  Each wrapper launches a kernel
 for CUDA tensors and calls the plain version for CPU tensors; there is no
-fallback from one to the other.  ``launches`` counts kernel launches.
+fallback from one to the other.
+
+Each chain runs on one CTA while its double-buffered row fits one CTA's
+shared memory (H <= MAX_H_ENCODE / MAX_H_DECODE), and on a thread-block
+cluster of K CTAs above that, up to H = 65,535: at HRC width (64,976
+haplotypes) K = 2 for encode and 4 for decode.  ``cluster`` picks the
+route explicitly (see :func:`cluster_size`).  ``launches`` counts kernel
+launches per route.
 """
 from __future__ import annotations
 
@@ -17,13 +24,54 @@ from . import _build
 #: Shared memory one CTA may use on an H100, less 1 KiB kept for the
 #: kernels' static scratch.
 _SMEM_BYTES = 227 * 1024 - 1024
-#: Largest H each kernel holds: a double-buffered row of 16-bit registers
-#: (encode) or of 32-bit (slot << 16 | beta) states (decode).
+#: Largest H the one-CTA kernels hold: a double-buffered row of 16-bit
+#: registers (encode) or of 32-bit (slot << 16 | beta) states (decode).
 MAX_H_ENCODE = _SMEM_BYTES // (2 * 2)
 MAX_H_DECODE = _SMEM_BYTES // (2 * 4)
+#: Largest H of either route: the decode state keeps the slot in 16 bits.
+MAX_H = 65535
+#: Most CTAs in a cluster (the portable cluster size).
+MAX_CLUSTER = 8
+#: Bytes per haplotype of each chain's state.
+_STATE_BYTES = {"chain_encode": 2, "chain_decode": 4}
 
-#: Kernel launches since the last reset, by kernel name.
-launches = {"chain_encode": 0, "chain_decode": 0}
+#: Kernel launches since the last reset, by kernel route.
+launches = {"chain_encode": 0, "chain_decode": 0,
+            "chain_encode_cluster": 0, "chain_decode_cluster": 0}
+
+
+def _fits(H: int, K: int, state_bytes: int) -> bool:
+    """Whether each CTA of a K-CTA chain holds its double-buffered share
+    of an H-slot row."""
+    return 2 * state_bytes * -(-H // K) <= _SMEM_BYTES
+
+
+def cluster_size(name: str, H: int, cluster: int | None = None) -> int:
+    """CTAs per chain for kernel `name` at width H: 1 is the one-CTA
+    route, K >= 2 a cluster of K CTAs.
+
+    cluster=None picks 1 while the row fits one CTA and else the smallest
+    power of two whose share fits; an int asks for that many CTAs (so a
+    cluster can also run a narrow row).  Raises ValueError for a size the
+    shared memory or the cluster limit refuses, and for H > 65,535."""
+    state = _STATE_BYTES[name]
+    if H > MAX_H:
+        raise ValueError(f"{name} keeps slots in 16 bits: H <= {MAX_H} "
+                         f"(got {H})")
+    if cluster is None:
+        K = 1
+        while not _fits(H, K, state) and K < MAX_CLUSTER:
+            K *= 2
+    else:
+        K = int(cluster)
+    if not 1 <= K <= MAX_CLUSTER:
+        raise ValueError(f"{name}: a chain runs on 1 to {MAX_CLUSTER} CTAs "
+                         f"(got {K})")
+    if not _fits(H, K, state):
+        raise ValueError(f"{name} on {K} CTA(s) holds at most "
+                         f"{K * (_SMEM_BYTES // (2 * state))} haplotypes in "
+                         f"shared memory (got {H})")
+    return K
 
 
 def _partition_dest(y: torch.Tensor, sorts: torch.Tensor) -> torch.Tensor:
@@ -91,34 +139,44 @@ def _flags(name: str, ss: torch.Tensor, n_ch: int,
     return ss.contiguous().view(torch.uint8)
 
 
-def chain_encode(q0: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
-    """Encode chunk chains (see chain_encode_plain for the contract)."""
+def _launch(name: str, device, K: int, *args) -> None:
+    """Launch `name`'s one-CTA kernel (K = 1) or its K-CTA cluster kernel
+    and count the launch under its route."""
+    if K == 1:
+        _build.launch(device, f"xsi_{name}", *args)
+        launches[name] += 1
+    else:
+        _build.launch(device, f"xsi_{name}_cluster", *args, K)
+        launches[f"{name}_cluster"] += 1
+
+
+def chain_encode(q0: torch.Tensor, ss: torch.Tensor,
+                 cluster: int | None = None) -> torch.Tensor:
+    """Encode chunk chains (see chain_encode_plain for the contract) on
+    `cluster` CTAs per chain (see cluster_size; None: chosen by H)."""
     if q0.device.type == "cpu":
         return chain_encode_plain(q0, ss)
     _check("chain_encode", q0, torch.int32, 2)
     n_ch, H = q0.shape
-    if H > MAX_H_ENCODE:
-        raise ValueError(f"chain_encode holds at most {MAX_H_ENCODE} "
-                         f"haplotypes in shared memory (got {H})")
+    K = cluster_size("chain_encode", H, cluster)
     flags = _flags("chain_encode", ss, n_ch, q0.device)
     C = flags.shape[1]
     q0 = q0.contiguous()
     y = torch.empty((n_ch, C, H), dtype=torch.uint8, device=q0.device)
-    _build.launch(q0.device, "xsi_chain_encode", q0.data_ptr(),
-                  flags.data_ptr(), y.data_ptr(), n_ch, H, C)
-    launches["chain_encode"] += 1
+    _launch("chain_encode", q0.device, K, q0.data_ptr(), flags.data_ptr(),
+            y.data_ptr(), n_ch, H, C)
     return y
 
 
-def chain_decode(yc: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
-    """Decode chunk chains (see chain_decode_plain for the contract)."""
+def chain_decode(yc: torch.Tensor, ss: torch.Tensor,
+                 cluster: int | None = None) -> torch.Tensor:
+    """Decode chunk chains (see chain_decode_plain for the contract) on
+    `cluster` CTAs per chain (see cluster_size; None: chosen by H)."""
     if yc.device.type == "cpu":
         return chain_decode_plain(yc, ss)
     _check("chain_decode", yc, torch.uint8, 3)
     n_ch, C, H = yc.shape
-    if H > MAX_H_DECODE:
-        raise ValueError(f"chain_decode holds at most {MAX_H_DECODE} "
-                         f"haplotypes in shared memory (got {H})")
+    K = cluster_size("chain_decode", H, cluster)
     flags = _flags("chain_decode", ss, n_ch, yc.device)
     if flags.shape[1] != C:
         raise ValueError(f"chain_decode: {flags.shape[1]} sort flags for "
@@ -127,7 +185,6 @@ def chain_decode(yc: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
     # the kernel writes uint32 states; torch's uint32 lacks shifts, so the
     # bits land in an int32 buffer and widen to int64 here
     out = torch.empty((n_ch, H), dtype=torch.int32, device=yc.device)
-    _build.launch(yc.device, "xsi_chain_decode", yc.data_ptr(),
-                  flags.data_ptr(), out.data_ptr(), n_ch, H, C)
-    launches["chain_decode"] += 1
+    _launch("chain_decode", yc.device, K, yc.data_ptr(), flags.data_ptr(),
+            out.data_ptr(), n_ch, H, C)
     return out.to(torch.int64) & 0xFFFFFFFF

@@ -60,30 +60,36 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
         raise ValueError("pbwt_encode_chunked requires H <= 65535")
     dev = alleles.device
     C = chunk
-    x = (alleles.to(torch.int32) == alts.to(torch.int32)[:, None])
+    x = alleles == alts[:, None]
     pad = (-L) % C
     sorts = sorts.to(torch.bool)
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
         sorts = torch.nn.functional.pad(sorts, (0, pad))
     n_ch = (L + pad) // C
-    xc = x.reshape(n_ch, C, H).to(torch.int64)
-    jshift = torch.arange(C, device=dev)
-    bhat = (xc << jshift[None, :, None]).sum(1)             # [n_ch, H]
+    xc = x.reshape(n_ch, C, H)
 
-    # Chunk history totals over sorting lines (latest sorting bit highest).
+    # Registers (bit j = chunk line j) and chunk history totals over the
+    # sorting lines (latest sorting bit highest), one line at a time so
+    # the temporaries stay [n_ch, H] (at HRC width a [n_ch, C, H] int64
+    # grid would be over 2 GB).
     ss = sorts.reshape(n_ch, C)
     ssi = ss.to(torch.int64)
     sh = torch.cumsum(ssi, 1) - ssi
-    T = torch.where(ss[:, :, None], xc << sh[:, :, None], 0).sum(1)
+    bhat = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
+    T = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
+    for j in range(C):
+        xj = xc[:, j].to(torch.int64)
+        bhat |= xj << j
+        T |= (xj << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
 
     iota = torch.arange(H, device=dev)
     r_fin, r_starts = _rank_chain(T, iota)
 
     # Register load: each haplotype's register lands at its chunk-start slot.
-    q0 = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
-    q0.scatter_(1, r_starts, bhat)
-    ys = pbwt_kernels.chain_encode(q0.to(torch.int32), ss)
+    q0 = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
+    q0.scatter_(1, r_starts, bhat.to(torch.int32))
+    ys = pbwt_kernels.chain_encode(q0, ss)
     return ys.reshape(n_ch * C, H)[:L], _inverse(r_fin)
 
 
@@ -125,6 +131,8 @@ def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor,
     beta = p_fin & 0xFFFF
     inc = _compose_prefix(o_tot)            # haplotype per end slot
     X = torch.empty_like(beta).scatter_(1, inc, beta)   # natural order
-    jshift = torch.arange(C, device=dev)
-    vals = ((X[:, None, :] >> jshift[None, :, None]) & 1).to(torch.uint8)
+    # one line at a time: temporaries stay [n_ch, H]
+    vals = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
+    for j in range(C):
+        vals[:, j] = (X >> j) & 1
     return vals.reshape(n_ch * C, H)[:L], inc[-1]

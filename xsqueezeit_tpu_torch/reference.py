@@ -1,10 +1,13 @@
-"""The host codec the port is held against.
+"""The host codec the port is held against, and its test inputs.
 
 The per-record NumPy encoder and decoder of the JAX package (jax-free
-modules) define the byte-exact payload contract; scripts and checks of the
-port take them from here.
+modules) define the byte-exact payload contract; the synthetic BCF writer
+and the VCF/BCF genotype reader make and read the file-level inputs.
+Scripts and checks of the port take them from here.
 """
+from xsqueezeit_tpu.bench.e2e import synth_bcf
 from xsqueezeit_tpu.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu.codec.gt_block_decoder import GtBlockDecoder
+from xsqueezeit_tpu.io.unified import GtInput
 
-__all__ = ["GtBlockDecoder", "GtBlockEncoder"]
+__all__ = ["GtBlockDecoder", "GtBlockEncoder", "GtInput", "synth_bcf"]
