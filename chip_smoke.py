@@ -13,7 +13,8 @@ exactly:
    bit-exact, with both times: the one-CTA chains and the WAH kernels at
    1KGP3 shapes, the cluster chains at HRC width (H = 64,976) and forced
    at H = 5008 (also against the one-CTA route), the WAH kernels at HRC
-   width (w = 4332);
+   width (w = 4332), the per-line-width expand at the widths of a chrX
+   PAR block (w = 165 and 83, lines alternating in runs);
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
    threshold 10, the rare-heavy mix of bench.py) and the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
@@ -23,10 +24,19 @@ exactly:
    just after, and each kernel route of that path must have launched.
    Prints ms/block and GB/s in bench.py's unit (L * H * 4 logical gt
    bytes), the compression ratio and the peak device memory;
-5. the file level: a synthetic 1KGP3-width BCF of two blocks through
+5. the exception-track and mixed-ploidy blocks, checked the same way:
+   1KGP3-missing (the 1KGP3 block with 1 % of entries missing, as
+   bench.py's missing regime: every record carries a missing track),
+   1KGP3-chrX (the 1233 male samples hold end-of-vector in their second
+   slot on every record) and chrX-males-PAR (the 1233 males only, 4096
+   diploid PAR lines then 4096 haploid ones: a mixed-ploidy block, decoded
+   without offsets).  The track blocks also hold the fused decode
+   (_decode_block_full_gt_tracks) against the input;
+6. the file level: a synthetic 1KGP3-width BCF of two blocks through
    `cli -c --device cuda` and `--device numpy` (byte-identical .xsi) and
    `cli -x --device cuda` back to BCF (the input's genotypes on every
-   record).
+   record); then the same with 1 % of entries missing, plus `cli -x -O x`
+   on `cuda` and `numpy` (byte-identical re-encoded .xsi).
 
 Any failure exits non-zero; the last line of standard output is the result
 JSON, the line before it the card's name and power limit.
@@ -44,9 +54,14 @@ import numpy as np
 import torch
 
 from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
-from xsqueezeit_tpu_torch.ops import _build, pbwt_kernels, wah_kernels
-from xsqueezeit_tpu_torch.ops import wah_torch
-from xsqueezeit_tpu_torch.reference import GtBlockEncoder, GtInput, synth_bcf
+from xsqueezeit_tpu_torch.ops import _build, pbwt_kernels, pbwt_torch
+from xsqueezeit_tpu_torch.ops import wah_kernels, wah_torch
+from xsqueezeit_tpu_torch.reference import (
+    INT32_VECTOR_END,
+    GtBlockEncoder,
+    GtInput,
+    synth_bcf,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -55,16 +70,25 @@ SEED = 20
 #: (name, samples, seed of the block); MAF 0.001 sets the MAC threshold
 BLOCKS = (("1KGP3", 2504, SEED), ("HRC", 32488, SEED + 1))
 HRC_H = 2 * 32488
+#: Male samples of the 1KGP3 panel: haploid on chrX outside the PARs.
+MALES = 1233
+#: Exception-track blocks at 1KGP3 width (the 1KGP3 block's alleles).
+TRACK_BLOCKS = ("1KGP3-missing", "1KGP3-chrX")
+MIXED_BLOCK = "chrX-males-PAR"
+ONE_CTA = ("chain_encode", "chain_decode", "wah_expand", "wah_compress")
 #: Kernel routes each block's path must launch (the others must not).
 PATH_KERNELS = {
-    "1KGP3": ("chain_encode", "chain_decode", "wah_expand", "wah_compress"),
+    "1KGP3": ONE_CTA,
     "HRC": ("chain_encode_cluster", "chain_decode_cluster", "wah_expand",
             "wah_compress"),
+    "1KGP3-missing": ONE_CTA,
+    "1KGP3-chrX": ONE_CTA,
+    MIXED_BLOCK: ("wah_compress", "wah_expand_varw"),
 }
 #: Kernel-check shapes: 1KGP3 and HRC widths.
 KERNEL_SHAPES = dict(H=5008, C=16, n_ch=256, n_lines=4096)
 HRC_SHAPES = dict(H=HRC_H, C=16, n_ch=64, n_lines=4096)
-#: The file-level phase: 1KGP3 width, two blocks.
+#: The file-level phases: 1KGP3 width, two blocks.
 FILE_SAMPLES, FILE_RECORDS = 2504, 2 * L
 
 SRC = "xsqueezeit_tpu_torch/csrc/"
@@ -76,6 +100,8 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     "wah_compress": ("wah.cu", "wah_pallas.py:112"),
     "chain_encode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:133"),
     "chain_decode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:76"),
+    # an XLA function in the JAX package (no Pallas kernel there)
+    "wah_expand_varw": ("wah.cu", "wah_jax.py:227"),
 }
 
 
@@ -215,6 +241,33 @@ def wah_inputs(rng, s, dev):
     return words_cpu, words_cpu.to(dev), stream.to(dev)
 
 
+def varw_inputs(rng, n_samples: int, n_lines: int, dev):
+    """A stream of lines of two widths, haploid (n_samples bits) and
+    diploid (2 n_samples), alternating in runs of 64 lines as a chrX PAR
+    boundary block's lines would; returns (the packed words, zero past a
+    line's width, on the CPU), the stream and the group offsets on dev."""
+    hap = np.repeat(rng.random(n_lines // 64) < 0.5, 64)
+    dens = rng.choice([0.0, 0.0005, 0.01, 0.3, 0.9, 0.999, 1.0], n_lines)
+    grids = [wah_torch.pack_bits(torch.from_numpy(
+        bernoulli_rows(rng, dens, w))) for w in (2 * n_samples, n_samples)]
+    w_max = grids[0].shape[1]
+    words = grids[0].clone()
+    hap_t = torch.from_numpy(hap)
+    words[hap_t] = 0
+    words[hap_t, :grids[1].shape[1]] = grids[1][hap_t]
+    # torch's uint16 lacks masked writes on the CPU: stitch in int32
+    (dw, dn), (hw, hn) = (wah_torch.wah_compress_words(g) for g in grids)
+    comb, hw = dw.to(torch.int32), hw.to(torch.int32)
+    comb[hap_t] = 0
+    comb[hap_t, :hw.shape[1]] = hw[hap_t]
+    n = torch.where(hap_t, hn, dn)
+    stream = torch.cat([comb[torch.arange(w_max)[None, :] < n[:, None]],
+                        torch.zeros(64, dtype=torch.int32)]).to(torch.uint16)
+    widths = np.where(hap, grids[1].shape[1], w_max)
+    group_off = torch.from_numpy(np.concatenate([[0], np.cumsum(widths)]))
+    return words, stream.to(dev), group_off.to(dev), w_max
+
+
 def check_kernels(card: str) -> tuple[dict, list[dict]]:
     """Each kernel route vs its plain version on the card, bit-exact; both
     timed by CUDA events.  Returns the JSON rows of the kernels line (by
@@ -263,6 +316,17 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                     ("the one-CTA route", lambda got, f=kern, a=args:
                      diff(got, f(*a, cluster=1)))))
 
+    # the per-line-width expand at a chrX PAR block's widths (its own
+    # generator: the draws of the cases above stay as they were)
+    vwords, vstream, voff, vw = varw_inputs(np.random.default_rng(2), MALES,
+                                            4096, dev)
+    cases.append((
+        "wah_expand_varw", "chrX-PAR",
+        f"n_lines=4096 w={vw}/{wah_torch.n_words_for(MALES)} in runs",
+        lambda: wah_kernels.wah_expand_varw(vstream, voff, vw),
+        lambda: wah_kernels.wah_expand_varw_plain(vstream, voff, vw),
+        ("the encoded words", lambda got: diff(got.cpu(), vwords))))
+
     rows, checks = {}, []
     for name, label, shape, kern, plain, extra in cases:
         got, want = kern(), plain()
@@ -284,13 +348,71 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         checks.append({"name": name, "width": label, "shape": shape,
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
         # the kernels line holds each route at its own path's width: the
-        # cluster chains at HRC, the rest at 1KGP3
+        # cluster chains at HRC, the per-line-width expand at chrX PAR
+        # widths, the rest at 1KGP3
         if name not in rows and ("cluster" in name) == (label == "HRC"):
             src, replaces = ROUTES[name]
             rows[name] = {"name": name, "route": "cuda",
                           "source": SRC + src, "replaces": PALLAS + replaces,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     return rows, checks
+
+
+def host_reference(name: str, kw: dict, rows) -> bytes:
+    """The host GtBlockEncoder's payload of the block's records."""
+    t0 = time.perf_counter()
+    ref = GtBlockEncoder(**kw)
+    for row in rows:
+        ref.encode_record(row, 2)
+    payload = ref.serialize()
+    print(f"[{name}] host GtBlockEncoder reference: {len(payload)} B in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return payload
+
+
+def ingester(kw: dict, gt_flat: np.ndarray, widths: np.ndarray):
+    """A function that ingests the block's biallelic records into a new
+    TorchBlockEncoder through the batched entry point."""
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int64)
+    na = np.full(len(widths), 2, np.int32)
+
+    def ingest():
+        enc = encoder_torch.TorchBlockEncoder(device=DEVICE, **kw)
+        enc.encode_records(gt_flat, offs, na, 0, len(widths))
+        return enc
+    return ingest
+
+
+def run_path(name: str, enc, decode, ref_payload: bytes, rows) -> tuple:
+    """The path once -- enc.serialize(), then decode(payload) -- with every
+    launch counter at 0 just before and read just after.  Requires the
+    payload byte-equal to the host's, every decoded record equal to its
+    row, each of the path's kernel routes launched and no other.  Returns
+    (payload, launches, peak device GB of the run)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the path, once, with every launch counter at 0 ----------------
+    reset_counts()
+    payload = enc.serialize()
+    recs = decode(payload)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # --------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{name}] path launches: {launches}")
+    require(payload == ref_payload,
+            f"{name}: payload differs from GtBlockEncoder's ({len(payload)} "
+            f"vs {len(ref_payload)} B)")
+    bad = sum(int(r.shape != g.shape or (r != g).any())
+              for r, g in zip(recs, rows))
+    require(len(recs) == L and bad == 0,
+            f"{name}: {bad} of {L} decoded lines differ from the input")
+    for k, n in launches.items():
+        if k in PATH_KERNELS[name]:
+            require(n > 0, f"{name}: kernel {k} was not launched by the path")
+        else:
+            require(n == 0, f"{name}: route {k} was launched by the path")
+    return payload, launches, peak_gb
 
 
 def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
@@ -305,48 +427,13 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
               default_phasing=0, aet_dtype=np.uint16)
     print(f"[{name}] block of {L} x {H} made in "
           f"{time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    ref = GtBlockEncoder(**kw)
-    for row in gt:
-        ref.encode_record(row, 2)
-    ref_payload = ref.serialize()
-    del ref
-    print(f"[{name}] host GtBlockEncoder reference: {len(ref_payload)} B in "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    def ingest():
-        enc = encoder_torch.TorchBlockEncoder(device=DEVICE, **kw)
-        enc.encode_records(gt.reshape(-1),
-                           np.arange(L + 1, dtype=np.int64) * H,
-                           np.full(L, 2, np.int32), 0, L)
-        return enc
-
+    ref_payload = host_reference(name, kw, gt)
+    ingest = ingester(kw, gt.reshape(-1), np.full(L, H))
     enc = ingest()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # ---- the path, once, with every launch counter at 0 ----------------
-    reset_counts()
-    payload = enc.serialize()
-    recs = decoder_torch.decode_block_records(
-        payload, n_samples, H, np.uint16, [2] * L, device=DEVICE)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    # --------------------------------------------------------------------
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{name}] path launches: {launches}")
-    require(payload == ref_payload,
-            f"{name}: payload differs from GtBlockEncoder's ({len(payload)} "
-            f"vs {len(ref_payload)} B)")
-    bad = sum(int((r != g).any()) for r, g in zip(recs, gt))
-    require(len(recs) == L and bad == 0,
-            f"{name}: {bad} of {L} decoded lines differ from the input")
-    del recs
-    for k, n in launches.items():
-        if k in PATH_KERNELS[name]:
-            require(n > 0, f"{name}: kernel {k} was not launched by the path")
-        else:
-            require(n == 0, f"{name}: route {k} was launched by the path")
+    payload, launches, peak_gb = run_path(
+        name, enc, lambda p: decoder_torch.decode_block_records(
+            p, n_samples, H, np.uint16, [2] * L, device=DEVICE),
+        ref_payload, gt)
 
     # line classes, as the payload stores them
     ac = alleles.sum(1, dtype=np.int64)
@@ -419,9 +506,236 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
                                "decode": dec_peak_gb}}
 
 
-def file_phase(card: str) -> dict:
+def to_device(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+            for a in arrays]
+
+
+def track_block_phase(name: str, card: str) -> dict:
+    """An exception-track block at 1KGP3 width (the 1KGP3 block's alleles):
+    1KGP3-missing sets 1 % of entries missing (bench.py's missing regime),
+    1KGP3-chrX gives the 1233 male samples end-of-vector in their second
+    slot on every record.  Every record carries a track, so serialize()
+    encodes them inside the block's own device run; the fused decode
+    (_decode_block_full_gt_tracks) is held against the input too."""
+    n_samples = 2504
+    H = 2 * n_samples
+    mac = int(H * 0.001)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    gt = (make_block(rng, H).astype(np.int32) + 1) << 1
+    if name == "1KGP3-missing":
+        for a in range(0, L, 512):          # bench.py:233-234, in slices
+            part = gt[a:a + 512]
+            part[rng.random(part.shape) < 0.01] = 0
+    else:
+        males = np.random.default_rng(SEED + 3).choice(n_samples, MALES,
+                                                       replace=False)
+        gt[:, 2 * np.sort(males) + 1] = INT32_VECTOR_END
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=mac,
+              default_phasing=0, aet_dtype=np.uint16)
+    print(f"[{name}] block of {L} x {H} made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ref_payload = host_reference(name, kw, gt)
+    ingest = ingester(kw, gt.reshape(-1), np.full(L, H))
+    enc = ingest()
+    payload, launches, peak_gb = run_path(
+        name, enc, lambda p: decoder_torch.decode_block_records(
+            p, n_samples, H, np.uint16, [2] * L, device=DEVICE),
+        ref_payload, gt)
+
+    # ---- the fused decode, and the timings (bench.py's unit) ----------
+    dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, np.uint16,
+                                          device=DEVICE)
+    m = dec.meta
+
+    def carrier_pairs():
+        out = []
+        for stream, flags in ((m.missing_sparse, m.line_has_missing),
+                              (m.eov_sparse, m.line_has_eov)):
+            out += (decoder_torch.track_carriers(
+                stream, np.flatnonzero(flags), np.uint16)
+                if flags is not None else [np.zeros(0, np.int64)] * 2)
+        return out
+
+    pairs = carrier_pairs()
+    n_carriers = (len(pairs[0]), len(pairs[2]))
+    *dstaged, h, w, _ = dec.device_inputs()
+    pairs_dev = to_device(*pairs)
+    gt_dev = decoder_torch._decode_block_full_gt_tracks(*dstaged, 0,
+                                                        *pairs_dev, h, w)
+    require(bool((gt_dev.cpu().numpy() == gt).all()),
+            f"{name}: fused decode with track overlays is not bit-exact")
+    del gt_dev
+
+    def decode_once():
+        dec.host_inputs()                 # the per-block host parse
+        carrier_pairs()
+        return decoder_torch._decode_block_full_gt_tracks(
+            *dstaged, 0, *pairs_dev, h, w)
+
+    torch.cuda.reset_peak_memory_stats()
+    dec_ms = wall_ms(decode_once, iters=10, warmup=2)
+    dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # its parts: the host's walk of the track streams, and the device
+    walk_ms = wall_ms(carrier_pairs, iters=3, warmup=1)
+    dev_ms = cuda_ms(lambda: decoder_torch._decode_block_full_gt_tracks(
+        *dstaged, 0, *pairs_dev, h, w), iters=10, warmup=2)
+    del dstaged, pairs_dev
+
+    prep = enc.prepare(pad=False)
+    nm = len(prep["flag_m"])
+    rows = prep["first_lines"][np.concatenate([prep["flag_m"],
+                                               prep["flag_e"]])]
+    trk_cap = enc.track_cap(prep, False)
+    core = to_device(prep["alleles_p"], prep["alts_p"],
+                     prep["wah_rows_p"].astype(np.int64), prep["sorts_w"],
+                     prep["sparse_rows_p"].astype(np.int64),
+                     prep["negated_s"], rows.astype(np.int64),
+                     np.arange(len(rows)) >= nm)
+    n_wah = prep["n_wah"]
+    del prep, enc
+    torch.cuda.reset_peak_memory_stats()
+    enc_ms = cuda_ms(lambda: encoder_torch.encode_block_core_compact_tracks(
+        *core, max(mac, 1), trk_cap), iters=10, warmup=2)
+    enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del core
+    ser_ms = wall_ms(lambda: ingest().serialize(), iters=3, warmup=1)
+    rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
+        payload, n_samples, H, np.uint16, [2] * L, device=DEVICE),
+        iters=3, warmup=1)
+    gt_bytes = L * H * 4
+    ratio = gt_bytes / len(payload)
+    print(f"[{name}] block: {L} lines x {H} haplotypes; {n_wah} WAH lines; "
+          f"track rows {len(rows)} (missing carriers {n_carriers[0]}, EOV "
+          f"carriers {n_carriers[1]}, track cap {trk_cap}); payload "
+          f"{len(payload)} B byte-equal to GtBlockEncoder's; decode "
+          f"bit-exact on all {L} lines (decode_block_records and the fused "
+          f"decode); peak device memory of the run {peak_gb:.3f} GB")
+    print(f"[{name}] encode core with tracks: {enc_ms:.3f} ms/block = "
+          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
+          f"| fused decode with overlays (host parse + device): "
+          f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
+          f"{dec_peak_gb:.3f} GB), of which the host's track walk "
+          f"{walk_ms:.1f} ms and the device {dev_ms:.3f} ms | serialize: "
+          f"{ser_ms:.1f} ms | "
+          f"decode_block_records: {rec_ms:.1f} ms | compression "
+          f"{ratio:.2f}x ({card})")
+    return {"launches": launches, "H": H, "encode_ms": enc_ms,
+            "decode_ms": dec_ms, "decode_track_walk_ms": walk_ms,
+            "decode_device_ms": dev_ms, "serialize_ms": ser_ms,
+            "decode_records_ms": rec_ms, "compression_ratio": ratio,
+            "payload_bytes": len(payload), "wah_lines": n_wah,
+            "track_rows": len(rows), "track_cap": trk_cap,
+            "missing_carriers": n_carriers[0],
+            "eov_carriers": n_carriers[1],
+            "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
+                               "decode": dec_peak_gb}}
+
+
+def mixed_block_phase(card: str) -> dict:
+    """chrX-males-PAR: the 1233 male samples (2466 haplotypes), lines
+    0-4095 diploid (PAR1) and 4096-8191 haploid (non-PAR), bench.py's
+    allele mix.  The mixed-ploidy encode (parity scan, two WAH grids) and
+    decode (per-line-width expand, the mixed scan) run through
+    TorchBlockEncoder.serialize and decode_block_records without offsets;
+    their steps are timed one by one."""
+    name, N = MIXED_BLOCK, MALES
+    H = 2 * N
+    mac = int(H * 0.001)
+    t0 = time.perf_counter()
+    alleles = make_block(np.random.default_rng(SEED + 2), H)
+    hap = np.arange(L) >= L // 2
+    rows = [((alleles[i, :N] if hap[i] else alleles[i]).astype(np.int32)
+             + 1) << 1 for i in range(L)]
+    kw = dict(n_samples=N, block_bcf_lines=L, mac_threshold=mac,
+              default_phasing=0, aet_dtype=np.uint16)
+    print(f"[{name}] block of {L} lines ({int(hap.sum())} haploid) x {H} "
+          f"haplotypes made in {time.perf_counter() - t0:.1f} s")
+    ref_payload = host_reference(name, kw, rows)
+    ingest = ingester(kw, np.concatenate(rows), np.where(hap, N, H))
+    enc = ingest()
+    payload, launches, peak_gb = run_path(
+        name, enc, lambda p: decoder_torch.decode_block_records(
+            p, N, H, np.uint16, [2] * L, device=DEVICE),
+        ref_payload, rows)
+
+    # ---- timings, step by step (bench.py's unit) ----------------------
+    prep = enc.prepare(pad=False)
+    is_wah, hap_l = prep["is_wah"], prep["hap_line"]
+    wah_rows = np.flatnonzero(is_wah)
+    sparse_rows = np.flatnonzero(~is_wah)
+    hap_w = hap_l[wah_rows]
+    args = to_device(prep["alleles_p"], prep["alts_p"], wah_rows,
+                     np.flatnonzero(~hap_w), np.flatnonzero(hap_w),
+                     sparse_rows, prep["negated"][sparse_rows],
+                     hap_l[sparse_rows])
+    n_wah, n_hap_wah = len(wah_rows), int(hap_w.sum())
+    del prep, enc
+    torch.cuda.reset_peak_memory_stats()
+    enc_ms = cuda_ms(lambda: encoder_torch.encode_block_core_mixed(
+        *args, max(mac, 1)), iters=5, warmup=1)
+    enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    aw, at = args[0].index_select(0, args[2]), args[1].index_select(0, args[2])
+    ones = torch.ones(n_wah, dtype=torch.bool, device=DEVICE)
+    scan_ms = cuda_ms(lambda: pbwt_torch.pbwt_encode_scan_parity(aw, at, ones),
+                      iters=5, warmup=1)
+    del args, aw, at
+    ser_ms = wall_ms(lambda: ingest().serialize(), iters=3, warmup=1)
+
+    dec = decoder_torch.TorchBlockDecoder(payload, N, H, np.uint16,
+                                          device=DEVICE)
+    *arrays, h, w_max, _ = dec.host_inputs_mixed()
+    dargs = to_device(*arrays)
+
+    def decode_once():
+        dec.host_inputs_mixed()           # the per-block host parse
+        return decoder_torch._decode_block_mixed(*dargs, h, w_max)
+
+    torch.cuda.reset_peak_memory_stats()
+    dec_ms = wall_ms(decode_once, iters=3, warmup=1)
+    dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stream, group_off, sorts, hap_wd = dargs[:4]
+    exp_ms = cuda_ms(lambda: wah_kernels.wah_expand_varw(stream, group_off,
+                                                         w_max))
+    ys = wah_torch.unpack_bits(wah_kernels.wah_expand_varw(
+        stream, group_off, w_max), h)
+    dscan_ms = wall_ms(lambda: pbwt_torch.pbwt_decode_scan_mixed(
+        ys, sorts, hap_wd), iters=3, warmup=1)
+    del dargs, ys
+    rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
+        payload, N, H, np.uint16, [2] * L, device=DEVICE), iters=2, warmup=1)
+    gt_bytes = L * H * 4
+    ratio = gt_bytes / len(payload)
+    print(f"[{name}] block: {L} lines x {H} haplotypes; {n_wah} WAH lines "
+          f"({n_hap_wah} haploid), {L - n_wah} sparse; payload "
+          f"{len(payload)} B byte-equal to GtBlockEncoder's; decode without "
+          f"offsets bit-exact on all {L} records; peak device memory of the "
+          f"run {peak_gb:.3f} GB")
+    print(f"[{name}] encode core (mixed): {enc_ms:.3f} ms/block = "
+          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB), "
+          f"of which the parity scan {scan_ms:.3f} ms | decode (host parse "
+          f"+ device): {dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} "
+          f"GB/s (peak {dec_peak_gb:.3f} GB), of which wah_expand_varw "
+          f"{exp_ms:.4f} ms and the mixed scan {dscan_ms:.1f} ms | "
+          f"serialize: {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
+          f"ms | compression {ratio:.2f}x ({card})")
+    return {"launches": launches, "H": H, "encode_ms": enc_ms,
+            "encode_parity_scan_ms": scan_ms, "decode_ms": dec_ms,
+            "decode_expand_ms": exp_ms, "decode_scan_ms": dscan_ms,
+            "serialize_ms": ser_ms, "decode_records_ms": rec_ms,
+            "compression_ratio": ratio, "payload_bytes": len(payload),
+            "wah_lines": n_wah, "haploid_wah_lines": n_hap_wah,
+            "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
+                               "decode": dec_peak_gb}}
+
+
+def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
+               recompress: bool = False) -> dict:
     """The CLI on files: -c on the card and on the host codec give the same
-    .xsi bytes; -x on the card gives the input's genotypes back."""
+    .xsi bytes; -x on the card gives the input's genotypes back; with
+    `recompress`, -x -O x re-encodes the .xsi on the card and on the host
+    codec to the same bytes.  missing_frac of the entries are missing."""
     work = os.path.join(REPO, ".bench_work", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -438,7 +752,8 @@ def file_phase(card: str) -> dict:
 
     try:
         t0 = time.perf_counter()
-        synth_bcf(path("in.bcf"), FILE_RECORDS, FILE_SAMPLES, seed=SEED)
+        synth_bcf(path("in.bcf"), FILE_RECORDS, FILE_SAMPLES, seed=SEED,
+                  missing_frac=missing_frac)
         secs["synth_bcf"] = time.perf_counter() - t0
         block = ["--variant-block-length", str(L)]
         cli("compress_cuda", "-c", "-f", path("in.bcf"), "-o",
@@ -467,14 +782,36 @@ def file_phase(card: str) -> dict:
         require(n == FILE_RECORDS and n_out == n and bad == 0,
                 f"-x --device {DEVICE}: {bad} of {n} records differ "
                 f"({n_out} records read back, {FILE_RECORDS} written)")
+        same_as_source = None
+        if recompress:
+            outs = {}
+            for device in (DEVICE, "numpy"):
+                # one file name in two directories: the name is in the
+                # variant file's header
+                os.makedirs(path(device))
+                cli(f"recompress_{device}", "-x", "-f", path("cuda.xsi"),
+                    "-o", path(f"{device}/re.xsi"), "-O", "x", "--device",
+                    device)
+                with open(path(f"{device}/re.xsi"), "rb") as f:
+                    outs[device] = f.read()
+            require(outs[DEVICE] == outs["numpy"],
+                    f"-x -O x: .xsi of --device {DEVICE} "
+                    f"({len(outs[DEVICE])} B) differs from --device numpy's "
+                    f"({len(outs['numpy'])} B)")
+            same_as_source = outs[DEVICE] == xsi_a
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[file] {FILE_RECORDS} records x {FILE_SAMPLES} samples, "
-          f"{len(xsi_a)} B .xsi byte-identical across --device {DEVICE} / "
-          f"numpy, -x genotypes equal on every record; seconds: "
+    recomp = ("" if not recompress else
+              f", -x -O x .xsi byte-identical across --device {DEVICE} / "
+              f"numpy (equal to the source .xsi: {same_as_source})")
+    print(f"[{label}] {FILE_RECORDS} records x {FILE_SAMPLES} samples "
+          f"(missing fraction {missing_frac}), {len(xsi_a)} B .xsi "
+          f"byte-identical across --device {DEVICE} / numpy, -x genotypes "
+          f"equal on every record{recomp}; seconds: "
           f"{json.dumps({k: round(v, 3) for k, v in secs.items()})} ({card})")
     return {"xsi_bytes": len(xsi_a), "records": FILE_RECORDS,
-            "samples": FILE_SAMPLES, "seconds": secs}
+            "samples": FILE_SAMPLES, "missing_frac": missing_frac,
+            "recompressed_equals_source": same_as_source, "seconds": secs}
 
 
 def main() -> int:
@@ -497,7 +834,13 @@ def main() -> int:
     rows, checks = phase("kernels", check_kernels, card)
     blocks = {name: phase(f"block_{name}", block_phase, name, n, seed, card)
               for name, n, seed in BLOCKS}
-    files = phase("file", file_phase, card)
+    for name in TRACK_BLOCKS:
+        blocks[name] = phase(f"block_{name}", track_block_phase, name, card)
+    blocks[MIXED_BLOCK] = phase(f"block_{MIXED_BLOCK}", mixed_block_phase,
+                                card)
+    files = {"file": phase("file", file_phase, card),
+             "file-missing": phase("file-missing", file_phase, card,
+                                   "file-missing", 0.01, True)}
 
     for r in rows.values():
         r["launches"] = sum(b["launches"][r["name"]] for b in blocks.values())
@@ -505,7 +848,7 @@ def main() -> int:
     print(json.dumps({"blocks": {k: {x: v for x, v in b.items()
                                      if x != "launches"}
                                  for k, b in blocks.items()},
-                      "file": files, "phase_seconds": phases,
+                      "files": files, "phase_seconds": phases,
                       "card": card}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

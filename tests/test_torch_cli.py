@@ -105,16 +105,75 @@ def test_cuda_without_card_is_a_one_line_error(vcf, tmp_path, capsys):
     assert not os.path.exists(tmp_path / "c.xsi")
 
 
-def test_recompress_needs_numpy_device(vcf, tmp_path, capsys):
+@pytest.mark.parametrize("args", [[], ["-s", "S001,S005,S063"],
+                                  ["-r", "20:60200-61500"]])
+def test_recompress_needs_numpy_device(vcf, tmp_path, args):
+    """-O x, once refused on every device but numpy, re-encodes on the
+    port's device: the .xsi and its variant file are byte-identical to
+    --device numpy's (and, unfiltered, to the source)."""
     xsi = str(tmp_path / "r.xsi")
     assert torch_cli(["-c", "-f", vcf, "-o", xsi, "--device", "cpu"]) == 0
-    assert torch_cli(["-x", "-f", xsi, "-o", str(tmp_path / "o.xsi"),
-                      "-O", "x", "--device", "cpu"]) == 1
-    assert "-O x" in capsys.readouterr().err
-    out = str(tmp_path / "n.xsi")
-    assert torch_cli(["-x", "-f", xsi, "-o", out, "-O", "x",
-                      "--device", "numpy"]) == 0
-    assert _read(out) == _read(xsi)
+    outs = []
+    for device in ("cpu", "numpy"):
+        out = str(tmp_path / device / "o.xsi")   # the name is in the header
+        os.makedirs(os.path.dirname(out))
+        assert torch_cli(["-x", "-f", xsi, "-o", out, "-O", "x",
+                          "--device", device, *args]) == 0
+        outs.append((_read(out), _read(out + "_var.bcf")))
+    assert outs[0] == outs[1]
+    if not args:
+        assert outs[0][0] == _read(xsi)
+
+
+def test_recompress_detour_matches_fused(vcf, tmp_path, monkeypatch):
+    xsi = str(tmp_path / "r.xsi")
+    assert torch_cli(["-c", "-f", vcf, "-o", xsi, "--device", "cpu",
+                      "--variant-block-length", "64"]) == 0
+    outs = []
+    for fused in ("1", "0"):
+        monkeypatch.setenv("XSI_FUSED_RECOMPRESS", fused)
+        out = str(tmp_path / fused / "o.xsi")
+        os.makedirs(os.path.dirname(out))
+        assert torch_cli(["-x", "-f", xsi, "-o", out, "-O", "x",
+                          "--device", "cpu", "-s", "^S002"]) == 0
+        outs.append(_read(out))
+    assert outs[0] == outs[1]
+
+
+def test_block_of_monomorphic_sites(tmp_path):
+    """Two ALT-less records fill a block with no binary line; the port
+    used to crash there with a traceback."""
+    rows = [(".", ["0|0"] * 10), (".", ["0|0"] * 10),
+            ("A", ["0|1"] + ["0|0"] * 9)]
+    vcf = fixtures.write_vcf(str(tmp_path / "mono.vcf"), rows)
+    outs = []
+    for device in ("cpu", "numpy"):
+        xsi = str(tmp_path / f"{device}.xsi")
+        assert torch_cli(["-c", "-f", vcf, "-o", xsi, "--device", device,
+                          "--variant-block-length", "2"]) == 0
+        outs.append(_read(xsi))
+    assert outs[0] == outs[1]
+    back = str(tmp_path / "back.vcf")
+    assert torch_cli(["-x", "-f", str(tmp_path / "cpu.xsi"), "-o", back,
+                      "--device", "cpu"]) == 0
+    assert read_all(back)[0] == read_all(vcf)[0]
+
+
+@pytest.mark.parametrize("name", ["micro_mixed_ploidy", "micro_eov",
+                                  "micro_missing_non_uniform_phasing_ploidy"])
+def test_micro_roundtrip_devices_identical(tmp_path, name):
+    vcf = getattr(fixtures, name)(str(tmp_path / f"{name}.vcf"))
+    outs = []
+    for device in ("cpu", "numpy"):
+        xsi = str(tmp_path / f"{device}.xsi")
+        assert torch_cli(["-c", "-f", vcf, "-o", xsi, "--device", device,
+                          "--variant-block-length", "2"]) == 0
+        outs.append(_read(xsi))
+        back = str(tmp_path / f"{device}.vcf")
+        assert torch_cli(["-x", "-f", xsi, "-o", back, "--device",
+                          device]) == 0
+        assert read_all(back)[0] == read_all(vcf)[0]
+    assert outs[0] == outs[1]
 
 
 NO_JAX = textwrap.dedent("""
@@ -138,13 +197,20 @@ NO_JAX = textwrap.dedent("""
     from xsqueezeit_tpu_torch.codec.decoder_torch import decode_block_records
     from xsqueezeit_tpu_torch.codec.encoder_torch import TorchBlockEncoder
     rng = np.random.default_rng(0)
-    recs = [make_record(rng, 40, p_alt=p) for p in [0.01, 0.3, 0.99] * 5]
-    enc = TorchBlockEncoder(40, 100, 2, device="cpu")
-    for gt, na in recs:
-        enc.encode_record(gt, na)
-    out = decode_block_records(enc.serialize(), 40, 80, np.uint32,
-                               [na for _, na in recs], device="cpu")
-    assert all((o == gt).all() for o, (gt, _) in zip(out, recs))
+    blocks = [  # plain; missing/EOV/phase tracks (fused); mixed ploidy
+        [make_record(rng, 40, p_alt=p) for p in [0.01, 0.3, 0.99] * 5],
+        [make_record(rng, 40, p_alt=p, p_missing=0.05, p_eov=0.05,
+                     p_phase_flip=0.1) for p in [0.01, 0.3, 0.99] * 5],
+        [make_record(rng, 40, p_alt=p, haploid=i % 2 == 0, p_missing=0.05)
+         for i, p in enumerate([0.01, 0.3, 0.99] * 5)],
+    ]
+    for recs in blocks:
+        enc = TorchBlockEncoder(40, 100, 2, device="cpu")
+        for gt, na in recs:
+            enc.encode_record(gt, na)
+        out = decode_block_records(enc.serialize(), 40, 80, np.uint32,
+                                   [na for _, na in recs], device="cpu")
+        assert all((o == gt).all() for o, (gt, _) in zip(out, recs))
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("imported", len(names), "modules")
 """)

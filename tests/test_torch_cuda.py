@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from xsqueezeit_tpu.format.constants import INT32_VECTOR_END
 from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
 from xsqueezeit_tpu_torch.ops import pbwt_kernels, wah_kernels, wah_torch
 from xsqueezeit_tpu_torch.reference import GtBlockEncoder
@@ -107,6 +108,103 @@ def test_wah_kernels_match_plain(dev, L, H):
         out = wah_kernels.wah_expand(stream.to(dev), n_lines, W)
         assert _equal(out, wah_kernels.wah_expand_plain(stream, n_lines, W))
         assert _equal(out[:L], words)
+
+
+@pytest.mark.parametrize("N,L", [(1, 3), (40, 64), (1233, 600)])
+def test_wah_expand_varw_matches_plain(dev, N, L):
+    rng = np.random.default_rng(N + L)
+    hap = np.repeat(rng.random(-(-L // 8)) < 0.5, 8)[:L]   # runs of lines
+    p = rng.choice([0.0, 0.001, 0.3, 0.999, 1.0], L)
+    widths = np.where(hap, N, 2 * N)
+    streams, gw = [], []
+    for w, q in zip(widths, p):
+        words = wah_torch.pack_bits(torch.from_numpy(
+            (rng.random((1, w)) < q).astype(np.uint8)))
+        out, n = wah_kernels.wah_compress_plain(words)
+        streams.append(out[0, :int(n[0])])
+        gw.append(words.shape[1])
+    stream = torch.cat(streams + [torch.zeros(3, dtype=torch.uint16)])
+    group_off = torch.from_numpy(np.concatenate([[0], np.cumsum(gw)]))
+    w_max = wah_torch.n_words_for(2 * N)
+    n0 = wah_kernels.launches["wah_expand_varw"]
+    got = wah_kernels.wah_expand_varw(stream.to(dev), group_off.to(dev),
+                                      w_max)
+    assert wah_kernels.launches["wah_expand_varw"] == n0 + 1
+    assert _equal(got, wah_kernels.wah_expand_varw_plain(stream, group_off,
+                                                         w_max))
+
+
+def _block_counts(enc, payload_of, decode):
+    """Launch counts of one encode + decode, reset just before."""
+    for c in (pbwt_kernels.launches, wah_kernels.launches):
+        for k in c:
+            c[k] = 0
+    payload = payload_of(enc)
+    out = decode(payload)
+    torch.cuda.synchronize()
+    counts = {**pbwt_kernels.launches, **wah_kernels.launches}
+    return payload, out, {k: v for k, v in counts.items() if v}
+
+
+def test_track_block_roundtrip_on_card(dev):
+    rng = np.random.default_rng(4)
+    n_samples, L = 300, 256
+    p = rng.choice([0.003, 0.2, 0.6], (L, 1))
+    alleles = (rng.random((L, 2 * n_samples)) < p).astype(np.int32)
+    gt = ((alleles + 1) << 1) | (np.arange(2 * n_samples) & 1)
+    gt[rng.random(gt.shape) < 0.01] &= 1                      # missing
+    gt[:, 1:40:2] = INT32_VECTOR_END                           # EOV
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=2,
+              default_phasing=1, aet_dtype=np.uint16)
+    ref = GtBlockEncoder(**kw)
+    enc = encoder_torch.TorchBlockEncoder(device=dev, **kw)
+    for row in gt:
+        ref.encode_record(row, 2)
+        enc.encode_record(row, 2)
+    payload, out, counts = _block_counts(
+        enc, lambda e: e.serialize(),
+        lambda pl: decoder_torch.decode_block_records(
+            pl, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev))
+    assert payload == ref.serialize()
+    np.testing.assert_array_equal(np.stack(out), gt)
+    assert set(counts) == {"chain_encode", "chain_decode", "wah_expand",
+                           "wah_compress"}
+    dec = decoder_torch.TorchBlockDecoder(payload, n_samples, 2 * n_samples,
+                                          np.uint16, device=dev)
+    *args, H, W, _ = dec.device_inputs()
+    m = dec.meta
+    pairs = [torch.from_numpy(x).to(dev) for s, f in (
+        (m.missing_sparse, m.line_has_missing), (m.eov_sparse, m.line_has_eov))
+        for x in decoder_torch.track_carriers(s, np.flatnonzero(f),
+                                              np.uint16)]
+    fused = decoder_torch._decode_block_full_gt_tracks(*args, 1, *pairs, H, W)
+    np.testing.assert_array_equal(fused.cpu().numpy(), gt)
+
+
+def test_mixed_block_roundtrip_on_card(dev):
+    rng = np.random.default_rng(5)
+    n_samples, L = 200, 300
+    recs = []
+    for i in range(L):
+        hap = (i // 50) % 2 == 1
+        n = n_samples if hap else 2 * n_samples
+        a = (rng.random(n) < rng.choice([0.002, 0.1, 0.5, 0.995])) \
+            .astype(np.int32)
+        recs.append(((a + 1) << 1).astype(np.int32))
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=2,
+              default_phasing=0, aet_dtype=np.uint16)
+    ref = GtBlockEncoder(**kw)
+    enc = encoder_torch.TorchBlockEncoder(device=dev, **kw)
+    for row in recs:
+        ref.encode_record(row, 2)
+        enc.encode_record(row, 2)
+    payload, out, counts = _block_counts(
+        enc, lambda e: e.serialize(),
+        lambda pl: decoder_torch.decode_block_records(
+            pl, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev))
+    assert payload == ref.serialize()
+    assert all(np.array_equal(o, r) for o, r in zip(out, recs))
+    assert set(counts) == {"wah_compress", "wah_expand_varw"}
 
 
 @pytest.mark.parametrize("n_samples,L,mac,route", [

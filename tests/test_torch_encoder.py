@@ -121,11 +121,42 @@ def test_carrier_indices_match_packed_reduction(R, H, cap, p):
     np.testing.assert_array_equal(got, want)
 
 
-def test_mixed_ploidy_block_is_refused():
+def test_mixed_ploidy_block_is_refused(monkeypatch):
+    """Mixed-ploidy blocks, once refused, now encode: the port's
+    dispatcher (device forced) sends one to TorchBlockEncoder, whose
+    payload equals the host encoder's."""
+    from xsqueezeit_tpu_torch.codec.compressor import TorchEncodeDispatcher
+
+    calls = []
+    orig = TorchBlockEncoder.serialize
+
+    def spy(self):
+        calls.append(self.bcf_lines)
+        return orig(self)
+
+    monkeypatch.setattr(TorchBlockEncoder, "serialize", spy)
     rng = np.random.default_rng(12)
-    enc = TorchBlockEncoder(30, 100, 2, device="cpu")
-    for i in range(6):
-        enc.encode_record(*make_record(rng, 30, p_alt=0.3,
-                                       haploid=(i % 2 == 0)))
-    with pytest.raises(NotImplementedError, match="mixed-ploidy"):
-        enc.serialize()
+    records = [make_record(rng, 30, p_alt=0.3, haploid=(i % 2 == 0))
+               for i in range(6)]
+    kw = dict(mac_threshold=2, default_phasing=1, aet_dtype=np.uint16,
+              weirdness_strategy=WS.WS_SPARSE)
+    disp = TorchEncodeDispatcher(30, 100, device=torch.device("cpu"), **kw)
+    ref = GtBlockEncoder(30, 100, **kw)
+    for gt, na in records:
+        disp.encode_record(gt, na)
+        ref.encode_record(gt, na)
+    assert disp.serialize() == ref.serialize()
+    assert calls == [6]
+
+
+def test_block_of_zero_alt_records_only():
+    """A block whose records all lack an ALT has no binary line; the port
+    used to hand the device an empty line matrix and fail where the host
+    and JAX encoders write an 80-byte payload."""
+    gt = (np.full(40, 2) | (np.arange(40) & 1)).astype(np.int32)
+    records = [(gt, 1)] * 5
+    got = _encode(TorchBlockEncoder, records, 20, dict(mac_threshold=2),
+                  device="cpu")
+    assert got == _encode(GtBlockEncoder, records, 20, dict(mac_threshold=2))
+    assert got == _encode(DeviceBlockEncoder, records, 20,
+                          dict(mac_threshold=2))

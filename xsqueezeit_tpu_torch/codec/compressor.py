@@ -45,9 +45,9 @@ class TorchEncodeDispatcher(_base.BlockEncodeDispatcher):
     """BlockEncodeDispatcher whose device encoder is TorchBlockEncoder on
     `device` (None: the host encoder).
 
-    The device was chosen explicitly, so every block of uniform ploidy
-    takes it (no size threshold, no reachability probe); a mixed-ploidy
-    block raises NotImplementedError in the encoder."""
+    The device was chosen explicitly, so every block of ploidy 1 or 2,
+    mixed ploidy included, takes it (no size threshold, no reachability
+    probe)."""
 
     def __init__(self, n_samples, block_length, mac_threshold,
                  default_phasing, aet_dtype, weirdness_strategy,

@@ -1,7 +1,6 @@
 """Block decoder on PyTorch tensors: the CUDA fast path.
 
-Port of xsqueezeit_tpu/codec/decoder_jax.py (the uniform-ploidy path).
-One block decodes as
+Port of xsqueezeit_tpu/codec/decoder_jax.py.  One block decodes as
 
     WAH stream --(expand kernel)--> 15-bit groups[Lw, W] --(unpack)-->
     arrangement-ordered bits --(PBWT chunk chains + composition)-->
@@ -9,9 +8,14 @@ One block decodes as
     other lines, negated lines flip; then per-ALT overlays on the host.
 
 Uniformly diploid and uniformly haploid blocks take this path (haploid
-ones at H = n_samples).  Any other block -- mixed ploidy, or a LINE_SORT
-track that differs from LINE_SELECT -- decodes with the NumPy
-GtBlockDecoder, as the JAX decoder's random-access fallback does.
+ones at H = n_samples).  A whole mixed-ploidy block expands at per-line
+widths (wah_expand_varw) and runs the parity-reconstructing scan
+(_decode_block_mixed).  Anything else -- a record subset of a mixed
+block, or a LINE_SORT track that differs from LINE_SELECT -- decodes with
+the NumPy GtBlockDecoder, as the JAX decoder's random-access fallback
+does.  Missing/EOV tracks overlay on the host in decode_block_records;
+_decode_block_full_gt_tracks is the same decode with the overlays fused on
+the device.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from xsqueezeit_tpu.ops import pbwt_np, wah_np
 from xsqueezeit_tpu.ops.sparse_np import msb as _msb, sparse_line_offsets
 
 from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
-from .encoder_torch import LATER, TOO_WIDE
+from .encoder_torch import TOO_WIDE
 
 
 def _decode_wah_and_scan(stream, sorts, h: int, w: int) -> torch.Tensor:
@@ -68,6 +72,29 @@ def _fold_biallelic_impl(vals: torch.Tensor,
     return ((vals.to(torch.int32) + 1) << 1) | phase[None, :]
 
 
+def _fold_tracks_impl(vals: torch.Tensor, default_phasing: int, mrec, midx,
+                      erec, eidx) -> torch.Tensor:
+    """gt codes with the missing / end-of-vector overlays
+    (decoder_jax._fold_tracks_impl; it is also the standalone fold of
+    decoded bits, the JAX package's _fold_biallelic_tracks).
+
+    (mrec, midx) / (erec, eidx): int64 (record, haplotype) carrier pairs of
+    the block's WS_SPARSE missing / EOV tracks, every record < L (no
+    padding pairs).  A uint8 plane takes 1 at missing slots, then 2 at EOV
+    slots (EOV overwrites missing, as in the record loop); two selects put
+    the bare phase bit and INT32_VECTOR_END into the gt codes.
+    """
+    h = vals.shape[1]
+    phase = (torch.arange(h, dtype=torch.int32, device=vals.device) & 1) \
+        * int(default_phasing)
+    gt = ((vals.to(torch.int32) + 1) << 1) | phase[None, :]
+    ov = torch.zeros(gt.shape, dtype=torch.uint8, device=vals.device)
+    ov[mrec, midx] = 1
+    ov[erec, eidx] = 2
+    gt = torch.where(ov == 1, phase[None, :], gt)
+    return torch.where(ov == 2, INT32_VECTOR_END, gt)
+
+
 def _decode_block_full_gt(stream, sorts, rank, is_wah, neg, car_line,
                           car_idx, default_phasing: int, h: int,
                           w: int) -> torch.Tensor:
@@ -75,6 +102,39 @@ def _decode_block_full_gt(stream, sorts, rank, is_wah, neg, car_line,
     vals = _decode_block_vals(stream, sorts, rank, is_wah, neg, car_line,
                               car_idx, h, w)
     return _fold_biallelic_impl(vals, default_phasing)
+
+
+def _decode_block_full_gt_tracks(stream, sorts, rank, is_wah, neg, car_line,
+                                 car_idx, default_phasing: int, mrec, midx,
+                                 erec, eidx, h: int, w: int) -> torch.Tensor:
+    """Payload streams to gt codes with missing/EOV overlays in one go
+    (decoder_jax._decode_block_full_gt_tracks)."""
+    vals = _decode_block_vals(stream, sorts, rank, is_wah, neg, car_line,
+                              car_idx, h, w)
+    return _fold_tracks_impl(vals, default_phasing, mrec, midx, erec, eidx)
+
+
+def _decode_block_mixed(stream, group_off, sorts, hap_w, rank, is_wah, neg,
+                        car_line, car_idx, h: int,
+                        w_max: int) -> torch.Tensor:
+    """_decode_block_vals of a mixed-ploidy block
+    (decoder_jax._decode_block_mixed): the WAH stream expands at per-line
+    widths (haploid lines span n_words_for(N) groups) and the arrangement
+    scan rebuilds each haploid line's slot-duplicated bits from its stored
+    even-parity bits.  group_off: int64[Lw + 1]; hap_w: bool[Lw].  Haploid
+    rows come back slot-duplicated in natural order; the carriers of
+    haploid sparse lines arrive mapped to even slots (host_inputs_mixed).
+    """
+    L = is_wah.shape[0]
+    vals = torch.zeros((L, h), dtype=torch.uint8, device=is_wah.device)
+    if sorts.shape[0]:
+        w15 = wah_kernels.wah_expand_varw(stream, group_off, w_max)
+        vals_w, _ = pbwt_torch.pbwt_decode_scan_mixed(
+            wah_torch.unpack_bits(w15, h), sorts, hap_w)
+        vals = torch.where(is_wah[:, None], vals_w.index_select(0, rank),
+                           vals)
+    vals[car_line, car_idx] = 1
+    return vals ^ neg[:, None]
 
 
 def track_carriers(stream: np.ndarray, flagged_lines: np.ndarray,
@@ -175,6 +235,47 @@ class TorchBlockDecoder:
         self._neg = args[4].cpu().numpy().astype(bool)
         return self._vals
 
+    @property
+    def mixed_device_ok(self) -> bool:
+        """Mixed-ploidy blocks (haploid and diploid lines interleaved) take
+        the parity-reconstruction path (_decode_block_mixed) under the
+        constraints of `eligible`; WS_PBWT_WAH tracks replay on the host."""
+        m = self.meta
+        return (m.binary_lines > 0
+                and bool(m.haploid_line.any())
+                and not self.uniform_haploid
+                and bool(np.array_equal(m.line_is_sorting, m.line_is_wah))
+                and not (m.has_weirdness and m.weirdness_strat
+                         == WeirdnessStrategy.WS_PBWT_WAH))
+
+    def host_inputs_mixed(self) -> tuple:
+        """host_inputs of a mixed-ploidy block (numpy, nothing padded):
+        (stream u16[N], group_off i64[Lw + 1] per-WAH-line group offsets,
+        sorts bool[Lw], hap_w bool[Lw], rank i64[L], is_wah bool[L], neg
+        u8[L], car_line i64[Nc], car_idx i64[Nc], H, w_max, L).  Haploid
+        sparse lines store sample indices s, which map to slot 2s of the
+        slot-duplicated row."""
+        (stream, _, rank, is_wah, neg, car_line, car_idx,
+         _, _, L, n_wah) = self.host_inputs()
+        H, N = self.n_haps, self.n_samples
+        hap = self.meta.haploid_line.astype(bool)
+        hap_w = hap[is_wah]
+        w_dip, w_hap = wah_torch.n_words_for(H), wah_torch.n_words_for(N)
+        group_off = np.zeros(n_wah + 1, np.int64)
+        np.cumsum(np.where(hap_w, w_hap, w_dip), out=group_off[1:])
+        car_idx = np.where(hap[car_line], car_idx * 2, car_idx)
+        return (stream, group_off, np.ones(n_wah, bool), hap_w, rank,
+                is_wah, neg, car_line, car_idx, H, max(w_dip, w_hap), L)
+
+    def decode_all_mixed(self) -> np.ndarray:
+        """decode_all of a mixed-ploidy block; haploid lines come back
+        slot-duplicated in natural order (fold the even slots)."""
+        *arrays, H, w_max, _ = self.host_inputs_mixed()
+        t = [torch.from_numpy(x).to(self.device) for x in arrays]
+        self._vals = _decode_block_mixed(*t, H, w_max).cpu().numpy()
+        self._neg = arrays[6].astype(bool)
+        return self._vals
+
     def record_alleles(self, first_line: int, n_alleles: int) -> np.ndarray:
         """Fold a record's binary lines into allele codes [H].
 
@@ -196,6 +297,87 @@ class TorchBlockDecoder:
             else:
                 out = np.where(row, alt, out).astype(np.int16)
         return out
+
+
+def _mixed_records(dev: TorchBlockDecoder, n_alleles_per_record: list[int],
+                   n_haps: int, aet_dtype) -> list[np.ndarray]:
+    """decode_block_records of a whole mixed-ploidy block (the mixed
+    branch of decoder_jax.decode_block_records): the block's bits decode
+    on the device, haploid records fold their even slots, and the
+    exception tracks overlay record by record on the host, width-aware
+    (haploid lines store sample indices and n_samples-wide WAH rows), as
+    GtBlockDecoder.fill_genotype_array_advance does."""
+    m = dev.meta
+    if dev._vals is None:
+        dev.decode_all_mixed()
+    H, N = dev.n_haps, dev.n_samples
+    idx = np.arange(H)
+    phase = ((idx & 1) & m.default_phasing).astype(np.int32)
+    phase_hap = np.zeros(N, np.int32)
+    zero_alt_gt = (np.int32(1 << 1)
+                   | ((np.arange(n_haps) & 1)
+                      & m.default_phasing)).astype(np.int32)
+    wah_weird = m.weirdness_strat in (WeirdnessStrategy.WS_WAH,
+                                      WeirdnessStrategy.WS_PBWT_WAH)
+    msb = 1 << (np.dtype(aet_dtype).itemsize * 8 - 1)
+    # haploid WS_WAH tracks index the arrangement derived from the iota
+    hap_weird = pbwt_np.haploid_rearrangement_from_diploid(idx)
+    miss_pos = eov_pos = phs_pos = 0
+
+    def targets(sparse, pos, wah, n, haploid):
+        if wah_weird:
+            y, _ = wah_np.wah_decode(wah[pos:], n)
+            sel = y[:n].astype(bool)
+            return hap_weird[sel] if haploid else idx[sel]
+        cnt = int(sparse[pos]) & (msb - 1)
+        return sparse[pos + 1:pos + 1 + cnt].astype(np.int64)
+
+    def advance(sparse, pos, wah, n):
+        if wah_weird:
+            return pos + wah_np.wah_words_consumed(wah[pos:], n)
+        return pos + 1 + (int(sparse[pos]) & (msb - 1))
+
+    out = []
+    first = 0
+    for na in n_alleles_per_record:
+        if na <= 1:
+            out.append(zero_alt_gt.copy())
+            continue
+        haploid = bool(m.haploid_line[first])
+        alleles = dev.record_alleles(first, na)
+        if haploid:
+            gt = (alleles[::2].astype(np.int32) + 1) << 1
+            pterm = phase_hap
+        else:
+            gt = ((alleles.astype(np.int32) + 1) << 1) | phase
+            pterm = phase
+        n = gt.shape[0]
+        if m.line_has_missing is not None and m.line_has_missing[first]:
+            tgt = targets(m.missing_sparse, miss_pos, m.missing_wah, n,
+                          haploid)
+            gt[tgt] = pterm[tgt]
+        if m.line_has_eov is not None and m.line_has_eov[first]:
+            tgt = targets(m.eov_sparse, eov_pos, m.eov_wah, n, haploid)
+            gt[tgt] = np.int32(INT32_VECTOR_END)
+        if m.line_has_nup is not None and m.line_has_nup[first]:
+            y, _ = wah_np.wah_decode(m.phase_wah[phs_pos:], n)
+            sel = y[:n].astype(bool) & (gt != np.int32(INT32_VECTOR_END))
+            gt[sel] ^= (np.arange(n)[sel] & 1).astype(np.int32)
+
+        # advance the exception cursors over this record's binary lines
+        for p in range(first, first + na - 1):
+            n_line = N if m.haploid_line[p] else H
+            if m.line_has_missing is not None and m.line_has_missing[p]:
+                miss_pos = advance(m.missing_sparse, miss_pos, m.missing_wah,
+                                   n_line)
+            if m.line_has_eov is not None and m.line_has_eov[p]:
+                eov_pos = advance(m.eov_sparse, eov_pos, m.eov_wah, n_line)
+            if m.line_has_nup is not None and m.line_has_nup[p]:
+                phs_pos += wah_np.wah_words_consumed(m.phase_wah[phs_pos:],
+                                                     n_line)
+        out.append(gt.astype(np.int32))
+        first += na - 1
+    return out
 
 
 def decode_block_records(payload, n_samples, n_haps, aet_dtype,
@@ -235,6 +417,12 @@ def decode_block_records(payload, n_samples, n_haps, aet_dtype,
         return out
 
     if not dev.eligible:
+        # mixed-ploidy blocks decode on the device only for a whole block
+        # (the CLI passes offsets, so it takes GtBlockDecoder, as the JAX
+        # package's does)
+        if dev.mixed_device_ok and contiguous and offsets is None:
+            return _mixed_records(dev, n_alleles_per_record, n_haps,
+                                  aet_dtype)
         return numpy_random_access()
 
     # Haploid records carry one slot per sample and no phase bit.

@@ -38,15 +38,26 @@ constexpr int WAH_ONE = 0x4000;
 constexpr int WAH_MAXC = 0x3FFF;
 constexpr int WAH_ALL_SET = 0x7FFF;
 
+// With VARW (wah_expand_varw, the mixed-ploidy decode; replaces the XLA
+// wah_jax.wah_expand_stream_varw, :226-262) line l has its own width
+// group_off[l+1] - group_off[l] <= w, where w is the row stride: groups past
+// the line's width are zeroed up to w.
+template <bool VARW>
 __global__ void __launch_bounds__(WAH_THREADS)
 wah_expand_kernel(const uint16_t* __restrict__ stream,
                   const int64_t* __restrict__ offs,
-                  int32_t* __restrict__ out, int w) {
+                  const int64_t* __restrict__ group_off,
+                  int32_t* __restrict__ out, int w_row) {
     __shared__ int scratch[32];
     const long line = blockIdx.x;
     const long a = offs[line];
     const long b = offs[line + 1];
-    int32_t* row = out + line * (long)w;
+    int w = w_row;
+    if (VARW) {
+        const int64_t wl = group_off[line + 1] - group_off[line];
+        w = wl < w_row ? (int)wl : w_row;
+    }
+    int32_t* row = out + line * (long)w_row;
     int base = 0;  // groups covered by the earlier tiles of this line
     for (long t = a; t < b; t += blockDim.x) {
         const long k = t + threadIdx.x;
@@ -70,7 +81,7 @@ wah_expand_kernel(const uint16_t* __restrict__ stream,
         }
         base = min(base + tile_total, w);
     }
-    for (int x = base + threadIdx.x; x < w; x += blockDim.x) row[x] = 0;
+    for (int x = base + threadIdx.x; x < w_row; x += blockDim.x) row[x] = 0;
 }
 
 __device__ __forceinline__ int word_class(int v) {
@@ -130,8 +141,21 @@ wah_compress_kernel(const int32_t* __restrict__ words,
 extern "C" int xsi_wah_expand(const void* stream, const void* offs,
                               void* out, int n_lines, int w, void* st) {
     if (n_lines > 0)
-        wah_expand_kernel<<<n_lines, WAH_THREADS, 0, (cudaStream_t)st>>>(
-            (const uint16_t*)stream, (const int64_t*)offs, (int32_t*)out, w);
+        wah_expand_kernel<false>
+            <<<n_lines, WAH_THREADS, 0, (cudaStream_t)st>>>(
+                (const uint16_t*)stream, (const int64_t*)offs, nullptr,
+                (int32_t*)out, w);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int xsi_wah_expand_varw(const void* stream, const void* offs,
+                                   const void* group_off, void* out,
+                                   int n_lines, int w_max, void* st) {
+    if (n_lines > 0)
+        wah_expand_kernel<true>
+            <<<n_lines, WAH_THREADS, 0, (cudaStream_t)st>>>(
+                (const uint16_t*)stream, (const int64_t*)offs,
+                (const int64_t*)group_off, (int32_t*)out, w_max);
     return (int)cudaGetLastError();
 }
 

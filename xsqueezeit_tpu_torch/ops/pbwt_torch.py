@@ -1,11 +1,15 @@
-"""PBWT arrangement transforms in PyTorch: the chunked encode and decode.
+"""PBWT arrangement transforms in PyTorch: the chunked encode and decode,
+and the mixed-ploidy scans.
 
 Port of xsqueezeit_tpu/ops/pbwt_jax.py (pbwt_encode_chunked,
-pbwt_decode_chunked, _rank_chain).  Lines group into chunks of C = 16; a
-16-bit register per haplotype carries the chunk's bits through the
-partitions, which run in the chunk-chain kernels of ops/pbwt_kernels.py.
-Cross-chunk state comes from a rank chain (encode) or from composing the
-chunks' arrangements (decode).
+pbwt_decode_chunked, _rank_chain, pbwt_encode_keys,
+pbwt_encode_scan_parity, pbwt_decode_scan_mixed).  Lines group into chunks
+of C = 16; a 16-bit register per haplotype carries the chunk's bits
+through the partitions, which run in the chunk-chain kernels of
+ops/pbwt_kernels.py.  Cross-chunk state comes from a rank chain (encode)
+or from composing the chunks' arrangements (decode).  Mixed-ploidy blocks
+encode with packed per-line keys and one batched row sort (the parity
+scan) and decode one line at a time in plain torch.
 
 Where the JAX package applies permutations with packed row sorts (fast on a
 TPU), this module scatters and gathers.  The block-start arrangement is the
@@ -18,6 +22,9 @@ import torch
 from . import pbwt_kernels
 
 DECODE_CHUNK = 16
+#: Keys per row-sort call of pbwt_encode_scan_parity (about 1 GB of int64
+#: values and indices).
+SORT_SLICE_ELEMS = 1 << 26
 
 
 def _inverse(perm: torch.Tensor) -> torch.Tensor:
@@ -26,24 +33,100 @@ def _inverse(perm: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(perm).scatter_(-1, perm, iota)
 
 
-def _rank_chain(T: torch.Tensor, r0: torch.Tensor
+def _rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunk-start rank chain: r_{t+1} = rank of each haplotype by
     (T_t, r_t).
 
     T: int64[n_ch, H] per-chunk history totals (latest sorting bit
-    highest, < 2^16); r0: int64[H].  Returns (r_final int64[H], r_starts
-    int64[n_ch, H]).  One chunk per step: the key (T_t << 16) | r_t is
-    unique per haplotype (ranks are), so one sort per chunk orders it.
+    highest); r0: int64[H] ranks below 2^r_bits, with T << r_bits inside
+    int64.  Returns (r_final int64[H], r_starts int64[n_ch, H]).  One chunk
+    per step: the key (T_t << r_bits) | r_t is unique per haplotype (ranks
+    are), so one sort per chunk orders it.
     """
     n_ch, H = T.shape
     r = r0
     r_starts = torch.empty((n_ch, H), dtype=torch.int64, device=T.device)
     for t in range(n_ch):
         r_starts[t] = r
-        order = torch.argsort((T[t] << 16) | r)
+        order = torch.argsort((T[t] << r_bits) | r)
         r = _inverse(order)
     return r, r_starts
+
+
+def _hap_bits(h: int) -> int:
+    return max(int(h - 1).bit_length(), 1)
+
+
+def pbwt_encode_keys(alleles: torch.Tensor, alts: torch.Tensor,
+                     sorts: torch.Tensor, carry_parity: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed per-line PBWT keys (pbwt_jax.pbwt_encode_keys, a0 = iota).
+
+    Lines group into chunks of C = 32 - b - vb (b = ceil(log2 H) rank
+    bits, vb = 1, or 2 with carry_parity) so that a key (chunk-local
+    history P << (b + vb)) | (chunk-start rank << vb) | [parity << 1] |
+    bit fits 32 bits.  Sorting row l ascending puts the line's bits in the
+    arrangement in force before line l, LSB first.  Returns (packed
+    int64[L, H], r_final int64[H]).
+    """
+    L, H = alleles.shape
+    dev = alleles.device
+    b = _hap_bits(H)
+    vb = 2 if carry_parity else 1
+    C = 32 - b - vb
+    if C < 2:
+        raise ValueError(f"H={H} too large for packed PBWT encode")
+    x = (alleles.to(torch.int32) == alts[:, None]).to(torch.uint8)
+    sorts = sorts.to(torch.bool)
+    pad = (-L) % C
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        sorts = torch.nn.functional.pad(sorts, (0, pad))
+    n_ch = (L + pad) // C
+    xc = x.reshape(n_ch, C, H)
+    ssi = sorts.reshape(n_ch, C).to(torch.int64)
+    sh = torch.cumsum(ssi, 1) - ssi
+    # history prefix P_j of each chunk line (exclusive of line j), built
+    # one line at a time so the temporaries stay [n_ch, H]
+    packed = torch.empty((n_ch, C, H), dtype=torch.int64, device=dev)
+    T = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
+    for j in range(C):
+        packed[:, j] = T
+        T |= (xc[:, j].to(torch.int64) << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
+
+    r_fin, r_starts = _rank_chain(T, torch.arange(H, device=dev), b)
+    packed <<= b + vb
+    packed |= (r_starts[:, None, :] << vb) | xc
+    if carry_parity:
+        packed |= (torch.arange(H, device=dev) & 1) << 1
+    return packed.reshape(n_ch * C, H)[:L], r_fin
+
+
+def pbwt_encode_scan_parity(alleles: torch.Tensor, alts: torch.Tensor,
+                            sorts: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Bits and slot parity in arrangement order for every line, block
+    start at the identity (pbwt_jax.pbwt_encode_scan_parity; oracle
+    pbwt_np.pbwt_encode_parity).
+
+    The mixed-ploidy encoder needs, per line, the arrangement-ordered bit
+    and the parity (a & 1) of the haplotype at each position.  One batched
+    row sort of the packed keys gives both.  Returns (ys uint8[L, H], par
+    uint8[L, H], a_final int64[H]).
+    """
+    packed, r_fin = pbwt_encode_keys(alleles, alts, sorts,
+                                     carry_parity=True)
+    L, H = packed.shape
+    ys = torch.empty((L, H), dtype=torch.uint8, device=packed.device)
+    par = torch.empty_like(ys)
+    step = max(1, SORT_SLICE_ELEMS // max(H, 1))   # bounds the sort's memory
+    for a in range(0, L, step):
+        s = torch.sort(packed[a:a + step], dim=1).values
+        ys[a:a + step] = s & 1
+        par[a:a + step] = (s >> 1) & 1
+    return ys, par, _inverse(r_fin)
 
 
 def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
@@ -136,3 +219,41 @@ def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor,
     for j in range(C):
         vals[:, j] = (X >> j) & 1
     return vals.reshape(n_ch * C, H)[:L], inc[-1]
+
+
+def pbwt_decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
+                           hap_line: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PBWT decode of a mixed-ploidy block, one step per line, block start
+    at the identity (pbwt_jax.pbwt_decode_scan_mixed; with no haploid line
+    it is pbwt_jax.pbwt_decode_scan).
+
+    ys: uint8[L, H] bits in arrangement order; a haploid line holds only
+    its N = H/2 even-parity bits, front-packed (the on-disk form).  Its
+    slot-duplicated bits are rebuilt first: position i holds sample
+    a[i] >> 1, whose even slot sits at position inv[a[i] & ~1], whose rank
+    among the even-parity positions indexes the stored bits.  Then the
+    bits land in natural order (vals[a[i]] = y[i]) and a sorting line
+    stably partitions the arrangement by them.  sorts, hap_line: bool[L].
+    Returns (vals uint8[L, H] natural-order bits, haploid lines
+    slot-duplicated; a_final int64[H]).
+    """
+    L, H = ys.shape
+    dev = ys.device
+    iota = torch.arange(H, device=dev)
+    a = iota.clone()
+    vals = torch.empty((L, H), dtype=torch.uint8, device=dev)
+    always = torch.ones(1, dtype=torch.bool, device=dev)
+    # the flags decide the host-side branches: one transfer, no syncs
+    for l, (sort, hap) in enumerate(zip(sorts.tolist(), hap_line.tolist())):
+        y = ys[l].to(torch.int64)
+        if hap:
+            even = 1 - (a & 1)
+            rank_even = torch.cumsum(even, 0) - even
+            inv = torch.empty_like(a).scatter_(0, a, iota)
+            y = y[rank_even[inv[a & ~1]]]
+        vals[l].scatter_(0, a, y.to(torch.uint8))
+        if sort:
+            dest = pbwt_kernels._partition_dest(y[None], always)[0]
+            a = torch.empty_like(a).scatter_(0, dest, a)
+    return vals, a

@@ -1,10 +1,12 @@
 """WAH2 expand and compress: CUDA kernels (csrc/wah.cu) and their plain
 versions.
 
-Port of xsqueezeit_tpu/ops/wah_pallas.py.  Each wrapper launches its
-kernel for a CUDA tensor and calls the plain version for a CPU tensor;
-there is no fallback from one to the other.  ``launches`` counts kernel
-launches per kernel name.
+Port of xsqueezeit_tpu/ops/wah_pallas.py, plus a per-line-width route of
+the expand for mixed-ploidy blocks (wah_expand_varw, in place of the XLA
+wah_jax.wah_expand_stream_varw).  Each wrapper launches its kernel for a
+CUDA tensor and calls the plain version for a CPU tensor; there is no
+fallback from one to the other.  ``launches`` counts kernel launches per
+kernel name.
 """
 from __future__ import annotations
 
@@ -14,11 +16,26 @@ from . import _build
 from .wah_torch import (
     wah_compress_words as wah_compress_plain,
     wah_expand_stream as wah_expand_plain,
+    wah_expand_stream_varw as wah_expand_varw_plain,
     wah_line_offsets,
+    wah_word_offsets,
 )
 
 #: Kernel launches since the last reset, by kernel name.
-launches = {"wah_expand": 0, "wah_compress": 0}
+launches = {"wah_expand": 0, "wah_expand_varw": 0, "wah_compress": 0}
+
+
+def _check_stream(name: str, stream: torch.Tensor, w: int,
+                  n_lines: int) -> torch.Tensor:
+    if stream.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {stream.device}")
+    if stream.dtype != torch.uint16 or stream.dim() != 1:
+        raise ValueError(f"{name}: stream must be 1-D uint16, got "
+                         f"{stream.dtype} {tuple(stream.shape)}")
+    if not 1 <= w < (1 << 15) or n_lines < 0:
+        raise ValueError(f"{name}: need 1 <= w <= 32767 words per line "
+                         f"and n_lines >= 0 (got w={w}, n_lines={n_lines})")
+    return stream.contiguous()
 
 
 def wah_expand(stream: torch.Tensor, n_lines: int, w: int) -> torch.Tensor:
@@ -31,20 +48,39 @@ def wah_expand(stream: torch.Tensor, n_lines: int, w: int) -> torch.Tensor:
     """
     if stream.device.type == "cpu":
         return wah_expand_plain(stream, n_lines, w)
-    if stream.device.type != "cuda":
-        raise ValueError(f"wah_expand: unsupported device {stream.device}")
-    if stream.dtype != torch.uint16 or stream.dim() != 1:
-        raise ValueError(f"wah_expand: stream must be 1-D uint16, got "
-                         f"{stream.dtype} {tuple(stream.shape)}")
-    if not 1 <= w < (1 << 15) or n_lines < 0:
-        raise ValueError(f"wah_expand: need 1 <= w <= 32767 words per line "
-                         f"and n_lines >= 0 (got w={w}, n_lines={n_lines})")
-    stream = stream.contiguous()
+    stream = _check_stream("wah_expand", stream, w, n_lines)
     offs = wah_line_offsets(stream, w, n_lines)
     out = torch.empty((n_lines, w), dtype=torch.int32, device=stream.device)
     _build.launch(stream.device, "xsi_wah_expand", stream.data_ptr(),
                   offs.data_ptr(), out.data_ptr(), n_lines, w)
     launches["wah_expand"] += 1
+    return out
+
+
+def wah_expand_varw(stream: torch.Tensor, group_off: torch.Tensor,
+                    w_max: int) -> torch.Tensor:
+    """Expand a WAH stream of per-line widths to int32[n_lines, w_max].
+
+    Same contract as wah_torch.wah_expand_stream_varw: line l spans groups
+    [group_off[l], group_off[l+1]) (int64[n_lines + 1], each width at most
+    w_max); groups past a line's width are zero.
+    """
+    if stream.device.type == "cpu":
+        return wah_expand_varw_plain(stream, group_off, w_max)
+    n_lines = group_off.shape[0] - 1
+    stream = _check_stream("wah_expand_varw", stream, w_max, n_lines)
+    if group_off.dtype != torch.int64 or group_off.device != stream.device:
+        raise ValueError(f"wah_expand_varw: group_off must be int64 on "
+                         f"{stream.device}, got {group_off.dtype} on "
+                         f"{group_off.device}")
+    group_off = group_off.contiguous()
+    offs = wah_word_offsets(stream, group_off)
+    out = torch.empty((n_lines, w_max), dtype=torch.int32,
+                      device=stream.device)
+    _build.launch(stream.device, "xsi_wah_expand_varw", stream.data_ptr(),
+                  offs.data_ptr(), group_off.data_ptr(), out.data_ptr(),
+                  n_lines, w_max)
+    launches["wah_expand_varw"] += 1
     return out
 
 

@@ -91,21 +91,27 @@ def wah_compress_words(words: torch.Tensor
     return out[:, :W].to(torch.uint16), n_out
 
 
-def wah_line_offsets(stream: torch.Tensor, w: int,
-                     n_lines: int) -> torch.Tensor:
-    """Word offset of each line, and of the end of the last one, in a
-    uniform-width WAH stream (every line spans exactly w 15-bit groups).
+def wah_word_offsets(stream: torch.Tensor,
+                     group_off: torch.Tensor) -> torch.Tensor:
+    """Word offset of each line, and of the end of the last one, in a WAH
+    stream whose line l spans groups [group_off[l], group_off[l+1]).
 
-    stream: uint16/int32[N].  Returns int64[n_lines + 1]; lines past the
-    stream's end get offset N.  One cumsum over the words' spans plus a
-    searchsorted, as wah_jax.wah_line_offsets.
+    stream: uint16/int32[N]; group_off: int64[n_lines + 1] ascending.
+    Returns int64[n_lines + 1]; lines past the stream's end get offset N.
+    One cumsum over the words' spans plus a searchsorted, as
+    wah_jax.wah_line_offsets (fill counters never straddle a line).
     """
     s = stream.to(torch.int32)
     span = torch.where((s & HIGH) != 0, s & MAXC, 1).to(torch.int64)
-    cum = torch.cumsum(span, 0)
-    targets = torch.arange(n_lines + 1, dtype=torch.int64,
-                           device=stream.device) * w
-    return torch.searchsorted(cum, targets, right=True)
+    return torch.searchsorted(torch.cumsum(span, 0), group_off, right=True)
+
+
+def wah_line_offsets(stream: torch.Tensor, w: int,
+                     n_lines: int) -> torch.Tensor:
+    """wah_word_offsets of a uniform-width stream (every line spans
+    exactly w 15-bit groups)."""
+    return wah_word_offsets(stream, torch.arange(
+        n_lines + 1, dtype=torch.int64, device=stream.device) * w)
 
 
 def wah_expand_stream(stream: torch.Tensor, n_lines: int,
@@ -140,3 +146,41 @@ def wah_expand_stream(stream: torch.Tensor, n_lines: int,
     word = z & 0xFFFF
     fill = torch.where((word & ONE) != 0, ALL_SET, 0)
     return torch.where((word & HIGH) != 0, fill, word).to(torch.int32)
+
+
+def wah_expand_stream_varw(stream: torch.Tensor, group_off: torch.Tensor,
+                           w_max: int) -> torch.Tensor:
+    """wah_expand_stream for per-line widths (mixed-ploidy blocks: haploid
+    lines span n_words_for(N) groups, diploid n_words_for(2N)).
+
+    group_off: int64[n_lines + 1] cumulative group offsets of the lines.
+    Returns int32[n_lines, w_max]; groups past a line's own width are
+    zero.  Same formulation as wah_jax.wah_expand_stream_varw: each word's
+    global slot maps to (line, position) by a searchsorted on group_off,
+    then the scatter and row cummax of wah_expand_stream.
+    """
+    if w_max >= (1 << 15):
+        raise ValueError(
+            f"wah_expand_stream_varw supports at most 32767 words per line "
+            f"(got {w_max})")
+    dev = stream.device
+    n_lines = group_off.shape[0] - 1
+    group_off = group_off.to(torch.int64)
+    s = stream.to(torch.int64)
+    span = torch.where((s & HIGH) != 0, s & MAXC, 1)
+    start = torch.cumsum(span, 0) - span
+    line_of = torch.searchsorted(group_off, start, right=True) - 1
+    line_c = torch.clamp(line_of, 0, max(n_lines - 1, 0))
+    pos = start - group_off[line_c]
+    cap = n_lines * w_max
+    valid = (line_of >= 0) & (line_of < n_lines) & (pos < w_max)
+    dest = torch.where(valid, line_c * w_max + pos, cap)
+    z = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    z.scatter_(0, dest, ((pos + 1) << 16) | s)
+    z = torch.cummax(z[:cap].reshape(n_lines, w_max), 1).values
+    word = z & 0xFFFF
+    fill = torch.where((word & ONE) != 0, ALL_SET, 0)
+    out = torch.where((word & HIGH) != 0, fill, word)
+    widths = group_off[1:] - group_off[:-1]
+    keep = torch.arange(w_max, device=dev)[None, :] < widths[:, None]
+    return torch.where(keep, out, 0).to(torch.int32)
