@@ -10,11 +10,15 @@ exactly:
 2. builds the kernels from xsqueezeit_tpu_torch/csrc with nvcc (one
    process per source, side by side);
 3. each kernel route against its plain PyTorch version on the card,
-   bit-exact, with both times: the one-CTA chains and the WAH kernels at
+   bit-exact, with both times and the bound (the bytes each must move
+   over the card's memory rate): the one-CTA chains and the WAH kernels at
    1KGP3 shapes, the cluster chains at HRC width (H = 64,976) and forced
    at H = 5008 (also against the one-CTA route), the WAH kernels at HRC
    width (w = 4332), the per-line-width expand at the widths of a chrX
-   PAR block (w = 165 and 83, lines alternating in runs);
+   PAR block (w = 165 and 83, lines alternating in runs); after each of
+   the two blocks below, the chains again at the block's own shapes,
+   registers and sort flags (1KGP3: 301 chunks; HRC: 325 chunks, on 8
+   CTAs and on the other cluster sizes);
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
    threshold 10, the rare-heavy mix of bench.py) and the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
@@ -43,6 +47,7 @@ JSON, the line before it the card's name and power limit.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -53,15 +58,13 @@ import time
 import numpy as np
 import torch
 
+from xsqueezeit_tpu_torch.bench.synth import synth_bcf
 from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
+from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
+from xsqueezeit_tpu_torch.format.constants import INT32_VECTOR_END
+from xsqueezeit_tpu_torch.io.unified import GtInput
 from xsqueezeit_tpu_torch.ops import _build, pbwt_kernels, pbwt_torch
 from xsqueezeit_tpu_torch.ops import wah_kernels, wah_torch
-from xsqueezeit_tpu_torch.reference import (
-    INT32_VECTOR_END,
-    GtBlockEncoder,
-    GtInput,
-    synth_bcf,
-)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -103,6 +106,76 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     # an XLA function in the JAX package (no Pallas kernel there)
     "wah_expand_varw": ("wah.cu", "wah_jax.py:227"),
 }
+
+
+#: Memory rate of an H100 SXM (NVIDIA's data sheet), bytes per second.  No
+#: kernel here does tensor-core or float work: each one's bound is the
+#: bytes it must move (each input read once, each output written once).
+HBM_BYTES_PER_S = 3.35e12
+
+
+#: Each route's CUDA kernel, as the profiler names it (demangled or not),
+#: to find its device time among the profiler's events.
+KERNEL_NAMES = {
+    "chain_encode": ("chain_kernel<false, false>", "chain_kernelILb0ELb0"),
+    "chain_decode": ("chain_kernel<true, false>", "chain_kernelILb1ELb0"),
+    "chain_encode_cluster": ("chain_kernel<false, true>",
+                             "chain_kernelILb0ELb1"),
+    "chain_decode_cluster": ("chain_kernel<true, true>",
+                             "chain_kernelILb1ELb1"),
+    "wah_expand": ("wah_expand_kernel<false>", "wah_expand_kernelILb0"),
+    "wah_expand_varw": ("wah_expand_kernel<true>", "wah_expand_kernelILb1"),
+    "wah_compress": ("wah_compress_kernel",),
+}
+
+
+def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
+    """Device milliseconds per call of the route's own kernel alone (no
+    wrapper, no host launch cost, none of the wrapper's torch ops), from
+    torch.profiler's CUDA events; None where the profiler records no
+    such event."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if any(n in e.key for n in KERNEL_NAMES[route])]
+    count = sum(e.count for e in events)
+    total_us = sum(e.device_time_total for e in events)
+    if count != iters:
+        print(f"{route}: the profiler recorded {count} of {iters} launches")
+    return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Host milliseconds per call to enqueue fn (no synchronize inside):
+    where it is near the CUDA-event time, the call is bound by the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def chain_bytes(name: str, args) -> int:
+    """Bytes a chain call must move: encode reads q0 (int32) and the sort
+    flags and writes one byte per line and slot; decode reads the line
+    bytes and flags and writes one 32-bit state per slot."""
+    if name.startswith("chain_encode"):
+        q0, ss = args
+        return q0.nbytes + ss.nbytes + q0.shape[0] * ss.shape[1] * q0.shape[1]
+    yc, ss = args
+    return yc.nbytes + ss.nbytes + yc.shape[0] * yc.shape[2] * 4
 
 
 def make_block(rng, H: int):
@@ -274,7 +347,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
     route) and every check made."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
-    cases = []    # (route, width, shape, kernel fn, plain fn, extra check)
+    cases = []    # (route, width, shape, kernel fn, plain fn, extra check,
+    #              bytes moved)
     for label, s in (("1KGP3", KERNEL_SHAPES), ("HRC", HRC_SHAPES)):
         ss, q0, yc = chain_inputs(rng, s, dev)
         words_cpu, words, stream = wah_inputs(rng, s, dev)
@@ -282,25 +356,27 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         shape = f"H={s['H']} C={s['C']} n_ch={s['n_ch']}"
         wshape = f"n_lines={s['n_lines']} w={w}"
         sfx = "" if label == "1KGP3" else "_cluster"
+        n = s["n_lines"]
         cases += [
             (f"chain_encode{sfx}", label, shape,
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode(q0, ss),
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode_plain(q0, ss),
-             None),
+             None, chain_bytes("chain_encode", (q0, ss))),
             (f"chain_decode{sfx}", label, shape,
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode(yc, ss),
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode_plain(yc, ss),
-             None),
+             None, chain_bytes("chain_decode", (yc, ss))),
             ("wah_expand", label, wshape,
-             lambda st=stream, s=s, w=w: wah_kernels.wah_expand(
-                 st, s["n_lines"], w),
-             lambda st=stream, s=s, w=w: wah_kernels.wah_expand_plain(
-                 st, s["n_lines"], w),
+             lambda st=stream, n=n, w=w: wah_kernels.wah_expand(st, n, w),
+             lambda st=stream, n=n, w=w: wah_kernels.wah_expand_plain(
+                 st, n, w),
              ("the encoded words", lambda got, wc=words_cpu: diff(
-                 got.cpu(), wc))),
+                 got.cpu(), wc)),
+             stream.nbytes + n * w * 4),
             ("wah_compress", label, wshape,
              lambda wd=words: wah_kernels.wah_compress(wd),
-             lambda wd=words: wah_kernels.wah_compress_plain(wd), None),
+             lambda wd=words: wah_kernels.wah_compress_plain(wd), None,
+             words.nbytes + n * w * 2 + n * 4),
         ]
         if label == "1KGP3":
             # the cluster route forced at 1KGP3 width, against the plain
@@ -314,7 +390,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                     lambda f=kern, a=args, K=K: f(*a, cluster=K),
                     lambda f=plain, a=args: f(*a),
                     ("the one-CTA route", lambda got, f=kern, a=args:
-                     diff(got, f(*a, cluster=1)))))
+                     diff(got, f(*a, cluster=1))),
+                    chain_bytes(name, args)))
 
     # the per-line-width expand at a chrX PAR block's widths (its own
     # generator: the draws of the cases above stay as they were)
@@ -325,10 +402,11 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         f"n_lines=4096 w={vw}/{wah_torch.n_words_for(MALES)} in runs",
         lambda: wah_kernels.wah_expand_varw(vstream, voff, vw),
         lambda: wah_kernels.wah_expand_varw_plain(vstream, voff, vw),
-        ("the encoded words", lambda got: diff(got.cpu(), vwords))))
+        ("the encoded words", lambda got: diff(got.cpu(), vwords)),
+        vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vw * 4))
 
     rows, checks = {}, []
-    for name, label, shape, kern, plain, extra in cases:
+    for name, label, shape, kern, plain, extra, nbytes in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = diff(got, want)
@@ -343,19 +421,111 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         del got, want
         iters = 10 if label == "HRC" else 20
         ms, plain_ms = cuda_ms(kern, iters=iters), cuda_ms(plain, iters=iters)
-        print(f"kernel {name} [{label}: {shape}]: bit-exact vs plain{note}; "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms ({card})")
-        checks.append({"name": name, "width": label, "shape": shape,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        check = timed_check(name, label, shape, err, ms, plain_ms, nbytes,
+                            note, card, kernel_device_ms(name, kern),
+                            host_ms(kern))
+        checks.append(check)
         # the kernels line holds each route at its own path's width: the
         # cluster chains at HRC, the per-line-width expand at chrX PAR
-        # widths, the rest at 1KGP3
+        # widths, the rest at 1KGP3 (the chains are replaced by their
+        # blocks' own shapes once the blocks have run)
         if name not in rows and ("cluster" in name) == (label == "HRC"):
-            src, replaces = ROUTES[name]
-            rows[name] = {"name": name, "route": "cuda",
-                          "source": SRC + src, "replaces": PALLAS + replaces,
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            rows[name] = kernel_row(check)
     return rows, checks
+
+
+def timed_check(name, label, shape, err, ms, plain_ms, nbytes, note,
+                card, kernel_ms, enqueue_ms) -> dict:
+    """Print one kernel check and return its record (with the bound).
+    ms: the wrapper per call by CUDA events; kernel_ms: the kernel alone
+    (profiler; None: not measured); enqueue_ms: the host's time per call."""
+    b_ms = bound_ms(nbytes)
+    alone = ("not measured" if kernel_ms is None else
+             f"{kernel_ms:.4f} ms (share {b_ms / kernel_ms:.4f})")
+    print(f"kernel {name} [{label}: {shape}]: bit-exact vs plain{note}; "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
+          f"({nbytes} B), roofline share {b_ms / ms:.4f}; the kernel alone "
+          f"{alone}; host enqueue {enqueue_ms:.4f} ms/call ({card})")
+    return {"name": name, "width": label, "shape": shape, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
+            "host_enqueue_ms": enqueue_ms, "bytes": nbytes,
+            "bound_ms": b_ms}
+
+
+def kernel_row(check: dict) -> dict:
+    """The kernels line's entry of a route, from one of its checks.  No
+    single PyTorch call computes a chunk chain of stable partitions or a
+    WAH expansion or compression: library_ms is null."""
+    src, replaces = ROUTES[check["name"]]
+    return {"name": check["name"], "route": "cuda", "source": SRC + src,
+            "replaces": PALLAS + replaces, "shape": check["shape"],
+            "max_abs_err": check["max_abs_err"], "ms": check["ms"],
+            "plain_ms": check["plain_ms"], "kernel_ms": check["kernel_ms"],
+            "bound_ms": check["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
+@contextlib.contextmanager
+def captured_chains():
+    """Records (a copy of) the arguments of the first call of each chain
+    wrapper made inside the block, so the kernels can be held and timed at
+    the shapes, registers and sort flags the block's own path gives them."""
+    seen = {}
+    orig = {n: getattr(pbwt_kernels, n) for n in ("chain_encode",
+                                                   "chain_decode")}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            seen.setdefault(name, tuple(a.clone() for a in args))
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in orig.items():
+        setattr(pbwt_kernels, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in orig.items():
+            setattr(pbwt_kernels, name, fn)
+
+
+def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
+    """Each chain kernel at its block's own shapes, bit-exact against its
+    plain version and timed; at HRC width also on the other cluster sizes
+    (encode K = 2, 4 and 8, decode K = 3, 4 and 8)."""
+    out = []
+    for name, args in seen.items():
+        plain = getattr(pbwt_kernels, f"{name}_plain")
+        kern = getattr(pbwt_kernels, name)
+        H = args[0].shape[-1]
+        n_ch, C = args[1].shape
+        K0 = pbwt_kernels.cluster_size(name, H)
+        sizes = [K0]
+        if K0 > 1:
+            sizes += [k for k in ((2, 4, 8) if name == "chain_encode"
+                                  else (3, 4, 8)) if k != K0]
+        want = plain(*args)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=10, warmup=2)
+        for K in sizes:
+            got = kern(*args, cluster=K)
+            torch.cuda.synchronize()
+            err = diff(got, want)
+            route = name if K == 1 else f"{name}_cluster"
+            shape = f"H={H} C={C} n_ch={n_ch} K={K}"
+            require(err == 0, f"{route} at {label} block shape {shape}: "
+                              f"kernel differs from its plain version "
+                              f"(max abs err {err})")
+            del got
+            def call(K=K):
+                return kern(*args, cluster=K)
+            ms = cuda_ms(call, iters=10, warmup=2)
+            check = timed_check(route, f"{label} block", shape, err, ms,
+                                plain_ms, chain_bytes(name, args), "", card,
+                                kernel_device_ms(route, call), host_ms(call))
+            check["default_route"] = K == K0
+            out.append(check)
+        del want
+    return out
 
 
 def host_reference(name: str, kw: dict, rows) -> bytes:
@@ -448,7 +618,7 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
 
     # ---- timing, in bench.py's unit (L * H * 4 logical gt bytes) ------
     wide = H > 2 * 5008
-    prep = enc.prepare(pad=False)
+    prep = enc.prepare()
     dev = torch.device(DEVICE)
 
     def t(a, dtype=None):
@@ -459,6 +629,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
               t(prep["sparse_rows_p"], torch.int64), t(prep["negated_s"]))
     del prep, enc
     cap = max(mac, 1)
+    with captured_chains() as seen:
+        encoder_torch.encode_block_core_compact(*staged, cap)
     torch.cuda.reset_peak_memory_stats()
     enc_ms = cuda_ms(lambda: encoder_torch.encode_block_core_compact(
         *staged, cap), iters=5 if wide else 10, warmup=1 if wide else 2)
@@ -471,7 +643,9 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, np.uint16,
                                           device=dev)
     *dstaged, h, w, _ = dec.device_inputs()
-    gt_dev = decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
+    with captured_chains() as seen_dec:
+        gt_dev = decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
+    seen.update(seen_dec)
     require(bool((gt_dev.cpu().numpy() == gt).all()),
             f"{name}: fused decode to gt codes is not bit-exact")
     del gt_dev
@@ -497,7 +671,9 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
           f"{dec_peak_gb:.3f} GB) | serialize (ingest + prepare + device + "
           f"assemble): {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
+    chain_checks = block_chain_checks(name, seen, card)
     return {"launches": launches, "H": H, "encode_ms": enc_ms,
+            "chain_checks": chain_checks,
             "decode_ms": dec_ms, "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
             "payload_bytes": len(payload), "wah_lines": n_wah,
@@ -583,7 +759,7 @@ def track_block_phase(name: str, card: str) -> dict:
         *dstaged, 0, *pairs_dev, h, w), iters=10, warmup=2)
     del dstaged, pairs_dev
 
-    prep = enc.prepare(pad=False)
+    prep = enc.prepare()
     nm = len(prep["flag_m"])
     rows = prep["first_lines"][np.concatenate([prep["flag_m"],
                                                prep["flag_e"]])]
@@ -661,7 +837,7 @@ def mixed_block_phase(card: str) -> dict:
         ref_payload, rows)
 
     # ---- timings, step by step (bench.py's unit) ----------------------
-    prep = enc.prepare(pad=False)
+    prep = enc.prepare()
     is_wah, hap_l = prep["is_wah"], prep["hap_line"]
     wah_rows = np.flatnonzero(is_wah)
     sparse_rows = np.flatnonzero(~is_wah)
@@ -815,11 +991,6 @@ def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
 
 
 def main() -> int:
-    # The native host library links libzstd and libdeflate; pin the NumPy
-    # host paths so the run does not depend on it, nor try to build it
-    # (the CLI subprocesses inherit this).
-    for flag in ("XSI_NATIVE", "XSI_NATIVE_ENCODE", "XSI_NATIVE_PARSE"):
-        os.environ.setdefault(flag, "0")
     phases = {}
 
     def phase(key, fn, *args):
@@ -842,6 +1013,11 @@ def main() -> int:
              "file-missing": phase("file-missing", file_phase, card,
                                    "file-missing", 0.01, True)}
 
+    for b in blocks.values():
+        for c in b.pop("chain_checks", []):
+            checks.append(c)
+            if c["default_route"]:
+                rows[c["name"]] = kernel_row(c)   # the block's own shapes
     for r in rows.values():
         r["launches"] = sum(b["launches"][r["name"]] for b in blocks.values())
     print(json.dumps({"kernel_checks": checks, "card": card}))

@@ -10,10 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from xsqueezeit_tpu.format.constants import INT32_VECTOR_END
 from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
+from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
+from xsqueezeit_tpu_torch.format.constants import INT32_VECTOR_END
 from xsqueezeit_tpu_torch.ops import pbwt_kernels, wah_kernels, wah_torch
-from xsqueezeit_tpu_torch.reference import GtBlockEncoder
 
 pytestmark = pytest.mark.cuda
 
@@ -32,21 +32,48 @@ def _equal(a, b):
                                               b.cpu().to(torch.int64))
 
 
-@pytest.mark.parametrize("n_ch,C,H", [(1, 16, 1), (3, 16, 31), (5, 7, 513),
-                                      (8, 16, 5008), (2, 16, 28928)])
-def test_chain_kernels_match_plain(dev, n_ch, C, H):
-    rng = np.random.default_rng(H)
-    ss = torch.from_numpy(rng.random((n_ch, C)) < 0.8).to(dev)
-    q0 = torch.from_numpy(rng.integers(0, 1 << C, (n_ch, H),
-                                       dtype=np.int32)).to(dev)
-    n0 = pbwt_kernels.launches["chain_encode"]
-    assert _equal(pbwt_kernels.chain_encode(q0, ss),
+def _chain_inputs(rng, n_ch, C, H, lines="random"):
+    """Sort flags, encode registers and decode bits of n_ch chunks.
+    lines: "random", "zeros" / "ones" (every line all 0 / all 1) or
+    "nosort" (random bits, no line sorts)."""
+    ss = torch.from_numpy(rng.random((n_ch, C)) < 0.8)
+    ss[0] = True                 # one chain that sorts on every line
+    if lines == "nosort":
+        ss[:] = False
+    if lines in ("zeros", "ones"):
+        fill = 0 if lines == "zeros" else (1 << C) - 1
+        q0 = torch.full((n_ch, H), fill, dtype=torch.int32)
+        yc = torch.full((n_ch, C, H), fill & 1, dtype=torch.uint8)
+    else:
+        q0 = torch.from_numpy(rng.integers(0, 1 << C, (n_ch, H),
+                                           dtype=np.int32))
+        p = rng.choice([0.002, 0.4, 0.97], (n_ch, C, 1))
+        yc = torch.from_numpy((rng.random((n_ch, C, H)) < p)
+                              .astype(np.uint8))
+    return ss, q0, yc
+
+
+@pytest.mark.parametrize("n_ch,C,H,lines", [
+    (1, 16, 1, "random"), (3, 16, 31, "random"), (3, 16, 33, "random"),
+    (5, 7, 513, "random"),       # H not a multiple of a tile, C < 16
+    (8, 16, 5008, "random"), (2, 16, 28928, "random"),
+    (2, 16, 28929, "random"),    # above the one-CTA decode bound
+    (2, 16, 57856, "random"),    # the one-CTA encode bound
+    (4, 16, 5008, "zeros"), (4, 16, 5008, "ones"), (4, 16, 5008, "nosort"),
+    (3, 4, 777, "random"),
+])
+def test_chain_kernels_match_plain(dev, n_ch, C, H, lines):
+    rng = np.random.default_rng(H + C)
+    ss, q0, yc = _chain_inputs(rng, n_ch, C, H, lines)
+    n0 = dict(pbwt_kernels.launches)
+    assert _equal(pbwt_kernels.chain_encode(q0.to(dev), ss.to(dev)),
                   pbwt_kernels.chain_encode_plain(q0, ss))
-    assert pbwt_kernels.launches["chain_encode"] == n0 + 1
-    yc = torch.from_numpy((rng.random((n_ch, C, H)) < 0.4)
-                          .astype(np.uint8)).to(dev)
-    assert _equal(pbwt_kernels.chain_decode(yc, ss),
+    assert _equal(pbwt_kernels.chain_decode(yc.to(dev), ss.to(dev)),
                   pbwt_kernels.chain_decode_plain(yc, ss))
+    for name in ("chain_encode", "chain_decode"):
+        route = name + ("" if pbwt_kernels.cluster_size(name, H) == 1
+                        else "_cluster")
+        assert pbwt_kernels.launches[route] == n0[route] + 1
 
 
 def test_chain_kernels_refuse_above_the_bound(dev):
@@ -63,26 +90,31 @@ def test_chain_kernels_refuse_above_the_bound(dev):
         pbwt_kernels.chain_decode(wide, ss)
 
 
-@pytest.mark.parametrize("n_ch,C,H,K_enc,K_dec", [
-    (4, 16, 5008, 2, 4),        # forced cluster at 1KGP3 width
-    (2, 16, 57857, None, None),  # just above the one-CTA encode bound
-    (3, 16, 64976, None, None),  # HRC: K = 2 (encode), 4 (decode)
-    (3, 16, 64976, 8, 8),
-    (2, 9, 1001, 3, 3),          # H not divisible by K
-    (2, 16, 3, 8, 8),            # CTAs whose slot range is empty
+@pytest.mark.parametrize("n_ch,C,H,K_enc,K_dec,lines", [
+    (4, 16, 5008, 2, 4, "random"),        # forced cluster at 1KGP3 width
+    (2, 16, 57857, None, None, "random"),  # just above the encode bound
+    (3, 16, 64976, None, None, "random"),  # HRC: K = 8 (both chains)
+    (3, 16, 64976, 2, 3, "random"),
+    (3, 16, 64976, 4, 4, "random"),
+    (2, 16, 65535, None, None, "random"),  # the 16-bit slot field's limit
+    (2, 9, 1001, 3, 3, "random"),          # H not divisible by K
+    (2, 16, 3, 8, 8, "random"),            # CTAs holding only padding
+    (2, 16, 1, 2, 2, "random"),
+    (3, 16, 31, 3, 3, "random"), (3, 16, 33, 4, 4, "random"),
+    (3, 5, 700, 2, 2, "random"),           # C < 16
+    (3, 16, 2000, 3, 3, "zeros"), (3, 16, 2000, 3, 3, "ones"),
+    (3, 16, 2000, 2, 4, "nosort"),
 ])
-def test_chain_cluster_routes_match_plain(dev, n_ch, C, H, K_enc, K_dec):
+def test_chain_cluster_routes_match_plain(dev, n_ch, C, H, K_enc, K_dec,
+                                          lines):
     rng = np.random.default_rng(H + C)
-    ss = torch.from_numpy(rng.random((n_ch, C)) < 0.8).to(dev)
-    ss[0] = True                 # one chain that sorts on every line
-    q0 = torch.from_numpy(rng.integers(0, 1 << C, (n_ch, H),
-                                       dtype=np.int32)).to(dev)
+    ss, q0, yc = _chain_inputs(rng, n_ch, C, H, lines)
     n0 = dict(pbwt_kernels.launches)
-    assert _equal(pbwt_kernels.chain_encode(q0, ss, cluster=K_enc),
+    assert _equal(pbwt_kernels.chain_encode(q0.to(dev), ss.to(dev),
+                                            cluster=K_enc),
                   pbwt_kernels.chain_encode_plain(q0, ss))
-    yc = torch.from_numpy((rng.random((n_ch, C, H)) < 0.4)
-                          .astype(np.uint8)).to(dev)
-    assert _equal(pbwt_kernels.chain_decode(yc, ss, cluster=K_dec),
+    assert _equal(pbwt_kernels.chain_decode(yc.to(dev), ss.to(dev),
+                                            cluster=K_dec),
                   pbwt_kernels.chain_decode_plain(yc, ss))
     n1 = pbwt_kernels.launches
     assert n1["chain_encode_cluster"] == n0["chain_encode_cluster"] + 1

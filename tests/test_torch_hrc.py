@@ -39,20 +39,45 @@ def _lines(rng, L, ps=(0.0005, 0.02, 0.3, 0.7, 0.9995)):
 def test_width_is_above_the_one_cta_bounds():
     assert pbwt_kernels.MAX_H_DECODE < pbwt_kernels.MAX_H_ENCODE < H
     assert H <= pbwt_kernels.MAX_H
-    assert pbwt_kernels.cluster_size("chain_encode", H) == 2
-    assert pbwt_kernels.cluster_size("chain_decode", H) == 4
+    assert pbwt_kernels.cluster_size("chain_encode", H) == 8
+    assert pbwt_kernels.cluster_size("chain_decode", H) == 8
 
 
 @pytest.mark.parametrize("name,width,cluster,want", [
     ("chain_encode", 5008, None, 1),
-    ("chain_encode", 57857, None, 2),
-    ("chain_decode", 28929, None, 2),
-    ("chain_decode", 57857, None, 4),
+    ("chain_encode", 57856, None, 1),
+    ("chain_encode", 57857, None, 8),
+    ("chain_decode", 28928, None, 1),
+    ("chain_decode", 28929, None, 8),
+    ("chain_decode", 57857, None, 8),
     ("chain_decode", 5008, 4, 4),
+    ("chain_decode", H, 3, 3),
     ("chain_encode", 3, 8, 8),
 ])
 def test_cluster_size(name, width, cluster, want):
     assert pbwt_kernels.cluster_size(name, width, cluster) == want
+
+
+@pytest.mark.parametrize("name,width,K,want", [
+    # one CTA: the row in whole tiles (256 u16 / 128 u32), double buffered
+    ("chain_encode", 1, 1, 2 * 2 * 256),
+    ("chain_encode", 57856, 1, 2 * 2 * 57856),
+    ("chain_encode", 57857, 1, 2 * 2 * (57856 + 256)),
+    ("chain_decode", 28928, 1, 2 * 4 * 28928),
+    ("chain_decode", 28929, 1, 2 * 4 * (28928 + 128)),
+    # a cluster: each CTA's share in whole tiles, plus 16 warps' staging
+    # of two runs (a tile and 16 bytes each)
+    ("chain_encode", H, 2, 2 * 2 * 32512 + 16 * 2 * 528),
+    ("chain_decode", H, 3, 2 * 4 * 21760 + 16 * 2 * 528),
+    ("chain_decode", H, 8, 2 * 4 * 8192 + 16 * 2 * 528),
+    ("chain_encode", 3, 8, 2 * 2 * 256 + 16 * 2 * 528),
+])
+def test_chain_smem_bytes(name, width, K, want):
+    got = pbwt_kernels.chain_smem_bytes(name, width, K)
+    assert got == want
+    assert (got <= pbwt_kernels._SMEM_BYTES) == (
+        K > 1 or width <= {"chain_encode": pbwt_kernels.MAX_H_ENCODE,
+                           "chain_decode": pbwt_kernels.MAX_H_DECODE}[name])
 
 
 @pytest.mark.parametrize("name,width,cluster,match", [

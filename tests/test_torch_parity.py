@@ -1,0 +1,169 @@
+"""The port's copies of the JAX package's host modules against the
+originals, byte for byte, on every fixture: block payloads (the host
+GtBlockEncoder, and TorchBlockEncoder without the JAX package's bucket
+padding), per-record decode, the container and header, the variant BCF,
+its CSI index, and the CLI's -c / -x files.  The JAX package is the
+reference; its CLI runs on its host codec (the tests pin XSI_DEVICE=numpy,
+tests/conftest.py).  Tolerance: exact equality."""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from xsqueezeit_tpu import cli as jax_cli
+from xsqueezeit_tpu.codec.gt_block import GtBlockEncoder as JaxEncoder
+from xsqueezeit_tpu.codec.gt_block_decoder import GtBlockDecoder as JaxDecoder
+from xsqueezeit_tpu.format.container import XsiReader as JaxReader
+from xsqueezeit_tpu.format.header import XsiHeader as JaxHeader
+from xsqueezeit_tpu.io.unified import GtInput as JaxInput
+from xsqueezeit_tpu_torch.cli import main as torch_cli
+from xsqueezeit_tpu_torch.codec.encoder_torch import TorchBlockEncoder
+from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
+from xsqueezeit_tpu_torch.codec.gt_block_decoder import GtBlockDecoder
+from xsqueezeit_tpu_torch.format.container import XsiReader
+from xsqueezeit_tpu_torch.format.header import XsiHeader
+from xsqueezeit_tpu_torch.io.unified import GtInput
+from tests import fixtures
+
+
+def _zero_alt(path):
+    rows = [(".", ["0|0"] * 10), ("A", ["0|1"] + ["0|0"] * 9),
+            (".", ["0|0"] * 10), ("A", ["1|1"] * 10),
+            ("A,C", ["0|2", "1|0"] + ["0|0"] * 8)]
+    return fixtures.write_vcf(path, rows)
+
+
+#: name -> (writer(path), --variant-block-length)
+FIXTURES = {
+    "random": (lambda p: fixtures.random_vcf(p, n_samples=48, n_records=150,
+                                             seed=3), 64),
+    "missing": (fixtures.micro_missing, 2),
+    "eov": (fixtures.micro_eov, 2),
+    "mixed_ploidy": (fixtures.micro_mixed_ploidy, 2),
+    "haploid": (fixtures.micro_haploid, 3),
+    "missing_non_uniform_phasing_ploidy": (
+        fixtures.micro_missing_non_uniform_phasing_ploidy, 2),
+    "zero_alt": (_zero_alt, 2),
+}
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.fixture(params=sorted(FIXTURES))
+def case(request, tmp_path):
+    write, block = FIXTURES[request.param]
+    return request.param, write(str(tmp_path / "in.vcf")), block
+
+
+def _records(cls, vcf):
+    inp = cls(vcf)
+    out = [(r.gt, r.n_alleles) for r in inp]
+    inp.close()
+    return out
+
+
+def test_reader_records_match(case):
+    _, vcf, _ = case
+    want = _records(JaxInput, vcf)
+    got = _records(GtInput, vcf)
+    assert len(got) == len(want) > 0
+    for (g, ga), (w, wa) in zip(got, want):
+        assert ga == wa and np.array_equal(g, w)
+
+
+def test_block_payloads_and_decode_match(case, monkeypatch):
+    """Per block: the port's GtBlockEncoder, and TorchBlockEncoder on the
+    CPU with the device track route forced (no bucket padding of its
+    lines or track capacity), write the JAX GtBlockEncoder's payload; the
+    port's GtBlockDecoder gives the same records back."""
+    monkeypatch.setenv("XSI_TRACKS_DEVICE_MIN", "1")
+    name, vcf, block = case
+    recs = _records(JaxInput, vcf)
+    n_samples = len(JaxInput(vcf).samples)
+    kw = dict(n_samples=n_samples, block_bcf_lines=block, mac_threshold=1,
+              default_phasing=1, aet_dtype=np.uint16)
+    for lo in range(0, len(recs), block):
+        chunk = recs[lo:lo + block]
+        encs = [JaxEncoder(**kw), GtBlockEncoder(**kw),
+                TorchBlockEncoder(device="cpu", **kw)]
+        payloads = []
+        for enc in encs:
+            for gt, na in chunk:
+                enc.encode_record(gt, na)
+            try:
+                payloads.append(enc.serialize())
+            except ValueError as exc:       # a flagged zero-ALT record
+                payloads.append(str(exc))
+        assert payloads[1] == payloads[0], f"{name} block {lo // block}"
+        assert payloads[2] == payloads[0], f"{name} block {lo // block}"
+        if isinstance(payloads[0], str):
+            continue
+        decs = [cls(payloads[0], n_samples, 2 * n_samples,
+                    aet_dtype=np.uint16) for cls in (JaxDecoder,
+                                                     GtBlockDecoder)]
+        for _, na in chunk:
+            a, b = (d.fill_genotype_array_advance(na) for d in decs)
+            assert np.array_equal(a, b)
+
+
+def _jax_compress(vcf, out, block, extra=()):
+    assert jax_cli.main(["-c", "-f", vcf, "-o", out,
+                         "--variant-block-length", str(block),
+                         *extra]) == 0
+
+
+@pytest.mark.parametrize("device", ["numpy", "cpu"])
+def test_cli_compress_files_match(case, tmp_path, device):
+    """.xsi, _var.bcf and its .csi equal the JAX package's (one file name
+    in two directories: the name is in the variant file's header)."""
+    _, vcf, block = case
+    want, got = (str(tmp_path / d / "o.xsi") for d in ("jax", "port"))
+    for d in (want, got):
+        os.makedirs(os.path.dirname(d))
+    _jax_compress(vcf, want, block)
+    assert torch_cli(["-c", "-f", vcf, "-o", got, "--device", device,
+                      "--variant-block-length", str(block)]) == 0
+    for sfx in ("", "_var.bcf", "_var.bcf.csi"):
+        assert _read(got + sfx) == _read(want + sfx), sfx
+
+
+def test_cli_extract_matches(case, tmp_path):
+    """-x of the port on its host codec and on the CPU tensors writes the
+    JAX package's VCF, byte for byte."""
+    _, vcf, block = case
+    xsi = str(tmp_path / "o.xsi")
+    _jax_compress(vcf, xsi, block)
+    want = str(tmp_path / "jax.vcf")
+    assert jax_cli.main(["-x", "-f", xsi, "-o", want]) == 0
+    for device in ("numpy", "cpu"):
+        got = str(tmp_path / f"{device}.vcf")
+        assert torch_cli(["-x", "-f", xsi, "-o", got, "--device",
+                          device]) == 0
+        assert _read(got) == _read(want), device
+
+
+@pytest.mark.parametrize("zstd", [False, True])
+def test_container_and_header_match(tmp_path, zstd):
+    vcf = fixtures.random_vcf(str(tmp_path / "in.vcf"), n_samples=20,
+                              n_records=70, seed=5)
+    extra = ["--zstd"] if zstd else []
+    want, got = (str(tmp_path / d / "o.xsi") for d in ("jax", "port"))
+    for d in (want, got):
+        os.makedirs(os.path.dirname(d))
+    _jax_compress(vcf, want, 16, extra)
+    assert torch_cli(["-c", "-f", vcf, "-o", got, "--device", "numpy",
+                      "--variant-block-length", "16", *extra]) == 0
+    assert _read(got) == _read(want)
+    raw = _read(got)[:256]
+    h, jh = XsiHeader.unpack(raw), JaxHeader.unpack(raw)
+    assert h.pack() == jh.pack() == raw
+    assert h.info_string() == jh.info_string()
+    r, jr = XsiReader(got), JaxReader(want)
+    assert r.samples == jr.samples and r.n_blocks() == jr.n_blocks() > 1
+    for b in range(r.n_blocks()):
+        assert bytes(r.gt_block_payload(b)) == bytes(jr.gt_block_payload(b))

@@ -79,7 +79,7 @@ def test_compact_tracks_core_matches_jax(ws):
                             device="cpu")
     for gt, na in records:
         enc.encode_record(gt, na)
-    prep = enc.prepare(pad=False)
+    prep = enc.prepare()
     wah_weird = ws == WS.WS_WAH
     trk_cap = enc.track_cap(prep, wah_weird)
     nm = len(prep["flag_m"])

@@ -11,8 +11,9 @@ Port of xsqueezeit_tpu/cli.py (compress, extract, info):
     python -m xsqueezeit_tpu_torch.cli -i -f out.xsi
 
 --device cuda (the default) runs the CUDA kernels and fails when there is
-no card; cpu runs their plain versions on CPU tensors; numpy is the JAX
-package's host codec.  Output files are byte-identical across devices.
+no card; cpu runs their plain versions on CPU tensors; numpy is the
+host codec (the port's copy of the JAX package's NumPy codec).  Output
+files are byte-identical across devices, and to the JAX package's.
 """
 from __future__ import annotations
 
@@ -21,13 +22,12 @@ import os
 import struct
 import sys
 
-from xsqueezeit_tpu.format.constants import (
+from .format.constants import (
     DEFAULT_BLOCK_LENGTH,
     DEFAULT_MAF,
     DEFAULT_ZSTD_LEVEL,
 )
-
-from .format.zstd_shim import ZstdUnavailable
+from .format.container import ZstdUnavailable
 from .utils.devprobe import DEVICES, DeviceUnavailable
 
 
@@ -81,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from xsqueezeit_tpu.utils.malltune import tune_glibc_malloc
+    from .utils.malltune import tune_glibc_malloc
     tune_glibc_malloc()
 
     args = build_parser().parse_args(argv)
@@ -129,7 +129,7 @@ def _read_regions_file(path: str) -> list[str]:
 
 def _dispatch(args) -> int:
     if args.info:
-        from xsqueezeit_tpu.format.header import XsiHeader
+        from .format.header import XsiHeader
         with open(args.file, "rb") as f:
             header = XsiHeader.unpack(f.read(256))
         print(header.info_string(), file=sys.stderr)

@@ -22,13 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xsqueezeit_tpu.codec.gt_block_decoder import GtBlockDecoder
-from xsqueezeit_tpu.format.constants import INT32_VECTOR_END, WeirdnessStrategy
-from xsqueezeit_tpu.ops import pbwt_np, wah_np
-from xsqueezeit_tpu.ops.sparse_np import msb as _msb, sparse_line_offsets
-
-from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
+from ..format.constants import INT32_VECTOR_END, WeirdnessStrategy
+from ..ops import pbwt_kernels, pbwt_np, pbwt_torch, wah_kernels, wah_np
+from ..ops import wah_torch
+from ..ops.sparse_np import msb as _msb, sparse_line_offsets
 from .encoder_torch import TOO_WIDE
+from .gt_block_decoder import GtBlockDecoder
 
 
 def _decode_wah_and_scan(stream, sorts, h: int, w: int) -> torch.Tensor:

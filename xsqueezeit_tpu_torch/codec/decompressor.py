@@ -1,14 +1,20 @@
 """Decompression driver on the torch codec: .xsi + _var.bcf -> VCF/BCF/XSI.
 
-Port of xsqueezeit_tpu/codec/decompressor.py.  The JAX package's
-Decompressor (jax-free at import) keeps the variant walk, region/target
-filters, sample subsetting and the writers; this subclass decodes whole
-blocks with decoder_torch on the chosen device, and re-encodes (-O x) with
-TorchBlockEncoder on it.  device="numpy" keeps the host codec.
+The port's copy of xsqueezeit_tpu/codec/decompressor.py (after the
+reference's gt_decompressor_new.hpp NewDecompressor): iterate the variant
+BCF, map each record's FORMAT/BM pointer to (block, offset), decode the
+genotype matrix rows, and emit the record with its samples restored.
+Supports region (-r) and target (-t) filtering and sample subsetting (-s)
+with AC/AN recomputation, and re-compression to a fresh XSI (-O x).
+Whole blocks decode with decoder_torch on the chosen device and -O x
+re-encodes with TorchBlockEncoder on it; device="numpy" keeps the host
+codec (GtBlockDecoder per record).  The JAX package's device route and
+its native accessor and extract loop are not copied.
 """
 from __future__ import annotations
 
 import os
+import re
 import struct
 import tempfile
 from collections import deque
@@ -18,58 +24,420 @@ from itertools import chain
 
 import numpy as np
 
-# before the container: it imports zstandard, which may be missing
-from ..format import zstd_shim  # noqa: F401  isort: skip
-from xsqueezeit_tpu.codec import decompressor as _base
-from xsqueezeit_tpu.codec.compressor import make_variant_header
-from xsqueezeit_tpu.format.constants import (
+from ..format.constants import (
     BM_BLOCK_BITS,
     XSI_BCF_VAR_EXTENSION,
     WeirdnessStrategy,
 )
-from xsqueezeit_tpu.format.container import XsiWriter
-from xsqueezeit_tpu.format.header import XsiHeader
-from xsqueezeit_tpu.io.bcf import BcfWriter, patch_shared_sample_counts
-from xsqueezeit_tpu.io.csi import CsiBuilder, depth_for_max_len
-from xsqueezeit_tpu.io.sites import encode_bm_indiv
-
+from ..format.container import XsiReader, XsiWriter
+from ..format.header import XsiHeader
+from ..io.bcf import (
+    BcfHeader,
+    BcfReader,
+    BcfRecord,
+    BcfWriter,
+    patch_shared_sample_counts,
+)
+from ..io.csi import CsiBuilder, CsiIndex, depth_for_max_len
+from ..io.sites import (
+    encode_bm_indiv,
+    encode_gt_indiv,
+    encode_shared_from_vcf_cols,
+    render_vcf_cols,
+)
+from ..io.vcf import VcfWriter
 from ..utils.devprobe import torch_device
-from .compressor import CompressorOptions, TorchEncodeDispatcher, \
-    compress_file
+from .compressor import (
+    CompressorOptions,
+    TorchEncodeDispatcher,
+    compress_file,
+    make_variant_header,
+)
 from .decoder_torch import decode_block_records
+from .gt_block_decoder import GtBlockDecoder
 
 _OFFSET_MASK = (1 << BM_BLOCK_BITS) - 1
 
 
 @dataclass
-class DecompressorOptions(_base.DecompressorOptions):
-    device: str = "cuda"  # "cuda" | "cpu" | "numpy"
+class Region:
+    chrom: str
+    start: int | None = None  # 1-based inclusive
+    end: int | None = None
+
+    @classmethod
+    def parse(cls, text: str) -> "Region":
+        m = re.match(r"^([^:]+)(?::(\d+)(-)?(\d+)?)?$", text)
+        if not m:
+            raise ValueError(f"Bad region: {text}")
+        chrom, start, dash, end = m.groups()
+        if start and not dash:
+            end = start        # "chr:pos" is that single position (htslib)
+        return cls(chrom, int(start) if start else None,
+                   int(end) if end else None)
+
+    def overlaps(self, chrom: str, pos: int, rlen: int) -> bool:
+        """Region semantics (-r): record overlap including its length."""
+        if chrom != self.chrom:
+            return False
+        if self.start is not None and pos + rlen - 1 < self.start:
+            return False
+        if self.end is not None and pos > self.end:
+            return False
+        return True
+
+    def targets(self, chrom: str, pos: int) -> bool:
+        """Target semantics (-t): POS-only check."""
+        if chrom != self.chrom:
+            return False
+        if self.start is not None and pos < self.start:
+            return False
+        if self.end is not None and pos > self.end:
+            return False
+        return True
+
+
+def parse_region_list(text: str) -> list[Region]:
+    return [Region.parse(t) for t in text.split(",") if t]
+
+
+@dataclass
+class DecompressorOptions:
+    regions: str = ""
+    targets: str = ""
+    samples: str = ""          # comma list, ^-prefixed to exclude
+    samples_file: str = ""
+    output_type: str = "b"     # b|u|z|v|x
+    no_header: bool = False
+    verbose: bool = False
+    device: str = "cuda"       # "cuda" | "cpu" | "numpy"
 
 
 def _block_of(bm: int) -> int:
     return (bm & 0xFFFFFFFF) >> BM_BLOCK_BITS
 
 
-class Decompressor(_base.Decompressor):
-    def __init__(self, xsi_path: str,
-                 opts: DecompressorOptions | None = None):
-        opts = opts or DecompressorOptions()
+class Decompressor:
+    def __init__(self, xsi_path: str, opts: DecompressorOptions | None = None):
+        self.xsi_path = xsi_path
+        self.opts = opts or DecompressorOptions()
         # resolve the device before any work: "cuda" without a card fails
-        self.torch_device = torch_device(opts.device)
-        super().__init__(xsi_path, opts)
+        self.torch_device = torch_device(self.opts.device)
+        self.xsi = XsiReader(xsi_path)
+        self.var_path = xsi_path + XSI_BCF_VAR_EXTENSION
+        if not os.path.exists(self.var_path):
+            raise FileNotFoundError(self.var_path)
+        self.n_samples = self.xsi.n_samples
+        self.n_haps = self.xsi.header.hap_samples
+        # The genotype matrix is sized for diploid samples regardless of the
+        # file max ploidy recorded in the header.
+        if self.xsi.header.ploidy == 1:
+            self.n_haps = self.n_samples * 2
 
-    def _use_device(self) -> bool:
-        return self.torch_device is not None
+        self._decoders: dict[int, GtBlockDecoder] = {}
+        self._select = self._build_sample_selection()
 
-    def _local_mesh(self):
-        return None   # one device; multi-GPU is a later PR of the port
+    # ------------------------------------------------------------- samples
+    def _build_sample_selection(self) -> np.ndarray | None:
+        opt = self.opts
+        names: list[str] = []
+        invert = False
+        if opt.samples_file:
+            with open(opt.samples_file) as f:
+                names = [l.strip() for l in f if l.strip()]
+            if names and names[0].startswith("^"):
+                invert = True
+                names[0] = names[0][1:]
+        elif opt.samples:
+            s = opt.samples
+            if s.startswith("^"):
+                invert = True
+                s = s[1:]
+            names = [n for n in s.split(",") if n]
+        else:
+            return None
+        index = {n: i for i, n in enumerate(self.xsi.samples)}
+        missing = [n for n in names if n not in index]
+        if missing:
+            raise ValueError(f"Unknown samples: {','.join(missing)}")
+        if invert:
+            drop = set(names)
+            return np.array([i for n, i in
+                             ((n, index[n]) for n in self.xsi.samples)
+                             if n not in drop], np.int64)
+        return np.array([index[n] for n in names], np.int64)
+
+    @property
+    def output_samples(self) -> list[str]:
+        # cached: emit paths read this per record (it was the TOP cost of
+        # a subsetting extract before caching — 24k list rebuilds)
+        out = getattr(self, "_output_samples", None)
+        if out is None:
+            if self._select is None:
+                out = self.xsi.samples
+            else:
+                out = [self.xsi.samples[i] for i in self._select]
+            self._output_samples = out
+        return out
+
+    # ------------------------------------------------------------- decode
+    def _decoder_for(self, block_id: int) -> GtBlockDecoder:
+        dec = self._decoders.get(block_id)
+        if dec is None:
+            self._decoders.clear()  # keep at most one block resident
+            dec = GtBlockDecoder(self.xsi.gt_block_payload(block_id),
+                                 self.n_samples, self.n_haps,
+                                 aet_dtype=self.xsi.aet_dtype)
+            self._decoders[block_id] = dec
+        return dec
+
+    def decode_bm(self, bm: int, n_alleles: int) -> np.ndarray:
+        block_id = (bm & 0xFFFFFFFF) >> BM_BLOCK_BITS
+        offset = bm & ((1 << BM_BLOCK_BITS) - 1)
+        dec = self._decoder_for(block_id)
+        dec.seek(offset)
+        return dec.fill_genotype_array_advance(n_alleles)
+
+    # ------------------------------------------------------------ records
+    def _region_chunks(self, reader: BcfReader,
+                       regions: list[Region]) -> list[tuple[int, int]] | None:
+        """CSI-indexed chunk ranges covering `regions`, or None when no
+        index is available (reference parity: region queries seek through
+        the variant file's .csi, xcf.cpp initialize_bcf_file_reader_with_region)."""
+        idx_path = self.var_path + ".csi"
+        if not os.path.exists(idx_path):
+            return None
+        idx = CsiIndex.load(idx_path)
+        contigs = reader.header.dict_contigs
+        chunks: list[tuple[int, int]] = []
+        for r in regions:
+            if r.chrom not in contigs:
+                continue
+            rid = contigs.index(r.chrom)
+            beg0 = (r.start - 1) if r.start else 0
+            end0 = r.end if r.end is not None else (1 << 31) - 1
+            chunks.extend(idx.query(rid, beg0, max(end0, beg0 + 1)))
+        chunks.sort()
+        merged: list[tuple[int, int]] = []
+        for cb, ce in chunks:
+            if merged and cb <= merged[-1][1]:
+                if ce > merged[-1][1]:
+                    merged[-1] = (merged[-1][0], ce)
+            else:
+                merged.append((cb, ce))
+        return merged
+
+    def _iter_reader_records(self, reader: BcfReader, regions):
+        """Iterate variant records; seek via the CSI index when regions are
+        given and an index exists, else stream linearly."""
+        chunks = self._region_chunks(reader, regions) if regions else None
+        if chunks is None:
+            yield from reader
+            return
+        for cb, ce in chunks:
+            reader.seek_virtual(cb)
+            while reader.tell_virtual() < ce:
+                rec = reader.read_record()
+                if rec is None:
+                    break
+                yield rec
+
+    def iter_variant_records(self):
+        """Yields (rec, bm, chrom, keep) over the variant file."""
+        reader = BcfReader(self.var_path)
+        self.var_header = reader.header
+        regions = parse_region_list(self.opts.regions) if self.opts.regions else None
+        targets = parse_region_list(self.opts.targets) if self.opts.targets else None
+        for rec in self._iter_reader_records(reader, regions):
+            bm = None
+            for key, t, per, vals in rec.format_fields():
+                if reader.header.dict_strings[key] == "BM":
+                    bm = int(np.asarray(vals)[0])
+                    break
+            if bm is None:
+                raise ValueError("Variant record without BM field")
+            if regions is not None or targets is not None:
+                chrom = (reader.header.dict_contigs[rec.rid]
+                         if rec.rid < len(reader.header.dict_contigs) else "")
+                pos1 = rec.pos + 1
+                if regions is not None and not any(
+                        r.overlaps(chrom, pos1, rec.rlen) for r in regions):
+                    continue
+                if targets is not None and not any(
+                        r.targets(chrom, pos1) for r in targets):
+                    continue
+            yield rec, bm
+        reader.close()
+
+    def output_header(self) -> BcfHeader:
+        """Output header: the variant header with samples restored and the
+        XSI bookkeeping lines removed."""
+        reader = BcfReader(self.var_path)
+        h = reader.header
+        reader.close()
+        out = BcfHeader.from_text(h.to_text())
+        out.lines = [l for l in out.lines if not l.startswith("##XSI=")]
+        out.samples = self.output_samples
+        out.dict_strings = h.dict_strings
+        out.str2idx = h.str2idx
+        out.dict_contigs = h.dict_contigs
+        out.contig2idx = h.contig2idx
+        # Drop the BM pseudo-format declaration (reference parity: plain
+        # extraction removes it, gt_decompressor_new.hpp:506-507; -O x
+        # re-adds it via make_variant_header).  Safe only as the TRAILING
+        # dictionary entry (make_variant_header appends it last at
+        # compress time): popping it shifts no other index, and output
+        # records never reference BM (extraction emits GT only).
+        if out.dict_strings and out.dict_strings[-1] == "BM":
+            out.lines = [l for l in out.lines
+                         if not (l.startswith("##FORMAT=")
+                                 and re.search(r"[<,]ID=BM[,>]", l))]
+            out.dict_strings = out.dict_strings[:-1]
+            out.str2idx = {s: i for i, s in enumerate(out.dict_strings)}
+            out.format_meta.pop("BM", None)
+        return out
+
+    # AC/AN are recomputed on sample subsetting (reference parity:
+    # gt_decompressor_new.hpp:324-365, like bcftools); both tags must be
+    # declared in the output header BEFORE it is serialized — a late
+    # ensure_string would write records carrying INFO keys the on-disk
+    # header lacks (the htslib-side invariant the reference gets from
+    # bcf_update_info_int32 refusing undeclared tags,
+    # gt_decompressor_new.hpp:251-252).
+    _ACAN_DECLS = (
+        ("AC", '##INFO=<ID=AC,Number=A,Type=Integer,Description='
+               '"Allele count in genotypes, for each ALT allele, in the '
+               'same order as listed">'),
+        ("AN", '##INFO=<ID=AN,Number=1,Type=Integer,Description='
+               '"Total number of alleles in called genotypes">'),
+    )
+
+    def _declare_subset_tags(self, header: BcfHeader) -> None:
+        if self._select is None:
+            return
+        for ident, line in self._ACAN_DECLS:
+            header.ensure_string(ident, line)
+
+    def _subset_gt(self, gt: np.ndarray, ploidy: int) -> np.ndarray:
+        if self._select is None:
+            return gt
+        view = gt.reshape(self.n_samples, ploidy)
+        return view[self._select].reshape(-1)
+
+    def _line_ploidy(self, gt_len: int) -> int:
+        return gt_len // self.n_samples
+
+    @staticmethod
+    def _recompute_ac_an(gt: np.ndarray, n_alleles: int) -> tuple[list[int], int]:
+        alleles = (gt >> 1) - 1
+        valid = alleles >= 0
+        counts = np.bincount(alleles[valid], minlength=n_alleles)
+        return [int(c) for c in counts[1:n_alleles]], int(valid.sum())
+
+    # ------------------------------------------------------------- drivers
+    def decompress(self, output_path: str) -> dict:
+        ot = self.opts.output_type
+        if ot == "x":
+            return self._decompress_to_xsi(output_path)
+        if ot in ("b", "u"):
+            # "u": uncompressed BCF (BGZF framing at level 0), the -p fast
+            # pipe format for downstream bcftools (README.md:202-218)
+            return self._decompress_to_bcf(output_path,
+                                           level=0 if ot == "u" else 6)
+        return self._decompress_to_vcf(output_path, compress=(ot == "z"))
+
+    def _emit_stats(self, n):
+        return {"records": n, "samples": len(self.output_samples)}
+
+    def _decompress_to_vcf(self, output_path: str, compress: bool) -> dict:
+        header = self.output_header()
+        self._declare_subset_tags(header)
+        writer = VcfWriter(output_path, header.lines, self.output_samples,
+                           compress=compress, no_header=self.opts.no_header)
+        n = 0
+        for rec, gt in self.iter_decoded_records():
+            ploidy = self._line_ploidy(gt.shape[0])
+            gt = self._subset_gt(gt, ploidy)
+            cols = render_vcf_cols(self.var_header, rec)
+            if self._select is not None:
+                cols[7] = self._patch_info_ac_an(cols[7], gt, rec.n_allele)
+            writer.write_record(cols, gt, ploidy)
+            n += 1
+        writer.close()
+        return self._emit_stats(n)
+
+    @staticmethod
+    def _patch_info_ac_an(info: str, gt: np.ndarray, n_alleles: int) -> str:
+        ac, an = Decompressor._recompute_ac_an(gt, n_alleles)
+        items = [] if info in (".", "") else info.split(";")
+        out = []
+        seen_ac = seen_an = False
+        for item in items:
+            if item.startswith("AC="):
+                out.append("AC=" + ",".join(map(str, ac)))
+                seen_ac = True
+            elif item.startswith("AN="):
+                out.append(f"AN={an}")
+                seen_an = True
+            else:
+                out.append(item)
+        if not seen_ac and ac:
+            out.append("AC=" + ",".join(map(str, ac)))
+        if not seen_an:
+            out.append(f"AN={an}")
+        return ";".join(out) if out else "."
+
+    def _decompress_to_bcf(self, output_path, level: int = 6) -> dict:
+        """output_path: path or file object."""
+        header = self.output_header()
+        self._declare_subset_tags(header)
+        header.ensure_string(
+            "GT",
+            '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">')
+        n_out = len(self.output_samples)
+        # Parallel BGZF deflate: block compression is the reference's own
+        # dominant decompress cost (>60% bcf_write1,
+        # gt_decompressor_new.hpp:315); the output writer never calls
+        # tell_virtual, so the threaded pipeline stays fully async.
+        writer = BcfWriter(output_path, header, level=level,
+                           threads=min(os.cpu_count() or 1, 8))
+        n = 0
+        for rec, gt in self.iter_decoded_records():
+            ploidy = self._line_ploidy(gt.shape[0])
+            gt = self._subset_gt(gt, ploidy)
+            shared = patch_shared_sample_counts(rec.shared, 1, n_out)
+            if self._select is not None:
+                shared = self._patch_shared_ac_an(shared, gt, rec.n_allele,
+                                                  header)
+            indiv = encode_gt_indiv(header, gt, ploidy, n_out)
+            writer.write_raw(shared, indiv, want_offsets=False)
+            n += 1
+        writer.close()
+        return self._emit_stats(n)
+
+    def _patch_shared_ac_an(self, shared: bytes, gt: np.ndarray,
+                            n_alleles: int, out_header: BcfHeader) -> bytes:
+        # Re-encode the whole site from text for simplicity on the subset
+        # path.  Decode with the variant file's header (the record's dict
+        # indices live there); RE-encode against the OUTPUT header, whose
+        # dictionary — including the pre-declared AC/AN — is what the
+        # on-disk header actually declares.  Both derive from the same
+        # variant-file text, so pre-existing indices coincide.
+        rec = BcfRecord.parse(shared, b"")
+        rec._header = self.var_header
+        cols = render_vcf_cols(self.var_header, rec)
+        cols[7] = self._patch_info_ac_an(cols[7], gt, n_alleles)
+        return encode_shared_from_vcf_cols(out_header, cols, 1,
+                                           len(self.output_samples))
 
     def _recompress_options(self) -> CompressorOptions:
-        """The source's rare/common split and block length (the base
-        class's options), encoded on this decompressor's device."""
-        base = super()._recompress_options()
-        return CompressorOptions(maf=base.maf, zstd=base.zstd,
-                                 block_length=base.block_length,
+        """Carry over the source's rare/common split: the header stores
+        the MAC threshold (rare_threshold = n_haps * maf); +0.5 keeps
+        int(n_haps * maf) == rare_threshold under float rounding when the
+        sample set is unchanged.  Encoded on this decompressor's device."""
+        maf = (self.xsi.header.rare_threshold + 0.5) / max(self.n_haps, 1)
+        return CompressorOptions(maf=maf, zstd=self.xsi.header.zstd,
+                                 block_length=self.xsi.header.ss_rate,
                                  device=self.opts.device)
 
     def _decompress_to_xsi_via_bcf(self, output_path: str) -> dict:
@@ -221,8 +589,9 @@ class Decompressor(_base.Decompressor):
         """Yields (variant_rec, gt) in file order, decoding whole blocks on
         the device.  Block k decodes on a worker thread while block k-1's
         records are emitted (one worker keeps the order)."""
-        if not self._use_device():
-            yield from super().iter_decoded_records()
+        if self.torch_device is None:
+            for rec, bm in self.iter_variant_records():
+                yield rec, self.decode_bm(bm, rec.n_allele)
             return
 
         def decode(block_id, recs):

@@ -22,14 +22,9 @@ import os
 import numpy as np
 import torch
 
-from xsqueezeit_tpu.codec.encoder_base import (
-    EOV_CODE,
-    MISSING_CODE,
-    BlockEncoderBase,
-)
-from xsqueezeit_tpu.format.constants import WeirdnessStrategy
-
+from ..format.constants import WeirdnessStrategy
 from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
+from .encoder_base import EOV_CODE, MISSING_CODE, BlockEncoderBase
 
 #: Why blocks above the chunked PBWT's 16-bit slot field are refused.
 TOO_WIDE = (f"blocks wider than {pbwt_kernels.MAX_H} haplotypes need the "
@@ -218,8 +213,7 @@ class TorchBlockEncoder(BlockEncoderBase):
         self.device = torch.device(device)
 
     def serialize(self) -> bytes:
-        # no bucket padding: torch has no per-shape compile to amortize
-        return self.serialize_prepared(self.prepare(pad=False))
+        return self.serialize_prepared(self.prepare())
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -303,9 +297,9 @@ class TorchBlockEncoder(BlockEncoderBase):
                 "sparse_len": outd["sparse_len"].cpu().numpy()}
 
     def _device_track_rows(self, bits: np.ndarray, cap: int):
-        """Track rows encoded on the device (encoder_base
-        ._device_track_rows, whose own body calls the JAX pipeline): the
-        rows cross packed, 8x smaller than bool rows, and no bucket pad."""
+        """Track rows encoded on the device (called by encoder_base
+        ._encode_tracks): the rows cross packed, 8x smaller than bool
+        rows."""
         packed = np.packbits(bits.astype(np.uint8), axis=1, bitorder="little")
         return tuple(x.cpu().numpy() for x in encode_tracks_packed(
             self._dev(packed), bits.shape[1], int(cap)))

@@ -10,10 +10,14 @@ fallback from one to the other.
 
 Each chain runs on one CTA while its double-buffered row fits one CTA's
 shared memory (H <= MAX_H_ENCODE / MAX_H_DECODE), and on a thread-block
-cluster of K CTAs above that, up to H = 65,535: at HRC width (64,976
-haplotypes) K = 2 for encode and 4 for decode.  ``cluster`` picks the
-route explicitly (see :func:`cluster_size`).  ``launches`` counts kernel
-launches per route.
+cluster of 8 CTAs above that, up to H = 65,535 (at HRC width, 64,976
+haplotypes, 8 CTAs ran both chains faster than 2, 3 or 4 on an H100;
+PERF.md has the times).  ``cluster`` picks the route explicitly (see
+:func:`cluster_size`).  ``launches`` counts kernel launches per route.
+
+The kernels own the row by warp tiles of 512 bytes (32 lanes x 16 bytes)
+and pad it to whole tiles; :func:`chain_smem_bytes` mirrors their shared
+memory arithmetic (csrc/pbwt_chain.cu slots_per_cta, smem_bytes).
 """
 from __future__ import annotations
 
@@ -22,12 +26,17 @@ import torch
 from . import _build
 
 #: Shared memory one CTA may use on an H100, less 1 KiB kept for the
-#: kernels' static scratch.
+#: kernels' static arrays.
 _SMEM_BYTES = 227 * 1024 - 1024
+#: Bytes of a warp tile: 32 lanes x one 16-byte group each.
+TILE_BYTES = 32 * 16
+#: Threads (hence warps) per CTA of either route.
+CHAIN_WARPS = 512 // 32
 #: Largest H the one-CTA kernels hold: a double-buffered row of 16-bit
-#: registers (encode) or of 32-bit (slot << 16 | beta) states (decode).
-MAX_H_ENCODE = _SMEM_BYTES // (2 * 2)
-MAX_H_DECODE = _SMEM_BYTES // (2 * 4)
+#: registers (encode) or of 32-bit (slot << 16 | beta) states (decode),
+#: in whole tiles.
+MAX_H_ENCODE = _SMEM_BYTES // (2 * TILE_BYTES) * TILE_BYTES // 2
+MAX_H_DECODE = _SMEM_BYTES // (2 * TILE_BYTES) * TILE_BYTES // 4
 #: Largest H of either route: the decode state keeps the slot in 16 bits.
 MAX_H = 65535
 #: Most CTAs in a cluster (the portable cluster size).
@@ -40,37 +49,40 @@ launches = {"chain_encode": 0, "chain_decode": 0,
             "chain_encode_cluster": 0, "chain_decode_cluster": 0}
 
 
-def _fits(H: int, K: int, state_bytes: int) -> bool:
-    """Whether each CTA of a K-CTA chain holds its double-buffered share
-    of an H-slot row."""
-    return 2 * state_bytes * -(-H // K) <= _SMEM_BYTES
+def chain_smem_bytes(name: str, H: int, K: int) -> int:
+    """Dynamic shared memory per CTA of kernel `name` on K CTAs at width
+    H: each CTA's share of the row, rounded up to whole tiles and double
+    buffered, plus on the cluster route every warp's staging of two runs
+    (a tile and 16 bytes each)."""
+    state = _STATE_BYTES[name]
+    tile = TILE_BYTES // state
+    slots = -(-(-(-H // K)) // tile) * tile
+    staging = CHAIN_WARPS * 2 * (TILE_BYTES + 16) if K > 1 else 0
+    return 2 * state * slots + staging
 
 
 def cluster_size(name: str, H: int, cluster: int | None = None) -> int:
     """CTAs per chain for kernel `name` at width H: 1 is the one-CTA
     route, K >= 2 a cluster of K CTAs.
 
-    cluster=None picks 1 while the row fits one CTA and else the smallest
-    power of two whose share fits; an int asks for that many CTAs (so a
-    cluster can also run a narrow row).  Raises ValueError for a size the
-    shared memory or the cluster limit refuses, and for H > 65,535."""
-    state = _STATE_BYTES[name]
+    cluster=None picks 1 while the row fits one CTA and else
+    MAX_CLUSTER; an int asks for that many CTAs (so a cluster can also run
+    a narrow row).  Raises ValueError for a size the shared memory or the
+    cluster limit refuses, and for H > 65,535."""
     if H > MAX_H:
         raise ValueError(f"{name} keeps slots in 16 bits: H <= {MAX_H} "
                          f"(got {H})")
     if cluster is None:
-        K = 1
-        while not _fits(H, K, state) and K < MAX_CLUSTER:
-            K *= 2
+        K = 1 if chain_smem_bytes(name, H, 1) <= _SMEM_BYTES else MAX_CLUSTER
     else:
         K = int(cluster)
     if not 1 <= K <= MAX_CLUSTER:
         raise ValueError(f"{name}: a chain runs on 1 to {MAX_CLUSTER} CTAs "
                          f"(got {K})")
-    if not _fits(H, K, state):
-        raise ValueError(f"{name} on {K} CTA(s) holds at most "
-                         f"{K * (_SMEM_BYTES // (2 * state))} haplotypes in "
-                         f"shared memory (got {H})")
+    if chain_smem_bytes(name, H, K) > _SMEM_BYTES:
+        raise ValueError(f"{name} on {K} CTA(s) needs "
+                         f"{chain_smem_bytes(name, H, K)} B of shared memory "
+                         f"per CTA at H = {H}; {_SMEM_BYTES} B fit")
     return K
 
 
