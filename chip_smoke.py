@@ -15,19 +15,27 @@ exactly:
    1KGP3 shapes, the cluster chains at HRC width (H = 64,976) and forced
    at H = 5008 (also against the one-CTA route), the WAH kernels at HRC
    width (w = 4332), the per-line-width expand at the widths of a chrX
-   PAR block (w = 165 and 83, lines alternating in runs); after each of
-   the two blocks below, the chains again at the block's own shapes,
-   registers and sort flags (1KGP3: 301 chunks; HRC: 325 chunks, on 8
-   CTAs and on the other cluster sizes);
+   PAR block (w = 165 and 83, lines alternating in runs); every WAH route
+   twice, as the int32-group contract of the TPU kernels and as the bits
+   route the codec calls (unpack_bits / pack_bits fused in), the fused
+   ones beside their old pipeline (torch pack_bits + the int32 compress,
+   the int32 expand + torch unpack_bits) and the expands with a warp and
+   with a CTA per line; after the 1KGP3, HRC and chrX PAR blocks below,
+   the chains and the WAH routes again at the block's own shapes,
+   registers, sort flags, bit grids and streams (1KGP3: 301 chunks; HRC:
+   325 chunks, on 8 CTAs and on the other cluster sizes);
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
    threshold 10, the rare-heavy mix of bench.py) and the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
    mix): TorchBlockEncoder's payload must be byte-equal to the host
    GtBlockEncoder's and decode_block_records bit-exact on every line;
    every launch counter is set to 0 just before each block's run and read
-   just after, and each kernel route of that path must have launched.
-   Prints ms/block and GB/s in bench.py's unit (L * H * 4 logical gt
-   bytes), the compression ratio and the peak device memory;
+   just after, and each kernel route of that path must have launched
+   (and no other); while it runs, wah_torch's plain pack_bits,
+   unpack_bits and wah_word_offsets raise.  Prints ms/block and GB/s in
+   bench.py's unit (L * H * 4 logical gt bytes), the compression ratio,
+   the device part of the decode alone, and the peak device memory of
+   encode and decode, each also with the old WAH pipeline;
 5. the exception-track and mixed-ploidy blocks, checked the same way:
    1KGP3-missing (the 1KGP3 block with 1 % of entries missing, as
    bench.py's missing regime: every record carries a missing track),
@@ -78,16 +86,22 @@ MALES = 1233
 #: Exception-track blocks at 1KGP3 width (the 1KGP3 block's alleles).
 TRACK_BLOCKS = ("1KGP3-missing", "1KGP3-chrX")
 MIXED_BLOCK = "chrX-males-PAR"
-ONE_CTA = ("chain_encode", "chain_decode", "wah_expand", "wah_compress")
-#: Kernel routes each block's path must launch (the others must not).
+ONE_CTA = ("chain_encode", "chain_decode", "wah_expand_bits",
+           "wah_compress_bits")
+#: Kernel routes each block's path must launch (the others must not: the
+#: int32-group WAH routes are the TPU kernels' contract, held and timed
+#: against their plain versions, but the codec calls the bits routes).
 PATH_KERNELS = {
     "1KGP3": ONE_CTA,
-    "HRC": ("chain_encode_cluster", "chain_decode_cluster", "wah_expand",
-            "wah_compress"),
+    "HRC": ("chain_encode_cluster", "chain_decode_cluster",
+            "wah_expand_bits", "wah_compress_bits"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
-    MIXED_BLOCK: ("wah_compress", "wah_expand_varw"),
+    MIXED_BLOCK: ("wah_compress_bits", "wah_expand_varw_bits"),
 }
+#: Plain-torch passes that must not run on a block's card path (they are
+#: replaced by functions that raise while it runs).
+PLAIN_PASSES = ("pack_bits", "unpack_bits", "wah_word_offsets")
 #: Kernel-check shapes: 1KGP3 and HRC widths.
 KERNEL_SHAPES = dict(H=5008, C=16, n_ch=256, n_lines=4096)
 HRC_SHAPES = dict(H=HRC_H, C=16, n_ch=64, n_lines=4096)
@@ -105,6 +119,10 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     "chain_decode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:76"),
     # an XLA function in the JAX package (no Pallas kernel there)
     "wah_expand_varw": ("wah.cu", "wah_jax.py:227"),
+    # the same kernels with unpack_bits / pack_bits fused in
+    "wah_expand_bits": ("wah.cu", "wah_pallas.py:51"),
+    "wah_compress_bits": ("wah.cu", "wah_pallas.py:112"),
+    "wah_expand_varw_bits": ("wah.cu", "wah_jax.py:227"),
 }
 
 
@@ -114,26 +132,41 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
 HBM_BYTES_PER_S = 3.35e12
 
 
-#: Each route's CUDA kernel, as the profiler names it (demangled or not),
-#: to find its device time among the profiler's events.
+def _expand_kernels(varw: bool, bits: bool) -> tuple:
+    v, b = ("true" if varw else "false"), ("true" if bits else "false")
+    return (("wah_span_scan_kernel",),
+            (f"wah_expand_kernel<{v}, {b}",
+             f"wah_expand_kernelILb{int(varw)}ELb{int(bits)}E"))
+
+
+#: The CUDA kernels each route launches once per call, as the profiler
+#: names them (demangled or not), to find their device time among the
+#: profiler's events.  An expand route is the span scan plus the expand
+#: (and a memset of the scan's tile flags, not counted).
 KERNEL_NAMES = {
-    "chain_encode": ("chain_kernel<false, false>", "chain_kernelILb0ELb0"),
-    "chain_decode": ("chain_kernel<true, false>", "chain_kernelILb1ELb0"),
-    "chain_encode_cluster": ("chain_kernel<false, true>",
-                             "chain_kernelILb0ELb1"),
-    "chain_decode_cluster": ("chain_kernel<true, true>",
-                             "chain_kernelILb1ELb1"),
-    "wah_expand": ("wah_expand_kernel<false>", "wah_expand_kernelILb0"),
-    "wah_expand_varw": ("wah_expand_kernel<true>", "wah_expand_kernelILb1"),
-    "wah_compress": ("wah_compress_kernel",),
+    "chain_encode": (("chain_kernel<false, false>",
+                      "chain_kernelILb0ELb0"),),
+    "chain_decode": (("chain_kernel<true, false>", "chain_kernelILb1ELb0"),),
+    "chain_encode_cluster": (("chain_kernel<false, true>",
+                              "chain_kernelILb0ELb1"),),
+    "chain_decode_cluster": (("chain_kernel<true, true>",
+                              "chain_kernelILb1ELb1"),),
+    "wah_expand": _expand_kernels(False, False),
+    "wah_expand_varw": _expand_kernels(True, False),
+    "wah_expand_bits": _expand_kernels(False, True),
+    "wah_expand_varw_bits": _expand_kernels(True, True),
+    "wah_compress": (("wah_compress_kernel<false>",
+                      "wah_compress_kernelILb0E"),),
+    "wah_compress_bits": (("wah_compress_kernel<true>",
+                           "wah_compress_kernelILb1E"),),
 }
 
 
 def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
-    """Device milliseconds per call of the route's own kernel alone (no
+    """Device milliseconds per call of the route's own kernels alone (no
     wrapper, no host launch cost, none of the wrapper's torch ops), from
-    torch.profiler's CUDA events; None where the profiler records no
-    such event."""
+    torch.profiler's CUDA events; None where the profiler records none of
+    a kernel's launches."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -141,13 +174,23 @@ def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if any(n in e.key for n in KERNEL_NAMES[route])]
-    count = sum(e.count for e in events)
-    total_us = sum(e.device_time_total for e in events)
-    if count != iters:
-        print(f"{route}: the profiler recorded {count} of {iters} launches")
-    return total_us / count / 1e3 if count and total_us > 0 else None
+    averages = prof.key_averages()
+    parts = []
+    for names in KERNEL_NAMES[route]:
+        events = [e for e in averages if any(n in e.key for n in names)]
+        count = sum(e.count for e in events)
+        total_us = sum(e.device_time_total for e in events)
+        if count != iters:
+            print(f"{route}: the profiler recorded {count} of {iters} "
+                  f"launches of {names[0]}")
+        if not count or total_us <= 0:
+            return None
+        parts.append(total_us / count / 1e3)
+    if len(parts) > 1:
+        print(f"{route}: " + " + ".join(
+            f"{names[0]} {ms:.4f} ms"
+            for names, ms in zip(KERNEL_NAMES[route], parts)))
+    return sum(parts)
 
 
 def host_ms(fn, iters: int = 10) -> float:
@@ -311,7 +354,7 @@ def wah_inputs(rng, s, dev):
     bits = torch.from_numpy(bernoulli_rows(rng, dens, s["H"]))
     words_cpu = wah_torch.pack_bits(bits)
     stream = torch.cat([wah_rows(bits), torch.zeros(64, dtype=torch.uint16)])
-    return words_cpu, words_cpu.to(dev), stream.to(dev)
+    return bits.to(dev), words_cpu, words_cpu.to(dev), stream.to(dev)
 
 
 def varw_inputs(rng, n_samples: int, n_lines: int, dev):
@@ -348,11 +391,12 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
     cases = []    # (route, width, shape, kernel fn, plain fn, extra check,
-    #              bytes moved)
+    #              bytes moved, the old pipeline's fn or None)
     for label, s in (("1KGP3", KERNEL_SHAPES), ("HRC", HRC_SHAPES)):
         ss, q0, yc = chain_inputs(rng, s, dev)
-        words_cpu, words, stream = wah_inputs(rng, s, dev)
+        bits, words_cpu, words, stream = wah_inputs(rng, s, dev)
         w = words.shape[1]
+        h = s["H"]
         shape = f"H={s['H']} C={s['C']} n_ch={s['n_ch']}"
         wshape = f"n_lines={s['n_lines']} w={w}"
         sfx = "" if label == "1KGP3" else "_cluster"
@@ -361,23 +405,44 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             (f"chain_encode{sfx}", label, shape,
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode(q0, ss),
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode_plain(q0, ss),
-             None, chain_bytes("chain_encode", (q0, ss))),
+             None, chain_bytes("chain_encode", (q0, ss)), None),
             (f"chain_decode{sfx}", label, shape,
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode(yc, ss),
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode_plain(yc, ss),
-             None, chain_bytes("chain_decode", (yc, ss))),
-            ("wah_expand", label, wshape,
-             lambda st=stream, n=n, w=w: wah_kernels.wah_expand(st, n, w),
-             lambda st=stream, n=n, w=w: wah_kernels.wah_expand_plain(
-                 st, n, w),
-             ("the encoded words", lambda got, wc=words_cpu: diff(
-                 got.cpu(), wc)),
-             stream.nbytes + n * w * 4),
+             None, chain_bytes("chain_decode", (yc, ss)), None),
             ("wah_compress", label, wshape,
              lambda wd=words: wah_kernels.wah_compress(wd),
              lambda wd=words: wah_kernels.wah_compress_plain(wd), None,
-             words.nbytes + n * w * 2 + n * 4),
+             words.nbytes + n * w * 2 + n * 4, None),
+            ("wah_compress_bits", label, f"{wshape} h={h}",
+             lambda b=bits: wah_kernels.wah_compress_bits(b),
+             lambda b=bits: wah_kernels.wah_compress_bits_plain(b), None,
+             bits.nbytes + n * w * 2 + n * 4,
+             lambda b=bits: wah_kernels.wah_compress(wah_torch.pack_bits(b))),
         ]
+        # the expands with each line width route (a warp or a CTA per
+        # line); the default route first
+        for lt in (None, 32, 256):
+            sfx = "" if lt is None else f" line_threads={lt}"
+            cases += [
+                ("wah_expand", label, wshape + sfx,
+                 lambda st=stream, n=n, w=w, lt=lt: wah_kernels.wah_expand(
+                     st, n, w, line_threads=lt),
+                 lambda st=stream, n=n, w=w: wah_kernels.wah_expand_plain(
+                     st, n, w),
+                 ("the encoded words", lambda got, wc=words_cpu: diff(
+                     got.cpu(), wc)),
+                 stream.nbytes + n * w * 4, None),
+                ("wah_expand_bits", label, f"{wshape} h={h}{sfx}",
+                 lambda st=stream, n=n, w=w, h=h, lt=lt:
+                 wah_kernels.wah_expand_bits(st, n, w, h, line_threads=lt),
+                 lambda st=stream, n=n, w=w, h=h:
+                 wah_kernels.wah_expand_bits_plain(st, n, w, h),
+                 ("the encoded bits", lambda got, b=bits: diff(got, b)),
+                 stream.nbytes + n * h,
+                 None if lt else lambda st=stream, n=n, w=w, h=h:
+                 wah_torch.unpack_bits(wah_kernels.wah_expand(st, n, w), h)),
+            ]
         if label == "1KGP3":
             # the cluster route forced at 1KGP3 width, against the plain
             # version and the one-CTA route
@@ -391,22 +456,37 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                     lambda f=plain, a=args: f(*a),
                     ("the one-CTA route", lambda got, f=kern, a=args:
                      diff(got, f(*a, cluster=1))),
-                    chain_bytes(name, args)))
+                    chain_bytes(name, args), None))
 
     # the per-line-width expand at a chrX PAR block's widths (its own
     # generator: the draws of the cases above stay as they were)
     vwords, vstream, voff, vw = varw_inputs(np.random.default_rng(2), MALES,
                                             4096, dev)
-    cases.append((
-        "wah_expand_varw", "chrX-PAR",
-        f"n_lines=4096 w={vw}/{wah_torch.n_words_for(MALES)} in runs",
-        lambda: wah_kernels.wah_expand_varw(vstream, voff, vw),
-        lambda: wah_kernels.wah_expand_varw_plain(vstream, voff, vw),
-        ("the encoded words", lambda got: diff(got.cpu(), vwords)),
-        vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vw * 4))
+    vshape = f"n_lines=4096 w={vw}/{wah_torch.n_words_for(MALES)} in runs"
+    vh = 2 * MALES
+    for lt in (None, 32, 256):
+        sfx = "" if lt is None else f" line_threads={lt}"
+        cases += [(
+            "wah_expand_varw", "chrX-PAR", vshape + sfx,
+            lambda lt=lt: wah_kernels.wah_expand_varw(vstream, voff, vw,
+                                                      line_threads=lt),
+            lambda: wah_kernels.wah_expand_varw_plain(vstream, voff, vw),
+            ("the encoded words", lambda got: diff(got.cpu(), vwords)),
+            vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vw * 4,
+            None), (
+            "wah_expand_varw_bits", "chrX-PAR", f"{vshape} h={vh}{sfx}",
+            lambda lt=lt: wah_kernels.wah_expand_varw_bits(
+                vstream, voff, vw, vh, line_threads=lt),
+            lambda: wah_kernels.wah_expand_varw_bits_plain(vstream, voff, vw,
+                                                           vh),
+            ("the encoded words", lambda got: diff(
+                got.cpu(), wah_torch.unpack_bits(vwords, vh))),
+            vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vh,
+            None if lt else lambda: wah_torch.unpack_bits(
+                wah_kernels.wah_expand_varw(vstream, voff, vw), vh))]
 
     rows, checks = {}, []
-    for name, label, shape, kern, plain, extra, nbytes in cases:
+    for name, label, shape, kern, plain, extra, nbytes, old in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = diff(got, want)
@@ -423,7 +503,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         ms, plain_ms = cuda_ms(kern, iters=iters), cuda_ms(plain, iters=iters)
         check = timed_check(name, label, shape, err, ms, plain_ms, nbytes,
                             note, card, kernel_device_ms(name, kern),
-                            host_ms(kern))
+                            host_ms(kern),
+                            old and cuda_ms(old, iters=iters))
         checks.append(check)
         # the kernels line holds each route at its own path's width: the
         # cluster chains at HRC, the per-line-width expand at chrX PAR
@@ -435,21 +516,24 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
 
 
 def timed_check(name, label, shape, err, ms, plain_ms, nbytes, note,
-                card, kernel_ms, enqueue_ms) -> dict:
+                card, kernel_ms, enqueue_ms, old_ms=None) -> dict:
     """Print one kernel check and return its record (with the bound).
     ms: the wrapper per call by CUDA events; kernel_ms: the kernel alone
-    (profiler; None: not measured); enqueue_ms: the host's time per call."""
+    (profiler; None: not measured); enqueue_ms: the host's time per call;
+    old_ms: a fused WAH route's old pipeline (torch pack_bits + the int32
+    compress, or the int32 expand + torch unpack_bits) by CUDA events."""
     b_ms = bound_ms(nbytes)
     alone = ("not measured" if kernel_ms is None else
              f"{kernel_ms:.4f} ms (share {b_ms / kernel_ms:.4f})")
+    old = "" if old_ms is None else f"; the old pipeline {old_ms:.4f} ms"
     print(f"kernel {name} [{label}: {shape}]: bit-exact vs plain{note}; "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
           f"({nbytes} B), roofline share {b_ms / ms:.4f}; the kernel alone "
-          f"{alone}; host enqueue {enqueue_ms:.4f} ms/call ({card})")
+          f"{alone}; host enqueue {enqueue_ms:.4f} ms/call{old} ({card})")
     return {"name": name, "width": label, "shape": shape, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
             "host_enqueue_ms": enqueue_ms, "bytes": nbytes,
-            "bound_ms": b_ms}
+            "bound_ms": b_ms, "old_pipeline_ms": old_ms}
 
 
 def kernel_row(check: dict) -> dict:
@@ -462,31 +546,82 @@ def kernel_row(check: dict) -> dict:
             "max_abs_err": check["max_abs_err"], "ms": check["ms"],
             "plain_ms": check["plain_ms"], "kernel_ms": check["kernel_ms"],
             "bound_ms": check["bound_ms"], "bound_by": "bytes",
-            "library_ms": None}
+            "library_ms": None, "old_pipeline_ms": check["old_pipeline_ms"]}
+
+
+#: Wrappers whose first call in a block is recorded (captured_args).
+CAPTURED = ((pbwt_kernels, ("chain_encode", "chain_decode")),
+            (wah_kernels, ("wah_compress_bits", "wah_expand_bits",
+                           "wah_expand_varw_bits")))
 
 
 @contextlib.contextmanager
-def captured_chains():
+def swapped(module, fns: dict):
+    """Module attributes replaced by `fns` (name -> function) inside."""
+    orig = {n: getattr(module, n) for n in fns}
+    for n, fn in fns.items():
+        setattr(module, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def captured_args():
     """Records (a copy of) the arguments of the first call of each chain
-    wrapper made inside the block, so the kernels can be held and timed at
-    the shapes, registers and sort flags the block's own path gives them."""
+    and bits WAH wrapper made inside the block, so the kernels can be held
+    and timed at the shapes, registers, sort flags and streams the block's
+    own path gives them."""
     seen = {}
-    orig = {n: getattr(pbwt_kernels, n) for n in ("chain_encode",
-                                                   "chain_decode")}
 
     def recorder(name, fn):
         def call(*args, **kw):
-            seen.setdefault(name, tuple(a.clone() for a in args))
+            seen.setdefault(name, tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))
             return fn(*args, **kw)
         return call
 
-    for name, fn in orig.items():
-        setattr(pbwt_kernels, name, recorder(name, fn))
-    try:
+    with contextlib.ExitStack() as stack:
+        for mod, names in CAPTURED:
+            stack.enter_context(swapped(mod, {
+                n: recorder(n, getattr(mod, n)) for n in names}))
         yield seen
-    finally:
-        for name, fn in orig.items():
-            setattr(pbwt_kernels, name, fn)
+
+
+def no_plain_passes():
+    """wah_torch's pack_bits, unpack_bits and wah_word_offsets replaced by
+    functions that raise: no plain-torch pass may run on the card path."""
+    def refuse(name):
+        def call(*args, **kw):
+            raise AssertionError(f"wah_torch.{name} ran on the card path")
+        return call
+    return swapped(wah_torch, {n: refuse(n) for n in PLAIN_PASSES})
+
+
+def old_pipeline():
+    """The bits WAH routes as the earlier unfused path ran them, for
+    comparison on the same card: torch pack_bits + the int32 wah_compress,
+    the int32 expand + torch unpack_bits (with today's int32 kernels)."""
+    wk, wt = wah_kernels, wah_torch
+    return swapped(wk, {
+        "wah_compress_bits": lambda b: wk.wah_compress(wt.pack_bits(b)),
+        "wah_expand_bits": lambda s, n, w, h: wt.unpack_bits(
+            wk.wah_expand(s, n, w), h),
+        "wah_expand_varw_bits": lambda s, g, w, h: wt.unpack_bits(
+            wk.wah_expand_varw(s, g, w), h)})
+
+
+def once_peak_gb(fn) -> float:
+    """Peak device memory (GB) of one call of fn, counted from its start
+    (tensors already allocated included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
 
 
 def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
@@ -495,6 +630,8 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
     (encode K = 2, 4 and 8, decode K = 3, 4 and 8)."""
     out = []
     for name, args in seen.items():
+        if not name.startswith("chain"):
+            continue
         plain = getattr(pbwt_kernels, f"{name}_plain")
         kern = getattr(pbwt_kernels, name)
         H = args[0].shape[-1]
@@ -525,6 +662,79 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
             check["default_route"] = K == K0
             out.append(check)
         del want
+    return out
+
+
+def wah_block_checks(label: str, seen: dict, card: str) -> list[dict]:
+    """Each WAH route at its block's own bit grid or stream (the first
+    bits-route calls the block's path made), bit-exact against its plain
+    version and timed, the fused routes beside their old pipeline and the
+    expands on both line widths (a warp and a CTA per line).  The checks of
+    the 1KGP3 and chrX PAR blocks' default routes fill the kernels line."""
+    wk, wt = wah_kernels, wah_torch
+    out = []
+
+    def check(route, shape, kern, plain, nbytes, old=None, lt=None):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = diff(got, want)
+        require(err == 0, f"{route} at {label} block shape {shape}: kernel "
+                          f"differs from its plain version (max abs err "
+                          f"{err})")
+        del got, want
+        c = timed_check(route, f"{label} block", shape, err,
+                        cuda_ms(kern, iters=10, warmup=2),
+                        cuda_ms(plain, iters=3, warmup=1), nbytes, "", card,
+                        kernel_device_ms(route, kern), host_ms(kern),
+                        old and cuda_ms(old, iters=10, warmup=2))
+        c["default_route"] = lt is None and label in ("1KGP3", MIXED_BLOCK)
+        out.append(c)
+
+    if "wah_compress_bits" in seen:
+        (bits,) = seen["wah_compress_bits"]
+        R, H = bits.shape
+        W = wt.n_words_for(H)
+        words = wt.pack_bits(bits)
+        shape = f"{R} rows x {H} bits (w={W})"
+        check("wah_compress_bits", shape, lambda: wk.wah_compress_bits(bits),
+              lambda: wt.wah_encode_lines(bits),
+              bits.nbytes + R * W * 2 + R * 4,
+              old=lambda: wk.wah_compress(wt.pack_bits(bits)))
+        check("wah_compress", shape, lambda: wk.wah_compress(words),
+              lambda: wt.wah_compress_words(words),
+              words.nbytes + R * W * 2 + R * 4)
+        del words
+    for route in ("wah_expand_bits", "wah_expand_varw_bits"):
+        if route not in seen:
+            continue
+        varw = route == "wah_expand_varw_bits"
+        if varw:
+            stream, goff, w, h = seen[route]
+            n = goff.shape[0] - 1
+            extra = (goff,)
+            shape = f"{n} lines, w={w} (per-line widths), h={h}"
+        else:
+            stream, n, w, h = seen[route]
+            extra = ()
+            shape = f"{n} lines, w={w}, h={h}"
+        shape += f", stream of {stream.shape[0]} words"
+        bits_k = wk.wah_expand_varw_bits if varw else wk.wah_expand_bits
+        bits_p = (wt.wah_expand_stream_varw_bits if varw
+                  else wt.wah_expand_stream_bits)
+        int_k = wk.wah_expand_varw if varw else wk.wah_expand
+        int_p = wt.wah_expand_stream_varw if varw else wt.wah_expand_stream
+        a = (stream, *extra) if varw else (stream, n)
+        head = stream.nbytes + sum(x.nbytes for x in extra)
+        for lt in (None, 32, 256):
+            sfx = "" if lt is None else f" line_threads={lt}"
+            check(route, shape + sfx,
+                  lambda lt=lt: bits_k(*a, w, h, line_threads=lt),
+                  lambda: bits_p(*a, w, h), head + n * h,
+                  old=None if lt else lambda: wt.unpack_bits(int_k(*a, w),
+                                                             h), lt=lt)
+            check(route[:-len("_bits")], shape + sfx,
+                  lambda lt=lt: int_k(*a, w, line_threads=lt),
+                  lambda: int_p(*a, w), head + n * w * 4, lt=lt)
     return out
 
 
@@ -561,15 +771,18 @@ def run_path(name: str, enc, decode, ref_payload: bytes, rows) -> tuple:
     (payload, launches, peak device GB of the run)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # ---- the path, once, with every launch counter at 0 ----------------
-    reset_counts()
-    payload = enc.serialize()
-    recs = decode(payload)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    # ---- the path, once, with every launch counter at 0 and the plain
+    # ---- WAH passes made to raise -------------------------------------
+    with no_plain_passes():
+        reset_counts()
+        payload = enc.serialize()
+        recs = decode(payload)
+        torch.cuda.synchronize()
+        launches = read_counts()
     # --------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{name}] path launches: {launches}")
+    print(f"[{name}] path launches: {launches}; ran with wah_torch."
+          f"{', '.join(PLAIN_PASSES)} made to raise")
     require(payload == ref_payload,
             f"{name}: payload differs from GtBlockEncoder's ({len(payload)} "
             f"vs {len(ref_payload)} B)")
@@ -629,12 +842,21 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
               t(prep["sparse_rows_p"], torch.int64), t(prep["negated_s"]))
     del prep, enc
     cap = max(mac, 1)
-    with captured_chains() as seen:
+    with captured_args() as seen:
         encoder_torch.encode_block_core_compact(*staged, cap)
+
+    def encode_core():
+        return encoder_torch.encode_block_core_compact(*staged, cap)
+
     torch.cuda.reset_peak_memory_stats()
-    enc_ms = cuda_ms(lambda: encoder_torch.encode_block_core_compact(
-        *staged, cap), iters=5 if wide else 10, warmup=1 if wide else 2)
+    enc_ms = cuda_ms(encode_core, iters=5 if wide else 10,
+                     warmup=1 if wide else 2)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    enc_core_peak = once_peak_gb(encode_core)
+    with old_pipeline():
+        enc_old_ms = cuda_ms(encode_core, iters=5 if wide else 10,
+                             warmup=1 if wide else 2)
+        enc_core_peak_old = once_peak_gb(encode_core)
     del staged
     host_iters, host_warm = (2, 1) if wide else (3, 1)
     ser_ms = wall_ms(lambda: ingest().serialize(), iters=host_iters,
@@ -643,12 +865,23 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, np.uint16,
                                           device=dev)
     *dstaged, h, w, _ = dec.device_inputs()
-    with captured_chains() as seen_dec:
+    with captured_args() as seen_dec:
         gt_dev = decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
     seen.update(seen_dec)
     require(bool((gt_dev.cpu().numpy() == gt).all()),
             f"{name}: fused decode to gt codes is not bit-exact")
     del gt_dev
+
+    def decode_device():
+        return decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
+
+    dec_dev_ms = cuda_ms(decode_device, iters=5 if wide else 10,
+                         warmup=1 if wide else 2)
+    dec_dev_peak = once_peak_gb(decode_device)
+    with old_pipeline():
+        dec_dev_old_ms = cuda_ms(decode_device, iters=5 if wide else 10,
+                                 warmup=1 if wide else 2)
+        dec_dev_peak_old = once_peak_gb(decode_device)
 
     def decode_once():
         dec.host_inputs()                 # the per-block host parse
@@ -671,15 +904,28 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
           f"{dec_peak_gb:.3f} GB) | serialize (ingest + prepare + device + "
           f"assemble): {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
-    chain_checks = block_chain_checks(name, seen, card)
+    print(f"[{name}] device alone: encode core {enc_ms:.3f} ms (old WAH "
+          f"pipeline {enc_old_ms:.3f} ms), peak {enc_core_peak:.3f} GB (old "
+          f"{enc_core_peak_old:.3f} GB) | decode {dec_dev_ms:.3f} ms (old "
+          f"{dec_dev_old_ms:.3f} ms), peak {dec_dev_peak:.3f} GB (old "
+          f"{dec_dev_peak_old:.3f} GB) ({card})")
+    checks = (block_chain_checks(name, seen, card)
+              + wah_block_checks(name, seen, card))
     return {"launches": launches, "H": H, "encode_ms": enc_ms,
-            "chain_checks": chain_checks,
+            "block_checks": checks, "encode_old_wah_ms": enc_old_ms,
+            "decode_device_ms": dec_dev_ms,
+            "decode_device_old_wah_ms": dec_dev_old_ms,
             "decode_ms": dec_ms, "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
             "payload_bytes": len(payload), "wah_lines": n_wah,
             "sparse_lines": L - n_wah, "negated_lines": n_neg,
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
-                               "decode": dec_peak_gb}}
+                               "decode": dec_peak_gb,
+                               "encode_core_once": enc_core_peak,
+                               "encode_core_once_old_wah": enc_core_peak_old,
+                               "decode_device_once": dec_dev_peak,
+                               "decode_device_once_old_wah":
+                                   dec_dev_peak_old}}
 
 
 def to_device(*arrays):
@@ -848,10 +1094,15 @@ def mixed_block_phase(card: str) -> dict:
                      hap_l[sparse_rows])
     n_wah, n_hap_wah = len(wah_rows), int(hap_w.sum())
     del prep, enc
+    def encode_core():
+        return encoder_torch.encode_block_core_mixed(*args, max(mac, 1))
+
+    with captured_args() as seen:
+        encode_core()
     torch.cuda.reset_peak_memory_stats()
-    enc_ms = cuda_ms(lambda: encoder_torch.encode_block_core_mixed(
-        *args, max(mac, 1)), iters=5, warmup=1)
+    enc_ms = cuda_ms(encode_core, iters=5, warmup=1)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    enc_core_peak = once_peak_gb(encode_core)
     aw, at = args[0].index_select(0, args[2]), args[1].index_select(0, args[2])
     ones = torch.ones(n_wah, dtype=torch.bool, device=DEVICE)
     scan_ms = cuda_ms(lambda: pbwt_torch.pbwt_encode_scan_parity(aw, at, ones),
@@ -868,17 +1119,24 @@ def mixed_block_phase(card: str) -> dict:
         dec.host_inputs_mixed()           # the per-block host parse
         return decoder_torch._decode_block_mixed(*dargs, h, w_max)
 
+    def decode_device():
+        return decoder_torch._decode_block_mixed(*dargs, h, w_max)
+
     torch.cuda.reset_peak_memory_stats()
     dec_ms = wall_ms(decode_once, iters=3, warmup=1)
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dec_dev_ms = cuda_ms(decode_device, iters=2, warmup=0)
+    dec_dev_peak = once_peak_gb(decode_device)
     stream, group_off, sorts, hap_wd = dargs[:4]
-    exp_ms = cuda_ms(lambda: wah_kernels.wah_expand_varw(stream, group_off,
-                                                         w_max))
-    ys = wah_torch.unpack_bits(wah_kernels.wah_expand_varw(
-        stream, group_off, w_max), h)
+    seen["wah_expand_varw_bits"] = (stream, group_off, w_max, h)
+    exp_ms = cuda_ms(lambda: wah_kernels.wah_expand_varw_bits(
+        stream, group_off, w_max, h))
+    ys = wah_kernels.wah_expand_varw_bits(stream, group_off, w_max, h)
     dscan_ms = wall_ms(lambda: pbwt_torch.pbwt_decode_scan_mixed(
         ys, sorts, hap_wd), iters=3, warmup=1)
-    del dargs, ys
+    del ys
+    checks = wah_block_checks(name, seen, card)
+    del dargs, seen
     rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
         payload, N, H, np.uint16, [2] * L, device=DEVICE), iters=2, warmup=1)
     gt_bytes = L * H * 4
@@ -892,18 +1150,24 @@ def mixed_block_phase(card: str) -> dict:
           f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB), "
           f"of which the parity scan {scan_ms:.3f} ms | decode (host parse "
           f"+ device): {dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} "
-          f"GB/s (peak {dec_peak_gb:.3f} GB), of which wah_expand_varw "
+          f"GB/s (peak {dec_peak_gb:.3f} GB), of which wah_expand_varw_bits "
           f"{exp_ms:.4f} ms and the mixed scan {dscan_ms:.1f} ms | "
           f"serialize: {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
+    print(f"[{name}] device alone: encode core peak {enc_core_peak:.3f} GB "
+          f"| decode {dec_dev_ms:.3f} ms, peak {dec_dev_peak:.3f} GB "
+          f"({card})")
     return {"launches": launches, "H": H, "encode_ms": enc_ms,
+            "block_checks": checks, "decode_device_ms": dec_dev_ms,
             "encode_parity_scan_ms": scan_ms, "decode_ms": dec_ms,
             "decode_expand_ms": exp_ms, "decode_scan_ms": dscan_ms,
             "serialize_ms": ser_ms, "decode_records_ms": rec_ms,
             "compression_ratio": ratio, "payload_bytes": len(payload),
             "wah_lines": n_wah, "haploid_wah_lines": n_hap_wah,
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
-                               "decode": dec_peak_gb}}
+                               "decode": dec_peak_gb,
+                               "encode_core_once": enc_core_peak,
+                               "decode_device_once": dec_dev_peak}}
 
 
 def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
@@ -1014,7 +1278,7 @@ def main() -> int:
                                    "file-missing", 0.01, True)}
 
     for b in blocks.values():
-        for c in b.pop("chain_checks", []):
+        for c in b.pop("block_checks", []):
             checks.append(c)
             if c["default_route"]:
                 rows[c["name"]] = kernel_row(c)   # the block's own shapes

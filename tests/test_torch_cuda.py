@@ -166,6 +166,134 @@ def test_wah_expand_varw_matches_plain(dev, N, L):
                                                          w_max))
 
 
+def _stream_of(words_out, n, tail=5):
+    """The concatenated stream of front-packed rows, plus a zero tail."""
+    keep = torch.arange(words_out.shape[1])[None, :] < n[:, None]
+    return torch.cat([words_out[keep], torch.zeros(tail, dtype=torch.uint16)])
+
+
+def _check_routes(dev, bits, h, line_threads=(None, 32, 256)):
+    """Every uniform route on `bits` (uint8[L, h], any strides) against
+    its plain version, and the round trip back to the bits."""
+    L = bits.shape[0]
+    words = wah_torch.pack_bits(bits)
+    W = words.shape[1]
+    want = wah_torch.wah_encode_lines(bits)
+    assert _equal(wah_kernels.wah_compress_bits(bits.to(dev)), want)
+    assert _equal(wah_kernels.wah_compress(words.to(dev)), want)
+    stream = _stream_of(*want)
+    for n_lines in (L, L + 2):
+        for lt in line_threads:
+            got = wah_kernels.wah_expand_bits(stream.to(dev), n_lines, W, h,
+                                              line_threads=lt)
+            assert _equal(got, wah_torch.wah_expand_stream_bits(
+                stream, n_lines, W, h))
+            assert _equal(got[:L], bits)
+            got = wah_kernels.wah_expand(stream.to(dev), n_lines, W,
+                                         line_threads=lt)
+            assert _equal(got, wah_torch.wah_expand_stream(stream, n_lines, W))
+
+
+@pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
+                                 (16, 64976), (200, 2466), (600, 5008)])
+def test_wah_bits_routes_match_plain(dev, L, H):
+    rng = np.random.default_rng(10 * L + H)
+    p = rng.choice([0.0, 0.001, 0.3, 0.999, 1.0], (L, 1))
+    bits = torch.from_numpy((rng.random((L, H)) < p).astype(np.uint8))
+    n0 = dict(wah_kernels.launches)
+    _check_routes(dev, bits, H)
+    n1 = wah_kernels.launches
+    assert n1["wah_compress_bits"] == n0["wah_compress_bits"] + 1
+    assert n1["wah_expand_bits"] == n0["wah_expand_bits"] + 6
+
+
+@pytest.mark.parametrize("kind", ["one_counter", "all_literal",
+                                  "alternating", "ones_then_literal"])
+def test_wah_routes_at_edge_rows(dev, kind):
+    """HRC-width rows of one counter (4332 groups), all literals, and
+    alternating 0 / 0x7FFF words."""
+    rng = np.random.default_rng(7)
+    w, L = 4332, 4
+    words = np.zeros((L, w), np.int32)
+    if kind == "one_counter":
+        words[1::2] = 0x7FFF
+    elif kind == "all_literal":
+        words[:] = rng.integers(1, 0x7FFF, (L, w))
+    elif kind == "alternating":
+        words[:, 1::2] = 0x7FFF
+    else:
+        words[:, : w // 2] = 0x7FFF
+        words[:, w // 2:] = rng.integers(1, 0x7FFF, (L, w - w // 2))
+    bits = wah_torch.unpack_bits(torch.from_numpy(words), 15 * w)
+    _check_routes(dev, bits, 15 * w)
+
+
+def test_wah_compress_splits_counters_at_maxc(dev):
+    w = 20000
+    words = torch.zeros((4, w), dtype=torch.int32)
+    words[1] = 0x7FFF
+    words[2, 16383:] = 0x7FFF        # a run ending exactly at MAXC
+    words[3, ::5000] = 5             # literals between long runs
+    got = wah_kernels.wah_compress(words.to(dev))
+    want = wah_kernels.wah_compress_plain(words)
+    assert _equal(got, want)
+    assert want[1][:2].tolist() == [2, 2]
+
+
+def test_wah_routes_on_empty_and_one_word_inputs(dev):
+    empty = torch.zeros((0, 301), dtype=torch.uint8, device=dev)
+    w, n = wah_kernels.wah_compress_bits(empty)
+    assert w.shape == (0, 21) and n.shape == (0,)
+    one = torch.tensor([0x8000 | 21], dtype=torch.int32).to(torch.uint16)
+    for n_lines in (0, 1, 3):
+        got = wah_kernels.wah_expand_bits(one.to(dev), n_lines, 21, 301)
+        assert _equal(got, wah_torch.wah_expand_stream_bits(one, n_lines, 21,
+                                                            301))
+        got = wah_kernels.wah_expand(one.to(dev), n_lines, 21)
+        assert _equal(got, wah_torch.wah_expand_stream(one, n_lines, 21))
+
+
+def test_wah_compress_bits_takes_strided_rows(dev):
+    rng = np.random.default_rng(8)
+    big = torch.from_numpy((rng.random((33, 5100)) < 0.2).astype(np.uint8))
+    n0 = wah_kernels.launches["wah_compress_bits"]
+    for a, b in ((3, 3 + 5008), (0, 2466), (17, 5100)):
+        view = big.to(dev)[:, a:b]
+        assert not view.is_contiguous()
+        assert _equal(wah_kernels.wah_compress_bits(view),
+                      wah_torch.wah_encode_lines(big[:, a:b]))
+        flags = big.to(dev)[:, a:b] != 0     # bool rows
+        assert _equal(wah_kernels.wah_compress_bits(flags),
+                      wah_torch.wah_encode_lines(big[:, a:b]))
+    assert wah_kernels.launches["wah_compress_bits"] == n0 + 6
+
+
+@pytest.mark.parametrize("N,L", [(1, 3), (40, 64), (1233, 600)])
+def test_wah_expand_varw_bits_matches_plain(dev, N, L):
+    rng = np.random.default_rng(N + 3 * L)
+    hap = np.repeat(rng.random(-(-L // 8)) < 0.5, 8)[:L]
+    p = rng.choice([0.0, 0.001, 0.3, 0.999, 1.0], L)
+    streams, gw = [], []
+    for w, q in zip(np.where(hap, N, 2 * N), p):
+        out, n = wah_torch.wah_encode_lines(torch.from_numpy(
+            (rng.random((1, w)) < q).astype(np.uint8)))
+        streams.append(out[0, :int(n[0])])
+        gw.append(out.shape[1])
+    stream = torch.cat(streams + [torch.zeros(3, dtype=torch.uint16)])
+    group_off = torch.from_numpy(np.concatenate([[0], np.cumsum(gw)]))
+    w_max = wah_torch.n_words_for(2 * N)
+    want = wah_torch.wah_expand_stream_varw_bits(stream, group_off, w_max,
+                                                 2 * N)
+    for lt in (None, 32, 256):
+        got = wah_kernels.wah_expand_varw_bits(
+            stream.to(dev), group_off.to(dev), w_max, 2 * N, line_threads=lt)
+        assert _equal(got, want)
+        got = wah_kernels.wah_expand_varw(stream.to(dev), group_off.to(dev),
+                                          w_max, line_threads=lt)
+        assert _equal(got, wah_kernels.wah_expand_varw_plain(
+            stream, group_off, w_max))
+
+
 def _block_counts(enc, payload_of, decode):
     """Launch counts of one encode + decode, reset just before."""
     for c in (pbwt_kernels.launches, wah_kernels.launches):
@@ -199,8 +327,8 @@ def test_track_block_roundtrip_on_card(dev):
             pl, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev))
     assert payload == ref.serialize()
     np.testing.assert_array_equal(np.stack(out), gt)
-    assert set(counts) == {"chain_encode", "chain_decode", "wah_expand",
-                           "wah_compress"}
+    assert set(counts) == {"chain_encode", "chain_decode", "wah_expand_bits",
+                           "wah_compress_bits"}
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, 2 * n_samples,
                                           np.uint16, device=dev)
     *args, H, W, _ = dec.device_inputs()
@@ -236,7 +364,7 @@ def test_mixed_block_roundtrip_on_card(dev):
             pl, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev))
     assert payload == ref.serialize()
     assert all(np.array_equal(o, r) for o, r in zip(out, recs))
-    assert set(counts) == {"wah_compress", "wah_expand_varw"}
+    assert set(counts) == {"wah_compress_bits", "wah_expand_varw_bits"}
 
 
 @pytest.mark.parametrize("n_samples,L,mac,route", [

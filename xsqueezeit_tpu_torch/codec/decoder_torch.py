@@ -2,14 +2,14 @@
 
 Port of xsqueezeit_tpu/codec/decoder_jax.py.  One block decodes as
 
-    WAH stream --(expand kernel)--> 15-bit groups[Lw, W] --(unpack)-->
+    WAH stream --(expand kernel, bits unpacked inside)-->
     arrangement-ordered bits --(PBWT chunk chains + composition)-->
     natural-order bits of the WAH lines; sparse carriers scatter into the
     other lines, negated lines flip; then per-ALT overlays on the host.
 
 Uniformly diploid and uniformly haploid blocks take this path (haploid
 ones at H = n_samples).  A whole mixed-ploidy block expands at per-line
-widths (wah_expand_varw) and runs the parity-reconstructing scan
+widths (wah_expand_varw_bits) and runs the parity-reconstructing scan
 (_decode_block_mixed).  Anything else -- a record subset of a mixed
 block, or a LINE_SORT track that differs from LINE_SELECT -- decodes with
 the NumPy GtBlockDecoder, as the JAX decoder's random-access fallback
@@ -34,8 +34,7 @@ def _decode_wah_and_scan(stream, sorts, h: int, w: int) -> torch.Tensor:
     """Decode a block's WAH lines (compacted: WAH lines only) to
     natural-order bits uint8[Lw, h].  stream: uint16[N] the lines' words
     back to back; sorts: bool[Lw]."""
-    w15 = wah_kernels.wah_expand(stream, sorts.shape[0], w)
-    ys = wah_torch.unpack_bits(w15, h)
+    ys = wah_kernels.wah_expand_bits(stream, sorts.shape[0], w, h)
     vals, _ = pbwt_torch.pbwt_decode_chunked(ys, sorts)
     return vals
 
@@ -127,9 +126,8 @@ def _decode_block_mixed(stream, group_off, sorts, hap_w, rank, is_wah, neg,
     L = is_wah.shape[0]
     vals = torch.zeros((L, h), dtype=torch.uint8, device=is_wah.device)
     if sorts.shape[0]:
-        w15 = wah_kernels.wah_expand_varw(stream, group_off, w_max)
-        vals_w, _ = pbwt_torch.pbwt_decode_scan_mixed(
-            wah_torch.unpack_bits(w15, h), sorts, hap_w)
+        ys = wah_kernels.wah_expand_varw_bits(stream, group_off, w_max, h)
+        vals_w, _ = pbwt_torch.pbwt_decode_scan_mixed(ys, sorts, hap_w)
         vals = torch.where(is_wah[:, None], vals_w.index_select(0, rank),
                            vals)
     vals[car_line, car_idx] = 1

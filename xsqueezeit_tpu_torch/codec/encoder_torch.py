@@ -5,7 +5,7 @@ the carrier extraction, the exception-track encode, the mixed-ploidy core
 and DeviceBlockEncoder's serialize).  One block encodes as
 
     WAH rows --(PBWT chunk chains)--> arrangement-ordered bits
-             --(pack_bits + WAH2 RLE kernel)--> words[Lw, W]
+             --(WAH2 RLE kernel, bits packed inside)--> words[Lw, W]
     sparse rows --(rank by cumsum + scatter)--> carrier indices[Ls, cap]
     missing/EOV rows of the same matrix --> track grids (same kernels)
 
@@ -51,8 +51,9 @@ def carrier_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def _wah_rows(bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """pack_bits + the WAH2 RLE kernel: (uint16[R, W], int32[R])."""
-    return wah_kernels.wah_compress(wah_torch.pack_bits(bits))
+    """The WAH2 RLE of bit rows, packed inside the kernel (strided rows
+    need no copy): (uint16[R, W], int32[R])."""
+    return wah_kernels.wah_compress_bits(bits)
 
 
 def encode_block_core_compact(alleles, alts, wah_rows, sorts_w, sparse_rows,

@@ -51,3 +51,37 @@ __device__ __forceinline__ int block_inclusive_scan(int v, int* scratch,
     __syncthreads();
     return x;
 }
+
+// Exclusive scan of `v` over the block in thread order (thread 0 gets the
+// identity); otherwise as block_inclusive_scan.
+template <typename Op>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* scratch,
+                                                    int* total) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x = Op::apply(x, y);
+    }
+    int ex = __shfl_up_sync(0xffffffffu, x, 1);
+    if (lane == 0) ex = Op::identity();
+    if (lane == 31) scratch[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+        int s = lane < nwarps ? scratch[lane] : Op::identity();
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, s, o);
+            if (lane >= o) s = Op::apply(s, y);
+        }
+        scratch[lane] = s;
+    }
+    __syncthreads();
+    if (warp > 0) ex = Op::apply(scratch[warp - 1], ex);
+    *total = scratch[nwarps - 1];
+    __syncthreads();
+    return ex;
+}

@@ -3,10 +3,13 @@ versions.
 
 Port of xsqueezeit_tpu/ops/wah_pallas.py, plus a per-line-width route of
 the expand for mixed-ploidy blocks (wah_expand_varw, in place of the XLA
-wah_jax.wah_expand_stream_varw).  Each wrapper launches its kernel for a
-CUDA tensor and calls the plain version for a CPU tensor; there is no
-fallback from one to the other.  ``launches`` counts kernel launches per
-kernel name.
+wah_jax.wah_expand_stream_varw).  The int32-group routes (wah_expand,
+wah_expand_varw, wah_compress) keep the TPU kernels' contract; the bits
+routes (wah_expand_bits, wah_expand_varw_bits, wah_compress_bits) fuse
+unpack_bits / pack_bits into the same kernels and are what the codec
+calls.  Each wrapper launches its kernel for a CUDA tensor and calls the
+plain version for a CPU tensor; there is no fallback from one to the
+other.  ``launches`` counts kernel launches per route.
 """
 from __future__ import annotations
 
@@ -14,15 +17,36 @@ import torch
 
 from . import _build
 from .wah_torch import (
+    n_words_for,
     wah_compress_words as wah_compress_plain,
+    wah_encode_lines as wah_compress_bits_plain,
     wah_expand_stream as wah_expand_plain,
+    wah_expand_stream_bits as wah_expand_bits_plain,
     wah_expand_stream_varw as wah_expand_varw_plain,
-    wah_line_offsets,
-    wah_word_offsets,
+    wah_expand_stream_varw_bits as wah_expand_varw_bits_plain,
 )
 
-#: Kernel launches since the last reset, by kernel name.
-launches = {"wah_expand": 0, "wah_expand_varw": 0, "wah_compress": 0}
+#: Kernel launches since the last reset, by route.
+launches = {"wah_expand": 0, "wah_expand_varw": 0, "wah_compress": 0,
+            "wah_expand_bits": 0, "wah_expand_varw_bits": 0,
+            "wah_compress_bits": 0}
+
+#: Shared memory one CTA may use on an H100 (bytes).
+SMEM_LIMIT = 232448
+#: Widths up to this many groups expand with a warp per line, wider ones
+#: with a CTA of 256 threads per line.
+WARP_LINE_MAX_W = 512
+#: Words per tile of the span scan (csrc/wah.cu SCAN_TILE).
+SCAN_TILE = 4096
+#: Groups a stream's lines may span: the span prefix is int32.
+MAX_GROUPS = (1 << 31) - 2
+
+
+def expand_smem_bytes(w_row: int, line_threads: int) -> int:
+    """Dynamic shared memory of an expand CTA (csrc/wah.cu
+    expand_line_smem): per line an int start and a word per word slot and
+    w_row + 2 groups (4 lines for a warp per line)."""
+    return (4 if line_threads == 32 else 1) * (w_row * 8 + 4)
 
 
 def _check_stream(name: str, stream: torch.Tensor, w: int,
@@ -35,30 +59,85 @@ def _check_stream(name: str, stream: torch.Tensor, w: int,
     if not 1 <= w < (1 << 15) or n_lines < 0:
         raise ValueError(f"{name}: need 1 <= w <= 32767 words per line "
                          f"and n_lines >= 0 (got w={w}, n_lines={n_lines})")
+    if n_lines * w > MAX_GROUPS:
+        raise ValueError(f"{name}: {n_lines} lines of {w} groups exceed the "
+                         f"int32 span prefix ({MAX_GROUPS} groups)")
     return stream.contiguous()
 
 
-def wah_expand(stream: torch.Tensor, n_lines: int, w: int) -> torch.Tensor:
+def _expand(name: str, stream: torch.Tensor, n_lines: int, w: int,
+            group_off: torch.Tensor | None, h: int | None,
+            line_threads: int | None) -> torch.Tensor:
+    """Launch the span scan and the expand kernel of one route: int32
+    groups [n_lines, w] (h None) or uint8 bits [n_lines, h]."""
+    stream = _check_stream(name, stream, w, n_lines)
+    if line_threads is None:
+        line_threads = 32 if w <= WARP_LINE_MAX_W else 256
+    if line_threads not in (32, 256):
+        raise ValueError(f"{name}: line_threads must be 32 or 256 "
+                         f"(got {line_threads})")
+    if expand_smem_bytes(w, line_threads) > SMEM_LIMIT:
+        raise ValueError(f"{name}: w={w} needs more shared memory than a "
+                         f"CTA has with line_threads={line_threads}")
+    if h is not None and not 0 <= h <= 15 * w:
+        raise ValueError(f"{name}: need 0 <= h <= 15 * w (got h={h}, w={w})")
+    dev = stream.device
+    n = stream.shape[0]
+    cum = torch.empty(n, dtype=torch.int32, device=dev)
+    status = torch.empty(-(-n // SCAN_TILE) + 1, dtype=torch.int64,
+                         device=dev)
+    if h is None:
+        out = torch.empty((n_lines, w), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((n_lines, h), dtype=torch.uint8, device=dev)
+    _build.launch(dev, "xsi_wah_expand", stream.data_ptr(), n,
+                  cum.data_ptr(), status.data_ptr(),
+                  0 if group_off is None else group_off.data_ptr(),
+                  out.data_ptr(), n_lines, w, w if h is None else h,
+                  int(group_off is not None), int(h is not None),
+                  line_threads)
+    launches[name] += 1
+    return out
+
+
+def _check_group_off(name: str, group_off: torch.Tensor,
+                     device: torch.device) -> torch.Tensor:
+    if group_off.dtype != torch.int64 or group_off.device != device:
+        raise ValueError(f"{name}: group_off must be int64 on {device}, got "
+                         f"{group_off.dtype} on {group_off.device}")
+    return group_off.contiguous()
+
+
+def wah_expand(stream: torch.Tensor, n_lines: int, w: int,
+               line_threads: int | None = None) -> torch.Tensor:
     """Expand a uniform-width WAH stream to int32[n_lines, w] 15-bit groups.
 
     Same contract as wah_torch.wah_expand_stream (and the Pallas
     wah_expand_pallas): stream uint16[N] holds the words of n_lines lines
     of w groups each, back to back; a zero-padded tail and lines past the
-    stream's end decode to zero rows.
+    stream's end decode to zero rows.  line_threads: 32 (a warp per line)
+    or 256 (a CTA per line); None picks by width.
     """
     if stream.device.type == "cpu":
         return wah_expand_plain(stream, n_lines, w)
-    stream = _check_stream("wah_expand", stream, w, n_lines)
-    offs = wah_line_offsets(stream, w, n_lines)
-    out = torch.empty((n_lines, w), dtype=torch.int32, device=stream.device)
-    _build.launch(stream.device, "xsi_wah_expand", stream.data_ptr(),
-                  offs.data_ptr(), out.data_ptr(), n_lines, w)
-    launches["wah_expand"] += 1
-    return out
+    return _expand("wah_expand", stream, n_lines, w, None, None,
+                   line_threads)
+
+
+def wah_expand_bits(stream: torch.Tensor, n_lines: int, w: int, h: int,
+                    line_threads: int | None = None) -> torch.Tensor:
+    """wah_expand and unpack_bits in one kernel: uint8[n_lines, h] bits
+    (wah_torch.wah_expand_stream_bits; the JAX package's
+    wah_decode_lines)."""
+    if stream.device.type == "cpu":
+        return wah_expand_bits_plain(stream, n_lines, w, h)
+    return _expand("wah_expand_bits", stream, n_lines, w, None, h,
+                   line_threads)
 
 
 def wah_expand_varw(stream: torch.Tensor, group_off: torch.Tensor,
-                    w_max: int) -> torch.Tensor:
+                    w_max: int, line_threads: int | None = None
+                    ) -> torch.Tensor:
     """Expand a WAH stream of per-line widths to int32[n_lines, w_max].
 
     Same contract as wah_torch.wah_expand_stream_varw: line l spans groups
@@ -67,21 +146,37 @@ def wah_expand_varw(stream: torch.Tensor, group_off: torch.Tensor,
     """
     if stream.device.type == "cpu":
         return wah_expand_varw_plain(stream, group_off, w_max)
-    n_lines = group_off.shape[0] - 1
-    stream = _check_stream("wah_expand_varw", stream, w_max, n_lines)
-    if group_off.dtype != torch.int64 or group_off.device != stream.device:
-        raise ValueError(f"wah_expand_varw: group_off must be int64 on "
-                         f"{stream.device}, got {group_off.dtype} on "
-                         f"{group_off.device}")
-    group_off = group_off.contiguous()
-    offs = wah_word_offsets(stream, group_off)
-    out = torch.empty((n_lines, w_max), dtype=torch.int32,
-                      device=stream.device)
-    _build.launch(stream.device, "xsi_wah_expand_varw", stream.data_ptr(),
-                  offs.data_ptr(), group_off.data_ptr(), out.data_ptr(),
-                  n_lines, w_max)
-    launches["wah_expand_varw"] += 1
-    return out
+    group_off = _check_group_off("wah_expand_varw", group_off,
+                                 stream.device)
+    return _expand("wah_expand_varw", stream, group_off.shape[0] - 1, w_max,
+                   group_off, None, line_threads)
+
+
+def wah_expand_varw_bits(stream: torch.Tensor, group_off: torch.Tensor,
+                         w_max: int, h: int,
+                         line_threads: int | None = None) -> torch.Tensor:
+    """wah_expand_varw and unpack_bits in one kernel: uint8[n_lines, h]
+    bits, 0 past each line's own groups
+    (wah_torch.wah_expand_stream_varw_bits)."""
+    if stream.device.type == "cpu":
+        return wah_expand_varw_bits_plain(stream, group_off, w_max, h)
+    group_off = _check_group_off("wah_expand_varw_bits", group_off,
+                                 stream.device)
+    return _expand("wah_expand_varw_bits", stream, group_off.shape[0] - 1,
+                   w_max, group_off, h, line_threads)
+
+
+def _compress(name: str, src: torch.Tensor, ld: int, L: int, w: int,
+              h: int, bits: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    if w >= (1 << 15):
+        raise ValueError(
+            f"{name} supports at most 32767 words per line (got {w})")
+    out = torch.empty((L, w), dtype=torch.uint16, device=src.device)
+    n_out = torch.empty(L, dtype=torch.int32, device=src.device)
+    _build.launch(src.device, "xsi_wah_compress", src.data_ptr(), ld,
+                  out.data_ptr(), n_out.data_ptr(), L, w, h, int(bits))
+    launches[name] += 1
+    return out, n_out
 
 
 def wah_compress(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -96,13 +191,26 @@ def wah_compress(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"wah_compress: words must be 2-D int32, got "
                          f"{words.dtype} {tuple(words.shape)}")
     L, w = words.shape
-    if w >= (1 << 15):
-        raise ValueError(
-            f"wah_compress supports at most 32767 words per line (got {w})")
-    words = words.contiguous()
-    out = torch.empty((L, w), dtype=torch.uint16, device=words.device)
-    n_out = torch.empty(L, dtype=torch.int32, device=words.device)
-    _build.launch(words.device, "xsi_wah_compress", words.data_ptr(),
-                  out.data_ptr(), n_out.data_ptr(), L, w)
-    launches["wah_compress"] += 1
-    return out, n_out
+    return _compress("wah_compress", words.contiguous(), w, L, w, 15 * w,
+                     False)
+
+
+def wah_compress_bits(bits: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """pack_bits and the WAH2 RLE in one kernel: uint8/bool[R, H] 0/1 bit
+    rows -> (uint16[R, W] front-packed words, int32[R] word counts), W =
+    ceil(H / 15); exactly wah_torch.wah_encode_lines.  Rows may be strided
+    (a column slice of a wider matrix needs no copy)."""
+    if bits.device.type == "cpu":
+        return wah_compress_bits_plain(bits)
+    if bits.device.type != "cuda":
+        raise ValueError(f"wah_compress_bits: unsupported device "
+                         f"{bits.device}")
+    if bits.dtype not in (torch.uint8, torch.bool) or bits.dim() != 2:
+        raise ValueError(f"wah_compress_bits: bits must be 2-D uint8 or "
+                         f"bool, got {bits.dtype} {tuple(bits.shape)}")
+    R, H = bits.shape
+    if bits.stride(1) != 1 or (R > 1 and bits.stride(0) < H):
+        bits = bits.contiguous()
+    return _compress("wah_compress_bits", bits, bits.stride(0), R,
+                     n_words_for(H), H, True)

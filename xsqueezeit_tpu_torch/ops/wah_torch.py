@@ -41,7 +41,8 @@ def unpack_bits(words: torch.Tensor, h: int) -> torch.Tensor:
     """int32[..., W] words -> uint8[..., h] bits."""
     shifts = torch.arange(WAH_BITS, dtype=torch.int32, device=words.device)
     bits = (words.to(torch.int32)[..., :, None] >> shifts) & 1
-    return bits.reshape(*words.shape[:-1], -1)[..., :h].to(torch.uint8)
+    return bits.reshape(*words.shape[:-1], words.shape[-1] * WAH_BITS)[
+        ..., :h].to(torch.uint8)
 
 
 def wah_compress_words(words: torch.Tensor
@@ -91,6 +92,13 @@ def wah_compress_words(words: torch.Tensor
     return out[:, :W].to(torch.uint16), n_out
 
 
+def wah_encode_lines(bits: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """bits uint8/bool[L, H] -> (words uint16[L, W], n_words int32[L]):
+    pack_bits then wah_compress_words (wah_jax.wah_encode_lines)."""
+    return wah_compress_words(pack_bits(bits))
+
+
 def wah_word_offsets(stream: torch.Tensor,
                      group_off: torch.Tensor) -> torch.Tensor:
     """Word offset of each line, and of the end of the last one, in a WAH
@@ -99,7 +107,9 @@ def wah_word_offsets(stream: torch.Tensor,
     stream: uint16/int32[N]; group_off: int64[n_lines + 1] ascending.
     Returns int64[n_lines + 1]; lines past the stream's end get offset N.
     One cumsum over the words' spans plus a searchsorted, as
-    wah_jax.wah_line_offsets (fill counters never straddle a line).
+    wah_jax.wah_line_offsets (fill counters never straddle a line).  The
+    CUDA routes find the same offsets without it (csrc/wah.cu: a span scan
+    and a search per line).
     """
     s = stream.to(torch.int32)
     span = torch.where((s & HIGH) != 0, s & MAXC, 1).to(torch.int64)
@@ -184,3 +194,18 @@ def wah_expand_stream_varw(stream: torch.Tensor, group_off: torch.Tensor,
     widths = group_off[1:] - group_off[:-1]
     keep = torch.arange(w_max, device=dev)[None, :] < widths[:, None]
     return torch.where(keep, out, 0).to(torch.int32)
+
+
+def wah_expand_stream_bits(stream: torch.Tensor, n_lines: int, w: int,
+                           h: int) -> torch.Tensor:
+    """wah_expand_stream then unpack_bits: uint8[n_lines, h] bits (the
+    JAX package's wah_decode_lines over wah_line_offsets)."""
+    return unpack_bits(wah_expand_stream(stream, n_lines, w), h)
+
+
+def wah_expand_stream_varw_bits(stream: torch.Tensor,
+                                group_off: torch.Tensor, w_max: int,
+                                h: int) -> torch.Tensor:
+    """wah_expand_stream_varw then unpack_bits: uint8[n_lines, h] bits, 0
+    past each line's own groups."""
+    return unpack_bits(wah_expand_stream_varw(stream, group_off, w_max), h)
