@@ -15,8 +15,10 @@ exactly:
    1KGP3 shapes, the cluster chains at HRC width (H = 64,976) and forced
    at H = 5008 (also against the one-CTA route), the WAH kernels at HRC
    width (w = 4332), the per-line-width expand at the widths of a chrX
-   PAR block (w = 165 and 83, lines alternating in runs); every WAH route
-   twice, as the int32-group contract of the TPU kernels and as the bits
+   PAR block (w = 165 and 83, lines alternating in runs), the WAH routes
+   above the chains' 16-bit slot field, a CTA per line, at TOPMed width
+   (w = 12,968) and at the format's widest line (w = 32,767); every WAH
+   route twice, as the int32-group contract of the TPU kernels and as the bits
    route the codec calls (unpack_bits / pack_bits fused in), the fused
    ones beside their old pipeline (torch pack_bits + the int32 compress,
    the int32 expand + torch unpack_bits) and the expands with a warp and
@@ -25,10 +27,14 @@ exactly:
    registers, sort flags, bit grids and streams (1KGP3: 301 chunks; HRC:
    325 chunks, on 8 CTAs and on the other cluster sizes);
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
-   threshold 10, the rare-heavy mix of bench.py) and the HRC block (32,488
+   threshold 10, the rare-heavy mix of bench.py), the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
-   mix): TorchBlockEncoder's payload must be byte-equal to the host
-   GtBlockEncoder's and decode_block_records bit-exact on every line;
+   mix) and the TOPMed block (97,256 samples = 194,512 haplotypes, MAF
+   threshold 194, the same mix; 32-bit sparse and track streams, the
+   packed-key scan and the blocked decode in place of the chains, each
+   also timed alone): TorchBlockEncoder's payload must be byte-equal to
+   the host GtBlockEncoder's and decode_block_records bit-exact on every
+   line;
    every launch counter is set to 0 just before each block's run and read
    just after, and each kernel route of that path must have launched
    (and no other); while it runs, wah_torch's plain pack_bits,
@@ -48,7 +54,12 @@ exactly:
    `cli -c --device cuda` and `--device numpy` (byte-identical .xsi) and
    `cli -x --device cuda` back to BCF (the input's genotypes on every
    record); then the same with 1 % of entries missing, plus `cli -x -O x`
-   on `cuda` and `numpy` (byte-identical re-encoded .xsi).
+   on `cuda` and `numpy` (byte-identical re-encoded .xsi); then the
+   latter at TOPMed width (97,256 samples x 512 records, one block);
+7. the port's headline benchmark, `python -m
+   xsqueezeit_tpu_torch.bench.headline` in its own process (bench.py's
+   workload and keys, its own bit-exact checks): exit 0 and its JSON
+   line required, the line printed.
 
 Any failure exits non-zero; the last line of standard output is the result
 JSON, the line before it the card's name and power limit.
@@ -78,9 +89,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 L = 8192                              # lines per block, the XSI default
 SEED = 20
-#: (name, samples, seed of the block); MAF 0.001 sets the MAC threshold
-BLOCKS = (("1KGP3", 2504, SEED), ("HRC", 32488, SEED + 1))
+#: (name, samples, seed of the block); MAF 0.001 sets the MAC threshold.
+#: TOPMed: the TOPMed r2 imputation reference panel's 97,256 samples,
+#: above the chunk chains' 16-bit slot field (65,535 haplotypes).
+BLOCKS = (("1KGP3", 2504, SEED), ("HRC", 32488, SEED + 1),
+          ("TOPMed", 97256, SEED + 3))
 HRC_H = 2 * 32488
+TOPMED_SAMPLES = 97256
 #: Male samples of the 1KGP3 panel: haploid on chrX outside the PARs.
 MALES = 1233
 #: Exception-track blocks at 1KGP3 width (the 1KGP3 block's alleles).
@@ -95,6 +110,9 @@ PATH_KERNELS = {
     "1KGP3": ONE_CTA,
     "HRC": ("chain_encode_cluster", "chain_decode_cluster",
             "wah_expand_bits", "wah_compress_bits"),
+    # the packed-key scan and the blocked decode (plain torch) in place of
+    # the chains: no chain route may launch
+    "TOPMed": ("wah_expand_bits", "wah_compress_bits"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
     MIXED_BLOCK: ("wah_compress_bits", "wah_expand_varw_bits"),
@@ -105,8 +123,14 @@ PLAIN_PASSES = ("pack_bits", "unpack_bits", "wah_word_offsets")
 #: Kernel-check shapes: 1KGP3 and HRC widths.
 KERNEL_SHAPES = dict(H=5008, C=16, n_ch=256, n_lines=4096)
 HRC_SHAPES = dict(H=HRC_H, C=16, n_ch=64, n_lines=4096)
-#: The file-level phases: 1KGP3 width, two blocks.
+#: WAH kernel checks above the 16-bit slot field, where only a CTA per line
+#: fits: TOPMed width (w = 12,968) and the format's widest line (w =
+#: 32,767 groups).
+WIDE_WAH = (("TOPMed", dict(H=2 * TOPMED_SAMPLES, n_lines=384)),
+            ("widest", dict(H=15 * 32767, n_lines=256)))
+#: The file-level phases: 1KGP3 width, two blocks; TOPMed width, one.
 FILE_SAMPLES, FILE_RECORDS = 2504, 2 * L
+WIDE_FILE_RECORDS = 512
 
 SRC = "xsqueezeit_tpu_torch/csrc/"
 PALLAS = "xsqueezeit_tpu/ops/"
@@ -485,7 +509,37 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             None if lt else lambda: wah_torch.unpack_bits(
                 wah_kernels.wah_expand_varw(vstream, voff, vw), vh))]
 
+    # the WAH routes above the 16-bit slot field (their own generator), a
+    # CTA per line: the expand's shared memory holds w <= 32,767
+    wrng = np.random.default_rng(3)
+    for label, s in WIDE_WAH:
+        bits, words_cpu, words, stream = wah_inputs(wrng, s, dev)
+        n, h, w = s["n_lines"], s["H"], words.shape[1]
+        wshape = f"n_lines={n} w={w}"
+        cases += [
+            ("wah_compress_bits", label, f"{wshape} h={h}",
+             lambda b=bits: wah_kernels.wah_compress_bits(b),
+             lambda b=bits: wah_kernels.wah_compress_bits_plain(b), None,
+             bits.nbytes + n * w * 2 + n * 4, None),
+            ("wah_expand", label, wshape,
+             lambda st=stream, n=n, w=w: wah_kernels.wah_expand(st, n, w),
+             lambda st=stream, n=n, w=w: wah_kernels.wah_expand_plain(
+                 st, n, w),
+             ("the encoded words", lambda got, wc=words_cpu: diff(
+                 got.cpu(), wc)),
+             stream.nbytes + n * w * 4, None),
+            ("wah_expand_bits", label, f"{wshape} h={h}",
+             lambda st=stream, n=n, w=w, h=h:
+             wah_kernels.wah_expand_bits(st, n, w, h),
+             lambda st=stream, n=n, w=w, h=h:
+             wah_kernels.wah_expand_bits_plain(st, n, w, h),
+             ("the encoded bits", lambda got, b=bits: diff(got, b)),
+             stream.nbytes + n * h, None),
+        ]
+        del words_cpu
+
     rows, checks = {}, []
+    wide_labels = {label for label, _ in WIDE_WAH}
     for name, label, shape, kern, plain, extra, nbytes, old in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -499,7 +553,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                                f"{extra[0]} (max abs err {err2})")
             note = f" and vs {extra[0]}"
         del got, want
-        iters = 10 if label == "HRC" else 20
+        iters = 20 if label in ("1KGP3", "1KGP3 forced", "chrX-PAR") else 10
         ms, plain_ms = cuda_ms(kern, iters=iters), cuda_ms(plain, iters=iters)
         check = timed_check(name, label, shape, err, ms, plain_ms, nbytes,
                             note, card, kernel_device_ms(name, kern),
@@ -509,8 +563,11 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         # the kernels line holds each route at its own path's width: the
         # cluster chains at HRC, the per-line-width expand at chrX PAR
         # widths, the rest at 1KGP3 (the chains are replaced by their
-        # blocks' own shapes once the blocks have run)
-        if name not in rows and ("cluster" in name) == (label == "HRC"):
+        # blocks' own shapes once the blocks have run), plus the WAH routes
+        # at TOPMed width and at the widest line, rows of their own
+        if label in wide_labels:
+            rows[f"{name}@{label}"] = kernel_row(check)
+        elif name not in rows and ("cluster" in name) == (label == "HRC"):
             rows[name] = kernel_row(check)
     return rows, checks
 
@@ -726,6 +783,8 @@ def wah_block_checks(label: str, seen: dict, card: str) -> list[dict]:
         a = (stream, *extra) if varw else (stream, n)
         head = stream.nbytes + sum(x.nbytes for x in extra)
         for lt in (None, 32, 256):
+            if lt and wk.expand_smem_bytes(w, lt) > wk.SMEM_LIMIT:
+                continue          # four lines of w groups do not fit a CTA
             sfx = "" if lt is None else f" line_threads={lt}"
             check(route, shape + sfx,
                   lambda lt=lt: bits_k(*a, w, h, line_threads=lt),
@@ -798,28 +857,44 @@ def run_path(name: str, enc, decode, ref_payload: bytes, rows) -> tuple:
     return payload, launches, peak_gb
 
 
+def aet_dtype_for(H: int):
+    """The sparse and track streams' type, by width, as the compressor
+    picks it (codec/compressor.py): 32-bit above 65,535 haplotypes."""
+    return np.uint16 if H <= 0xFFFF else np.uint32
+
+
 def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     """One block through the main path's entry points, checked exactly;
-    returns the launch counts of that one run and the timings."""
+    returns the launch counts of that one run and the timings.  The wide
+    blocks' host loops (serialize, decode_block_records) run once, the
+    path's own run being their warm-up.  Above the chains' 16-bit slot
+    field (TOPMed) the path takes the packed-key scan and the blocked
+    decode, timed alone too, and the old WAH pipeline is not timed."""
     H = 2 * n_samples
     mac = int(H * 0.001)
+    aet = aet_dtype_for(H)
+    scan = H > pbwt_kernels.MAX_H
     t0 = time.perf_counter()
     alleles = make_block(np.random.default_rng(seed), H)
     gt = (alleles.astype(np.int32) + 1) << 1          # unphased biallelic
     kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=mac,
-              default_phasing=0, aet_dtype=np.uint16)
+              default_phasing=0, aet_dtype=aet)
     print(f"[{name}] block of {L} x {H} made in "
           f"{time.perf_counter() - t0:.1f} s")
     ref_payload = host_reference(name, kw, gt)
     ingest = ingester(kw, gt.reshape(-1), np.full(L, H))
     enc = ingest()
-    payload, launches, peak_gb = run_path(
-        name, enc, lambda p: decoder_torch.decode_block_records(
-            p, n_samples, H, np.uint16, [2] * L, device=DEVICE),
-        ref_payload, gt)
+
+    def records(p):
+        return decoder_torch.decode_block_records(p, n_samples, H, aet,
+                                                  [2] * L, device=DEVICE)
+
+    payload, launches, peak_gb = run_path(name, enc, records, ref_payload,
+                                          gt)
 
     # line classes, as the payload stores them
     ac = alleles.sum(1, dtype=np.int64)
+    del alleles
     mac_l = np.minimum(ac, H - ac)
     n_wah = int((mac_l > mac).sum())
     n_neg = int(((mac_l <= mac) & (ac != mac_l)).sum())
@@ -831,11 +906,35 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
 
     # ---- timing, in bench.py's unit (L * H * 4 logical gt bytes) ------
     wide = H > 2 * 5008
+    dev_loop = dict(iters=5, warmup=1) if wide else dict(iters=10, warmup=2)
+    # the wide blocks' host loops run once: the path's run warmed them up
+    host_loop = dict(iters=1, warmup=0) if wide else dict(iters=3, warmup=1)
     prep = enc.prepare()
     dev = torch.device(DEVICE)
 
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype=dtype)
+
+    def old_wah(fn):
+        """fn's time and peak with the old WAH pipeline (None above the
+        slot field, where that comparison is not repeated)."""
+        if scan:
+            return None, None
+        with old_pipeline():
+            return cuda_ms(fn, **dev_loop), once_peak_gb(fn)
+
+    def alone(fn, nbytes, label):
+        """A wide-path function timed alone (CUDA events), with its byte
+        bound and its peak device memory above what is allocated."""
+        ms = cuda_ms(fn, iters=3, warmup=1)
+        base = torch.cuda.memory_allocated() / 1e9
+        extra = once_peak_gb(fn) - base
+        print(f"[{name}] {label} alone: {ms:.3f} ms, bound "
+              f"{bound_ms(nbytes):.4f} ms ({nbytes} B), share "
+              f"{bound_ms(nbytes) / ms:.4f}; peak above its inputs "
+              f"{extra:.3f} GB ({card})")
+        return {"ms": ms, "bound_ms": bound_ms(nbytes), "bytes": nbytes,
+                "peak_above_inputs_gb": extra}
 
     staged = (t(prep["alleles_p"]), t(prep["alts_p"]),
               t(prep["wah_rows_p"], torch.int64), t(prep["sorts_w"]),
@@ -849,20 +948,26 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
         return encoder_torch.encode_block_core_compact(*staged, cap)
 
     torch.cuda.reset_peak_memory_stats()
-    enc_ms = cuda_ms(encode_core, iters=5 if wide else 10,
-                     warmup=1 if wide else 2)
+    enc_ms = cuda_ms(encode_core, **dev_loop)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_core_peak = once_peak_gb(encode_core)
-    with old_pipeline():
-        enc_old_ms = cuda_ms(encode_core, iters=5 if wide else 10,
-                             warmup=1 if wide else 2)
-        enc_core_peak_old = once_peak_gb(encode_core)
+    enc_old_ms, enc_core_peak_old = old_wah(encode_core)
+    parts = {}
+    if scan:
+        aw = staged[0].index_select(0, staged[2])
+        at = staged[1].index_select(0, staged[2])
+        sw = staged[3]
+        # reads the WAH lines' alleles and flags, writes their bits and
+        # the final arrangement
+        parts["pbwt_encode_scan"] = alone(
+            lambda: pbwt_torch.pbwt_encode_scan(aw, at, sw),
+            2 * aw.numel() + at.nbytes + sw.nbytes + 8 * H,
+            "pbwt_encode_scan")
+        del aw, at, sw
     del staged
-    host_iters, host_warm = (2, 1) if wide else (3, 1)
-    ser_ms = wall_ms(lambda: ingest().serialize(), iters=host_iters,
-                     warmup=host_warm)
+    ser_ms = wall_ms(lambda: ingest().serialize(), **host_loop)
 
-    dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, np.uint16,
+    dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, aet,
                                           device=dev)
     *dstaged, h, w, _ = dec.device_inputs()
     with captured_args() as seen_dec:
@@ -870,33 +975,38 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     seen.update(seen_dec)
     require(bool((gt_dev.cpu().numpy() == gt).all()),
             f"{name}: fused decode to gt codes is not bit-exact")
-    del gt_dev
+    del gt_dev, gt
 
     def decode_device():
         return decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
 
-    dec_dev_ms = cuda_ms(decode_device, iters=5 if wide else 10,
-                         warmup=1 if wide else 2)
+    dec_dev_ms = cuda_ms(decode_device, **dev_loop)
     dec_dev_peak = once_peak_gb(decode_device)
-    with old_pipeline():
-        dec_dev_old_ms = cuda_ms(decode_device, iters=5 if wide else 10,
-                                 warmup=1 if wide else 2)
-        dec_dev_peak_old = once_peak_gb(decode_device)
+    dec_dev_old_ms, dec_dev_peak_old = old_wah(decode_device)
+    if scan:
+        ys = wah_kernels.wah_expand_bits(*seen["wah_expand_bits"])
+        sorts = dstaged[1]
+        parts["pbwt_decode_blocked"] = alone(
+            lambda: pbwt_torch.pbwt_decode_blocked(ys, sorts),
+            2 * ys.numel() + sorts.nbytes + 8 * H, "pbwt_decode_blocked")
+        del ys, sorts
 
     def decode_once():
         dec.host_inputs()                 # the per-block host parse
         return decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
 
     torch.cuda.reset_peak_memory_stats()
-    dec_ms = wall_ms(decode_once, iters=5 if wide else 10,
-                     warmup=1 if wide else 2)
+    dec_ms = wall_ms(decode_once, **(dict(iters=1, warmup=1) if scan
+                                     else dev_loop))
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del dstaged
-    rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
-        payload, n_samples, H, np.uint16, [2] * L, device=DEVICE),
-        iters=host_iters, warmup=host_warm)
+    rec_ms = wall_ms(lambda: records(payload), **host_loop)
     gt_bytes = L * H * 4
     ratio = gt_bytes / len(payload)
+
+    def old(ms, unit=" ms"):
+        return "" if ms is None else f" (old WAH pipeline {ms:.3f}{unit})"
+
     print(f"[{name}] encode core: {enc_ms:.3f} ms/block = "
           f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
           f"| decode to gt codes (host parse + device): {dec_ms:.3f} "
@@ -904,17 +1014,19 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
           f"{dec_peak_gb:.3f} GB) | serialize (ingest + prepare + device + "
           f"assemble): {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
-    print(f"[{name}] device alone: encode core {enc_ms:.3f} ms (old WAH "
-          f"pipeline {enc_old_ms:.3f} ms), peak {enc_core_peak:.3f} GB (old "
-          f"{enc_core_peak_old:.3f} GB) | decode {dec_dev_ms:.3f} ms (old "
-          f"{dec_dev_old_ms:.3f} ms), peak {dec_dev_peak:.3f} GB (old "
-          f"{dec_dev_peak_old:.3f} GB) ({card})")
+    print(f"[{name}] device alone: encode core {enc_ms:.3f} ms"
+          f"{old(enc_old_ms)}, peak {enc_core_peak:.3f} GB"
+          f"{old(enc_core_peak_old, ' GB')} | decode {dec_dev_ms:.3f} ms"
+          f"{old(dec_dev_old_ms)}, peak {dec_dev_peak:.3f} GB"
+          f"{old(dec_dev_peak_old, ' GB')} ({card})")
     checks = (block_chain_checks(name, seen, card)
               + wah_block_checks(name, seen, card))
-    return {"launches": launches, "H": H, "encode_ms": enc_ms,
-            "block_checks": checks, "encode_old_wah_ms": enc_old_ms,
+    return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
+            "encode_ms": enc_ms, "block_checks": checks,
+            "encode_old_wah_ms": enc_old_ms,
             "decode_device_ms": dec_dev_ms,
             "decode_device_old_wah_ms": dec_dev_old_ms,
+            "wide_path_alone": parts,
             "decode_ms": dec_ms, "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
             "payload_bytes": len(payload), "wah_lines": n_wah,
@@ -997,7 +1109,7 @@ def track_block_phase(name: str, card: str) -> dict:
             *dstaged, 0, *pairs_dev, h, w)
 
     torch.cuda.reset_peak_memory_stats()
-    dec_ms = wall_ms(decode_once, iters=10, warmup=2)
+    dec_ms = wall_ms(decode_once, iters=5, warmup=1)
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # its parts: the host's walk of the track streams, and the device
     walk_ms = wall_ms(carrier_pairs, iters=3, warmup=1)
@@ -1138,7 +1250,7 @@ def mixed_block_phase(card: str) -> dict:
     checks = wah_block_checks(name, seen, card)
     del dargs, seen
     rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
-        payload, N, H, np.uint16, [2] * L, device=DEVICE), iters=2, warmup=1)
+        payload, N, H, np.uint16, [2] * L, device=DEVICE), iters=1, warmup=0)
     gt_bytes = L * H * 4
     ratio = gt_bytes / len(payload)
     print(f"[{name}] block: {L} lines x {H} haplotypes; {n_wah} WAH lines "
@@ -1171,7 +1283,8 @@ def mixed_block_phase(card: str) -> dict:
 
 
 def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
-               recompress: bool = False) -> dict:
+               recompress: bool = False, samples: int = FILE_SAMPLES,
+               records: int = FILE_RECORDS) -> dict:
     """The CLI on files: -c on the card and on the host codec give the same
     .xsi bytes; -x on the card gives the input's genotypes back; with
     `recompress`, -x -O x re-encodes the .xsi on the card and on the host
@@ -1192,7 +1305,7 @@ def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
 
     try:
         t0 = time.perf_counter()
-        synth_bcf(path("in.bcf"), FILE_RECORDS, FILE_SAMPLES, seed=SEED,
+        synth_bcf(path("in.bcf"), records, samples, seed=SEED,
                   missing_frac=missing_frac)
         secs["synth_bcf"] = time.perf_counter() - t0
         block = ["--variant-block-length", str(L)]
@@ -1219,9 +1332,9 @@ def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
         src.close()
         out.close()
         secs["compare"] = time.perf_counter() - t0
-        require(n == FILE_RECORDS and n_out == n and bad == 0,
+        require(n == records and n_out == n and bad == 0,
                 f"-x --device {DEVICE}: {bad} of {n} records differ "
-                f"({n_out} records read back, {FILE_RECORDS} written)")
+                f"({n_out} records read back, {records} written)")
         same_as_source = None
         if recompress:
             outs = {}
@@ -1244,14 +1357,49 @@ def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
     recomp = ("" if not recompress else
               f", -x -O x .xsi byte-identical across --device {DEVICE} / "
               f"numpy (equal to the source .xsi: {same_as_source})")
-    print(f"[{label}] {FILE_RECORDS} records x {FILE_SAMPLES} samples "
+    print(f"[{label}] {records} records x {samples} samples "
           f"(missing fraction {missing_frac}), {len(xsi_a)} B .xsi "
           f"byte-identical across --device {DEVICE} / numpy, -x genotypes "
           f"equal on every record{recomp}; seconds: "
           f"{json.dumps({k: round(v, 3) for k, v in secs.items()})} ({card})")
-    return {"xsi_bytes": len(xsi_a), "records": FILE_RECORDS,
-            "samples": FILE_SAMPLES, "missing_frac": missing_frac,
+    return {"xsi_bytes": len(xsi_a), "records": records,
+            "samples": samples, "missing_frac": missing_frac,
             "recompressed_equals_source": same_as_source, "seconds": secs}
+
+
+#: The keys of root bench.py's JSON line (bench.py:407-427), which the
+#: port's headline benchmark keeps.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "encode_gbps",
+              "decode_gbps", "missing_encode_gbps", "missing_decode_gbps",
+              "missing_records_ms", "missing_prepare_ms",
+              "missing_assemble_ms", "compression_ratio")
+
+
+def bench_phase(card: str) -> dict:
+    """The port's headline benchmark as a user runs it, in a process of its
+    own (python -m xsqueezeit_tpu_torch.bench.headline, bench.py's
+    workload, its own bit-exact checks): exit 0 and a JSON line with
+    bench.py's keys are required; the line is printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "xsqueezeit_tpu_torch.bench.headline"],
+        cwd=REPO, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"bench.headline exited {proc.returncode}: "
+            f"{proc.stderr.strip()[-2000:]}")
+    line = (proc.stdout.strip().splitlines() or [""])[-1]
+    try:
+        result = json.loads(line)
+    except json.JSONDecodeError:
+        raise SystemExit(f"chip_smoke: FAIL: bench.headline printed no JSON "
+                         f"line (last line {line[:200]!r})")
+    missing = [k for k in BENCH_KEYS if k not in result]
+    require(not missing, f"bench.headline's line lacks {missing}")
+    print(f"[bench] {line}")
+    print(f"[bench] python -m xsqueezeit_tpu_torch.bench.headline: exit 0 in "
+          f"{secs:.1f} s ({card})")
+    return result
 
 
 def main() -> int:
@@ -1275,7 +1423,11 @@ def main() -> int:
                                 card)
     files = {"file": phase("file", file_phase, card),
              "file-missing": phase("file-missing", file_phase, card,
-                                   "file-missing", 0.01, True)}
+                                   "file-missing", 0.01, True),
+             "file-wide": phase("file-wide", file_phase, card, "file-wide",
+                                0.01, True, TOPMED_SAMPLES,
+                                WIDE_FILE_RECORDS)}
+    bench = phase("bench", bench_phase, card)
 
     for b in blocks.values():
         for c in b.pop("block_checks", []):
@@ -1288,7 +1440,8 @@ def main() -> int:
     print(json.dumps({"blocks": {k: {x: v for x, v in b.items()
                                      if x != "launches"}
                                  for k, b in blocks.items()},
-                      "files": files, "phase_seconds": phases,
+                      "files": files, "bench": bench,
+                      "phase_seconds": phases,
                       "card": card}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
 from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
+from xsqueezeit_tpu_torch.codec.gt_block_decoder import GtBlockDecoder
 from xsqueezeit_tpu_torch.format.constants import INT32_VECTOR_END
 from xsqueezeit_tpu_torch.ops import pbwt_kernels, wah_kernels, wah_torch
 
@@ -207,6 +208,26 @@ def test_wah_bits_routes_match_plain(dev, L, H):
     assert n1["wah_expand_bits"] == n0["wah_expand_bits"] + 6
 
 
+@pytest.mark.parametrize("L,H", [(4, 194512), (5, 491505)])
+def test_wah_routes_at_the_widest_lines(dev, L, H):
+    """TOPMed width (w = 12,968) and the format's widest line (w = 32,767),
+    where only a CTA per line fits: the expand's shared memory holds
+    16-bit starts."""
+    rng = np.random.default_rng(L + H)
+    p = np.array([0.0, 0.0005, 0.3, 1.0, 0.999])[:L, None]
+    bits = torch.from_numpy((rng.random((L, H)) < p).astype(np.uint8))
+    n0 = dict(wah_kernels.launches)
+    _check_routes(dev, bits, H, line_threads=(None, 256))
+    n1 = wah_kernels.launches
+    assert n1["wah_compress_bits"] == n0["wah_compress_bits"] + 1
+    assert n1["wah_expand_bits"] == n0["wah_expand_bits"] + 4
+    with pytest.raises(ValueError, match="shared memory"):
+        wah_kernels.wah_expand_bits(torch.zeros(1, dtype=torch.uint16,
+                                                device=dev),
+                                    1, wah_torch.n_words_for(H), H,
+                                    line_threads=32)
+
+
 @pytest.mark.parametrize("kind", ["one_counter", "all_literal",
                                   "alternating", "ones_then_literal"])
 def test_wah_routes_at_edge_rows(dev, kind):
@@ -369,6 +390,7 @@ def test_mixed_block_roundtrip_on_card(dev):
 
 @pytest.mark.parametrize("n_samples,L,mac,route", [
     (300, 700, 3, ""),
+    (2504, 64, 10, ""),            # 1KGP3 width: the one-CTA chains
     (32488, 64, 64, "_cluster"),   # HRC width: the chains' cluster routes
 ])
 def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
@@ -391,3 +413,36 @@ def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
     np.testing.assert_array_equal(np.stack(out), gt)
     for k in ("chain_encode", "chain_decode"):
         assert pbwt_kernels.launches[k + route] == n0[k + route] + 1
+
+
+@pytest.mark.parametrize("missing", [False, True])
+def test_wide_block_roundtrip_on_card(dev, missing):
+    """32,800 samples (H = 65,600), above the chains' 16-bit slot field:
+    the scan and the blocked decode in plain torch around the WAH kernels,
+    32-bit sparse and track streams; no chain route launches."""
+    rng = np.random.default_rng(6 + missing)
+    n_samples, L = 32800, 48
+    p = rng.choice([0.0005, 0.005, 0.2, 0.6, 0.9995], (L, 1))
+    alleles = (rng.random((L, 2 * n_samples)) < p).astype(np.int32)
+    gt = ((alleles + 1) << 1) | (np.arange(2 * n_samples) & 1)
+    if missing:
+        gt[rng.random(gt.shape) < 0.01] &= 1
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=65,
+              default_phasing=1, aet_dtype=np.uint32)
+    ref = GtBlockEncoder(**kw)
+    enc = encoder_torch.TorchBlockEncoder(device=dev, **kw)
+    for row in gt:
+        ref.encode_record(row, 2)
+        enc.encode_record(row, 2)
+    payload, out, counts = _block_counts(
+        enc, lambda e: e.serialize(),
+        lambda pl: decoder_torch.decode_block_records(
+            pl, n_samples, 2 * n_samples, np.uint32, [2] * L, device=dev))
+    assert payload == ref.serialize()
+    np.testing.assert_array_equal(np.stack(out), gt)
+    host = GtBlockDecoder(payload, n_samples, 2 * n_samples, np.uint32)
+    for i in (0, 1, L - 1):
+        host.seek(i)
+        np.testing.assert_array_equal(host.fill_genotype_array_advance(2),
+                                      gt[i])
+    assert set(counts) == {"wah_compress_bits", "wah_expand_bits"}

@@ -7,7 +7,8 @@ only, to keep each case short.  Tolerance: exact equality.
 
 This width lies above the one-CTA bounds of both chain kernels (28,928
 haplotypes for decode, 57,856 for encode), where the block codec used to
-raise NotImplementedError; only H > 65,535 raises now."""
+raise NotImplementedError.  Wider blocks (H > 65,535) take other
+functions: tests/test_torch_wide.py."""
 import numpy as np
 import pytest
 
@@ -206,19 +207,24 @@ def test_block_decoder_matches_host_decoder():
 
 
 def test_wider_than_16_bits_is_refused():
+    """H = 65,536, one past the chunk chains' 16-bit slot field, was once
+    refused; it now takes the scan and the blocked decode (32-bit sparse
+    and track streams) and round-trips byte for byte with the host
+    codec."""
     n = 32768                      # H = 65,536
     rng = np.random.default_rng(700)
     kw = dict(n_samples=n, block_bcf_lines=10_000, mac_threshold=65,
               default_phasing=1, aet_dtype=np.uint32)
     enc = TorchBlockEncoder(device="cpu", **kw)
     ref = GtBlockEncoder(**kw)
-    for _ in range(3):
-        gt, na = make_record(rng, n, p_alt=0.3)
+    recs = [make_record(rng, n, p_alt=p, p_missing=0.002)
+            for p in (0.3, 0.0005, 0.9995)]
+    for gt, na in recs:
         enc.encode_record(gt, na)
         ref.encode_record(gt, na)
-    with pytest.raises(NotImplementedError, match="pbwt_encode_scan"):
-        enc.serialize()
-    dec = decoder_torch.TorchBlockDecoder(ref.serialize(), n, 2 * n,
-                                          np.uint32, device="cpu")
-    with pytest.raises(NotImplementedError, match="pbwt_decode_blocked"):
-        dec.decode_all()
+    payload = enc.serialize()
+    assert payload == ref.serialize()
+    got = decoder_torch.decode_block_records(payload, n, 2 * n, np.uint32,
+                                             [2] * 3, device="cpu")
+    for g, (gt, _) in zip(got, recs):
+        np.testing.assert_array_equal(g, gt)

@@ -13,6 +13,9 @@ and the host assembles the byte-exact GT block payload through
 encoder_base, exactly as for the JAX and NumPy encoders.  Line classes are
 host-known (per-record carrier counts taken at ingest), so the chain runs
 only over the WAH rows and the extraction only over the sparse rows.
+Blocks wider than 65,535 haplotypes, whose slots do not fit the chains'
+16-bit fields, take the packed-key scan (pbwt_torch.pbwt_encode_scan) in
+place of the chains; their sparse and track streams are 32-bit.
 Mixed-ploidy blocks take the parity scan (encode_block_core_mixed).
 """
 from __future__ import annotations
@@ -25,13 +28,6 @@ import torch
 from ..format.constants import WeirdnessStrategy
 from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
 from .encoder_base import EOV_CODE, MISSING_CODE, BlockEncoderBase
-
-#: Why blocks above the chunked PBWT's 16-bit slot field are refused.
-TOO_WIDE = (f"blocks wider than {pbwt_kernels.MAX_H} haplotypes need the "
-            f"pbwt_encode_scan / pbwt_decode_blocked fallbacks, which are "
-            f"not ported to the CUDA path yet (a later PR of the port; "
-            f"ROADMAP.md: wider than HRC)")
-
 
 def carrier_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
     """Front-packed ascending carrier indices per row: int32[R, cap],
@@ -69,8 +65,11 @@ def encode_block_core_compact(alleles, alts, wah_rows, sorts_w, sparse_rows,
     int32[Ls, sparse_cap], sparse_len int64[Ls], rows in the order given.
     """
     aw = alleles.index_select(0, wah_rows)
-    ys, _ = pbwt_torch.pbwt_encode_chunked(aw, alts.index_select(0, wah_rows),
-                                           sorts_w)
+    # the chunk chains keep slots in 16 bits; wider blocks take the scan
+    encode = (pbwt_torch.pbwt_encode_chunked
+              if aw.shape[1] <= pbwt_kernels.MAX_H
+              else pbwt_torch.pbwt_encode_scan)
+    ys, _ = encode(aw, alts.index_select(0, wah_rows), sorts_w)
     wah_words, wah_len = _wah_rows(ys)
 
     sp = alleles.index_select(0, sparse_rows)
@@ -202,6 +201,27 @@ def encode_block_core_mixed(alleles, alts, wah_rows, dip_w, hap_w,
     }
 
 
+def _line_classes(prep: dict) -> dict:
+    return {"is_wah": prep["is_wah"], "negated": prep["negated"],
+            "wah_compact": True, "sparse_compact": True}
+
+
+def host_outputs(outd: dict, prep: dict) -> dict:
+    """The outputs of encode_block_core_compact(_tracks) fetched to the
+    host as the dict encoder_base.assemble takes: the grids cut to the
+    block's WAH and sparse lines, the track grids (if any) under "trk"."""
+    n_wah, n_sparse = prep["n_wah"], prep["n_sparse"]
+    out = {**_line_classes(prep),
+           "wah_words": outd["wah_words"][:n_wah].cpu().numpy(),
+           "wah_len": outd["wah_len"][:n_wah].cpu().numpy(),
+           "sparse_idx": outd["sparse_idx"][:n_sparse].cpu().numpy(),
+           "sparse_len": outd["sparse_len"][:n_sparse].cpu().numpy()}
+    if "trk_wah_words" in outd:
+        out["trk"] = {k: outd[f"trk_{k}"].cpu().numpy() for k in
+                      ("wah_words", "wah_len", "sparse_idx", "sparse_len")}
+    return out
+
+
 class TorchBlockEncoder(BlockEncoderBase):
     """Block encoder running the core on a torch device; the host
     assembles the payload (encoder_base).  device="cuda" launches the
@@ -214,29 +234,27 @@ class TorchBlockEncoder(BlockEncoderBase):
         self.device = torch.device(device)
 
     def serialize(self) -> bytes:
-        return self.serialize_prepared(self.prepare())
+        prep = self.prepare()
+        return self.assemble(self.encode_prepared(prep), prep)
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(self.device, dtype=dtype)
 
-    def serialize_prepared(self, prep: dict) -> bytes:
-        if prep["H"] > pbwt_kernels.MAX_H:
-            raise NotImplementedError(f"{TOO_WIDE} (got {prep['H']})")
-        out = {"is_wah": prep["is_wah"], "negated": prep["negated"],
-               "wah_compact": True, "sparse_compact": True}
+    def encode_prepared(self, prep: dict) -> dict:
+        """The device part of serialize: the core run on prepare()'s
+        output, fetched to the host as the dict `assemble` takes."""
         if prep["L"] == 0:
             # zero-ALT records only: no binary line, nothing to encode
-            out.update(wah_words=np.zeros((0, 1), np.uint16),
-                       wah_len=np.zeros(0, np.int32),
-                       sparse_idx=np.zeros((0, 1), np.int32),
-                       sparse_len=np.zeros(0, np.int64))
-            return self.assemble(out, prep)
+            return {**_line_classes(prep),
+                    "wah_words": np.zeros((0, 1), np.uint16),
+                    "wah_len": np.zeros(0, np.int32),
+                    "sparse_idx": np.zeros((0, 1), np.int32),
+                    "sparse_len": np.zeros(0, np.int64)}
         sparse_cap = max(int(self.mac_threshold), 1)
-        n_wah, n_sparse = prep["n_wah"], prep["n_sparse"]
         if prep["mixed"]:
-            out.update(self._mixed_core(prep, sparse_cap))
-            return self.assemble(out, prep)
+            return {**_line_classes(prep),
+                    **self._mixed_core(prep, sparse_cap)}
 
         args = [self._dev(prep["alleles_p"]), self._dev(prep["alts_p"]),
                 self._dev(prep["wah_rows_p"], torch.int64),
@@ -258,16 +276,9 @@ class TorchBlockEncoder(BlockEncoderBase):
             outd = encode_block_core_compact_tracks(
                 *args, self._dev(rows, torch.int64), self._dev(kind),
                 sparse_cap, self.track_cap(prep, wah_weird))
-            out["trk"] = {k: outd[f"trk_{k}"].cpu().numpy() for k in
-                          ("wah_words", "wah_len", "sparse_idx",
-                           "sparse_len")}
         else:
             outd = encode_block_core_compact(*args, sparse_cap)
-        out.update(wah_words=outd["wah_words"][:n_wah].cpu().numpy(),
-                   wah_len=outd["wah_len"][:n_wah].cpu().numpy(),
-                   sparse_idx=outd["sparse_idx"][:n_sparse].cpu().numpy(),
-                   sparse_len=outd["sparse_len"][:n_sparse].cpu().numpy())
-        return self.assemble(out, prep)
+        return host_outputs(outd, prep)
 
     def _mixed_core(self, prep: dict, sparse_cap: int) -> dict:
         """encode_block_core_mixed on the device; the two WAH grids are

@@ -28,11 +28,14 @@
 //   a 33-way search for lo and hi (l*w and (l+1)*w, or group_off[l] and
 //   group_off[l+1]): searchsorted(..., right=True), as
 //   wah_torch.wah_word_offsets.  The line's words and their group starts go
-//   to shared memory.  The line's groups are then resolved there, eight
-//   consecutive groups per thread and step (a binary search in the shared
-//   starts finds the first one's covering word, as wah_decode_lines finds
-//   it; the others walk on from it), and every thread stores 16-byte
-//   chunks of the output row from the shared groups: four groups, or 16
+//   to shared memory (with a CTA per line each start in 16 bits, relative
+//   to the line and biased: 6 bytes per word slot, so one CTA holds a line
+//   of the format's widest, 32,767 groups, 491,505 haplotypes, in 196,606
+//   bytes).  The line's groups are then resolved there, eight consecutive
+//   groups per thread and step (a binary search in the shared starts finds
+//   the first one's covering word, as wah_decode_lines finds it; the others
+//   walk on from it), and every thread stores 16-byte chunks of the output
+//   row from the shared groups: four groups, or 16
 //   bits cut from two groups with one shift (rows need not be 16-byte
 //   aligned: chunks are aligned in the flat output, the ragged ends store
 //   by element).  No thread fills a counter's span; no per-tile scan.  A
@@ -195,14 +198,30 @@ __device__ int warp_upper_bound(const int* __restrict__ cum, int n, long t) {
 
 // ---- expand -------------------------------------------------------------
 
-// Lines per CTA, and the dynamic shared memory of one line: an int start
-// and a word per word slot, a 15-bit group per group of w_row plus two
-// (mirrored by wah_kernels.expand_smem_bytes).
+// Lines per CTA, and the dynamic shared memory of one line: a start and a
+// word per word slot, a 15-bit group per group of w_row plus two (mirrored
+// by wah_kernels.expand_smem_bytes).
 template <int LT>
 __host__ __device__ constexpr int lines_per_cta() { return LT == 32 ? 4 : 1; }
 
+// A word's first group, relative to its line's first group.  A warp per
+// line (narrow lines) keeps it in an int.  A CTA per line stores it plus
+// start_bias in 16 bits, so that one CTA holds the format's widest line:
+// the line's first word covers the line's first group, so it starts at
+// most WAH_MAXC - 1 groups before it, and the others start inside the
+// line (a start past it is stored as w_row, which no group reaches).
+// Stored values lie in [1, 49,150]; the searches compare biased values.
+template <int LT>
+using start_t = typename std::conditional<LT == 32, int, uint16_t>::type;
+
+template <int LT>
+__host__ __device__ constexpr int start_bias() {
+    return LT == 32 ? 0 : WAH_MAXC;
+}
+
+template <int LT>
 __host__ __device__ inline size_t expand_line_smem(int w_row) {
-    return (size_t)w_row * 8 + 4;
+    return (size_t)w_row * (sizeof(start_t<LT>) + 4) + 4;
 }
 
 // 4 bits -> 4 bytes of 0 / 1 (bit i to byte i): the shifted copies of x
@@ -224,9 +243,10 @@ wah_expand_kernel(const uint16_t* __restrict__ stream,
     const int sub = threadIdx.x / LT;  // the CTA's line served by this thread
     const int t = threadIdx.x % LT;
     const long line = (long)blockIdx.x * LPC + sub;
-    // per line: starts (int), words, then groups (uint16, w_row + 2)
-    unsigned char* base = smem + sub * expand_line_smem(w_row);
-    int* st = reinterpret_cast<int*>(base);
+    constexpr int BIAS = start_bias<LT>();
+    // per line: starts, words, then groups (uint16, w_row + 2)
+    unsigned char* base = smem + sub * expand_line_smem<LT>(w_row);
+    start_t<LT>* st = reinterpret_cast<start_t<LT>*>(base);
     uint16_t* wd = reinterpret_cast<uint16_t*>(st + w_row);
     uint16_t* gv = wd + w_row;
     if (line >= n_lines) return;  // whole warps (LT = 32) only
@@ -261,7 +281,8 @@ wah_expand_kernel(const uint16_t* __restrict__ stream,
     for (int j = t; j < nw; j += LT) {
         const long k = (long)a + j;
         wd[j] = stream[k];
-        st[j] = (int)((k == 0 ? 0L : (long)cum[k - 1]) - lo);
+        const long s = (k == 0 ? 0L : (long)cum[k - 1]) - lo;
+        st[j] = (start_t<LT>)(BIAS ? min(s, (long)w_row) + BIAS : s);
     }
     if (t < 2) gv[w_row + t] = 0;
     if (LT == 32)
@@ -276,18 +297,19 @@ wah_expand_kernel(const uint16_t* __restrict__ stream,
         int l = 0, h = nw;
         while (l < h) {
             const int m = (l + h) >> 1;
-            if (st[m] <= q0)
+            if ((int)st[m] <= q0 + BIAS)
                 l = m + 1;
             else
                 h = m;
         }
         int k = l - 1;  // the last word starting at or before q0
         for (int q = q0; q < min(q0 + 8, w_row); ++q) {
-            while (k + 1 < nw && st[k + 1] <= q) ++k;
+            const int qb = q + BIAS;
+            while (k + 1 < nw && (int)st[k + 1] <= qb) ++k;
             int g = 0;
             if (k >= 0 && q < wl) {
                 const int word = wd[k];
-                if (q < st[k] + wah_span(word))
+                if (qb < (int)st[k] + wah_span(word))
                     g = (word & WAH_HIGH)
                             ? ((word & WAH_ONE) ? WAH_ALL_SET : 0)
                             : word;
@@ -344,7 +366,7 @@ static cudaError_t launch_expand(const uint16_t* stream, const int* cum,
                                  int n_lines, int w_row, int row_len,
                                  cudaStream_t st) {
     constexpr int LPC = lines_per_cta<LT>();
-    const size_t smem = LPC * expand_line_smem(w_row);
+    const size_t smem = LPC * expand_line_smem<LT>(w_row);
     auto* kernel = &wah_expand_kernel<VARW, BITS, LT>;
     const cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
@@ -406,7 +428,7 @@ extern "C" int xsi_wah_expand(const void* stream, int n, void* cum,
 // ---- compress -----------------------------------------------------------
 
 // Dynamic shared memory of a compress CTA: the row's words, then the
-// output words (at most 128 KB, for w = 32767).
+// output words (131,072 bytes at the format's widest line, w = 32767).
 static size_t compress_smem(int w) {
     return ((size_t)w * 2 + 15) / 16 * 16 * 2;
 }

@@ -1,15 +1,17 @@
 """PBWT arrangement transforms in PyTorch: the chunked encode and decode,
-and the mixed-ploidy scans.
+their forms for any width, and the mixed-ploidy scans.
 
 Port of xsqueezeit_tpu/ops/pbwt_jax.py (pbwt_encode_chunked,
-pbwt_decode_chunked, _rank_chain, pbwt_encode_keys,
-pbwt_encode_scan_parity, pbwt_decode_scan_mixed).  Lines group into chunks
-of C = 16; a 16-bit register per haplotype carries the chunk's bits
-through the partitions, which run in the chunk-chain kernels of
-ops/pbwt_kernels.py.  Cross-chunk state comes from a rank chain (encode)
-or from composing the chunks' arrangements (decode).  Mixed-ploidy blocks
-encode with packed per-line keys and one batched row sort (the parity
-scan) and decode one line at a time in plain torch.
+pbwt_decode_chunked, _rank_chain, pbwt_encode_keys, pbwt_encode_scan,
+pbwt_encode_scan_parity, pbwt_decode_blocked, pbwt_decode_scan_mixed).
+Up to H = 65,535 lines group into chunks of C = 16; a 16-bit register per
+haplotype carries the chunk's bits through the partitions, which run in
+the chunk-chain kernels of ops/pbwt_kernels.py.  Cross-chunk state comes
+from a rank chain (encode) or from composing the chunks' arrangements
+(decode).  Wider blocks, whose slots do not fit the registers' 16-bit
+fields, encode with packed per-line keys and one batched row sort (the
+scan) and decode by the blocked three-phase form; mixed-ploidy blocks
+encode with the parity scan and decode one line at a time.
 
 Where the JAX package applies permutations with packed row sorts (fast on a
 TPU), this module scatters and gathers.  The block-start arrangement is the
@@ -96,11 +98,38 @@ def pbwt_encode_keys(alleles: torch.Tensor, alts: torch.Tensor,
         T |= (xc[:, j].to(torch.int64) << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
 
     r_fin, r_starts = _rank_chain(T, torch.arange(H, device=dev), b)
-    packed <<= b + vb
-    packed |= (r_starts[:, None, :] << vb) | xc
+    low = r_starts << vb
     if carry_parity:
-        packed |= (torch.arange(H, device=dev) & 1) << 1
+        low |= (torch.arange(H, device=dev) & 1) << 1
+    for j in range(C):       # temporaries [n_ch, H], as above
+        packed[:, j] = (packed[:, j] << (b + vb)) | low | xc[:, j]
     return packed.reshape(n_ch * C, H)[:L], r_fin
+
+
+def _sorted_rows(packed: torch.Tensor):
+    """Each row of the packed keys sorted ascending, in slices of rows of
+    about SORT_SLICE_ELEMS keys (bounds the sort's memory): yields (first
+    row, sorted slice)."""
+    L, H = packed.shape
+    step = max(1, SORT_SLICE_ELEMS // max(H, 1))
+    for a in range(0, L, step):
+        yield a, torch.sort(packed[a:a + step], dim=1).values
+
+
+def pbwt_encode_scan(alleles: torch.Tensor, alts: torch.Tensor,
+                     sorts: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Arrangement-ordered bits for every line at any width, block start
+    at the identity (pbwt_jax.pbwt_encode_scan): one batched row sort of
+    the packed keys puts each line's bits in the arrangement in force
+    before it, in the key's lowest bit.  The form for H > 65,535, where
+    the chunk chains' 16-bit slot fields do not reach.  Returns (ys
+    uint8[L, H], a_final int64[H])."""
+    packed, r_fin = pbwt_encode_keys(alleles, alts, sorts)
+    ys = torch.empty(packed.shape, dtype=torch.uint8, device=packed.device)
+    for a, s in _sorted_rows(packed):
+        ys[a:a + s.shape[0]] = s & 1
+    return ys, _inverse(r_fin)
 
 
 def pbwt_encode_scan_parity(alleles: torch.Tensor, alts: torch.Tensor,
@@ -118,14 +147,11 @@ def pbwt_encode_scan_parity(alleles: torch.Tensor, alts: torch.Tensor,
     """
     packed, r_fin = pbwt_encode_keys(alleles, alts, sorts,
                                      carry_parity=True)
-    L, H = packed.shape
-    ys = torch.empty((L, H), dtype=torch.uint8, device=packed.device)
+    ys = torch.empty(packed.shape, dtype=torch.uint8, device=packed.device)
     par = torch.empty_like(ys)
-    step = max(1, SORT_SLICE_ELEMS // max(H, 1))   # bounds the sort's memory
-    for a in range(0, L, step):
-        s = torch.sort(packed[a:a + step], dim=1).values
-        ys[a:a + step] = s & 1
-        par[a:a + step] = (s >> 1) & 1
+    for a, s in _sorted_rows(packed):
+        ys[a:a + s.shape[0]] = s & 1
+        par[a:a + s.shape[0]] = (s >> 1) & 1
     return ys, par, _inverse(r_fin)
 
 
@@ -218,6 +244,60 @@ def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor,
     vals = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
     for j in range(C):
         vals[:, j] = (X >> j) & 1
+    return vals.reshape(n_ch * C, H)[:L], inc[-1]
+
+
+def pbwt_decode_blocked(ys: torch.Tensor, sorts: torch.Tensor,
+                        chunk: int = DECODE_CHUNK
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PBWT decode at any width (pbwt_jax.pbwt_decode_blocked): bits back
+    to natural order, block start at the identity.  The form for H >
+    65,535, where the chunk chains' 16-bit slot fields do not reach.
+
+    Three phases over chunks of `chunk` lines, every step a batched
+    scatter over the chunks ([n_ch, H], one chunk line at a time):
+      1. per chunk, the chunk-start slot of each slot after the chunk's
+         lines (the stable partitions applied to the identity);
+      2. the arrangement at every chunk start, by composing those maps
+         (_compose_prefix);
+      3. each chunk's arrangement carried through its lines again, every
+         line's bits scattered to natural order on the way.
+    ys: uint8[L, H] bits in arrangement order; sorts: bool[L] (all-zero
+    padding rows may pass True).  Returns (vals uint8[L, H] natural-order
+    bits, a_final int64[H]).
+    """
+    L, H = ys.shape
+    dev = ys.device
+    iota = torch.arange(H, device=dev)
+    if L == 0:
+        return torch.zeros((0, H), dtype=torch.uint8, device=dev), iota
+    C = chunk
+    pad = (-L) % C
+    sorts = sorts.to(torch.bool)
+    y = ys.to(torch.uint8)
+    if pad:
+        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+        sorts = torch.nn.functional.pad(sorts, (0, pad))
+    n_ch = (L + pad) // C
+    yc = y.reshape(n_ch, C, H)
+    ss = sorts.reshape(n_ch, C)
+
+    def moved(j, state):
+        """state carried through chunk line j's partition."""
+        dest = pbwt_kernels._partition_dest(yc[:, j].to(torch.int64),
+                                            ss[:, j])
+        return torch.empty_like(state).scatter_(1, dest, state)
+
+    o = iota.expand(n_ch, H).clone()        # 1. start slot per slot
+    for j in range(C):
+        o = moved(j, o)
+    inc = _compose_prefix(o)                # 2. haplotype per end slot
+    g = torch.cat([iota[None], inc[:-1]])   # haplotype per start slot
+    vals = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
+    for j in range(C):                      # 3. the lines' bits
+        vals[:, j] = torch.empty((n_ch, H), dtype=torch.uint8,
+                                 device=dev).scatter_(1, g, yc[:, j])
+        g = moved(j, g)
     return vals.reshape(n_ch * C, H)[:L], inc[-1]
 
 

@@ -44,9 +44,13 @@ MAX_GROUPS = (1 << 31) - 2
 
 def expand_smem_bytes(w_row: int, line_threads: int) -> int:
     """Dynamic shared memory of an expand CTA (csrc/wah.cu
-    expand_line_smem): per line an int start and a word per word slot and
-    w_row + 2 groups (4 lines for a warp per line)."""
-    return (4 if line_threads == 32 else 1) * (w_row * 8 + 4)
+    expand_line_smem): per line a start and a word per word slot and
+    w_row + 2 groups.  A warp per line, four lines to a CTA, keeps int
+    starts (up to w = 7263); a CTA per line 16-bit ones, so it takes every
+    width the format allows (w <= 32,767: 196,606 bytes)."""
+    if line_threads == 32:
+        return 4 * (w_row * 8 + 4)
+    return w_row * 6 + 4
 
 
 def _check_stream(name: str, stream: torch.Tensor, w: int,
