@@ -56,7 +56,13 @@ exactly:
    record); then the same with 1 % of entries missing, plus `cli -x -O x`
    on `cuda` and `numpy` (byte-identical re-encoded .xsi); then the
    latter at TOPMed width (97,256 samples x 512 records, one block);
-7. the port's headline benchmark, `python -m
+7. the random-access API and the tool suite (tools_phase): the 1KGP3-width
+   file through the Accessor (48 records in a random order), Xcf,
+   loading_time, af_stats, lockstep and dot_prod on the host, and dot_prod
+   on the card (whole blocks decoded by wah_expand_bits and chain_decode,
+   one product per block, held per variant against the host walk), also
+   on a uniformly haploid chrX file;
+8. the port's headline benchmark, `python -m
    xsqueezeit_tpu_torch.bench.headline` in its own process (bench.py's
    workload and keys, its own bit-exact checks): exit 0 and its JSON
    line required, the line printed.
@@ -81,6 +87,11 @@ from xsqueezeit_tpu_torch.bench.synth import synth_bcf
 from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
 from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu_torch.format.constants import INT32_VECTOR_END
+from xsqueezeit_tpu_torch.io.bcf import BcfHeader, BcfWriter
+from xsqueezeit_tpu_torch.io.sites import (
+    encode_gt_indiv,
+    encode_shared_from_vcf_cols,
+)
 from xsqueezeit_tpu_torch.io.unified import GtInput
 from xsqueezeit_tpu_torch.ops import _build, pbwt_kernels, pbwt_torch
 from xsqueezeit_tpu_torch.ops import wah_kernels, wah_torch
@@ -1367,6 +1378,249 @@ def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
             "recompressed_equals_source": same_as_source, "seconds": secs}
 
 
+def write_haploid_bcf(path: str, n_samples: int, n_records: int,
+                      seed: int) -> None:
+    """A uniformly haploid BCF (one allele per sample on every record, no
+    phase bit), written with the port's own BcfWriter and GT encoder, at
+    synth_bcf's rare-heavy site-frequency mix."""
+    rng = np.random.default_rng(seed)
+    h = BcfHeader.from_text(
+        "##fileformat=VCFv4.2\n"
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n'
+        "##contig=<ID=X,length=155270560>\n"
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+        + "\t".join(f"M{i}" for i in range(n_samples)))
+    kind = rng.random(n_records)
+    freqs = np.where(kind < 0.55, rng.uniform(0.0, 0.0015, n_records),
+                     np.where(kind < 0.80,
+                              rng.uniform(0.0015, 0.05, n_records),
+                              rng.uniform(0.05, 0.95, n_records)))
+    gt = (bernoulli_rows(rng, freqs, n_samples).astype(np.int32) + 1) << 1
+    w = BcfWriter(path, h)
+    for i in range(n_records):
+        shared = encode_shared_from_vcf_cols(
+            h, ["X", str(2_800_000 + 29 * i), f"x{i}", "G", "A", ".",
+                "PASS", "."], n_fmt=1, n_sample=n_samples)
+        w.write_raw(shared, encode_gt_indiv(h, gt[i], 1, n_samples))
+    w.close()
+
+
+#: The tools phase: records Accessor.get_genotypes reads in a seeded
+#: random order across both blocks, backward seeks included
+#: (BASELINE.json config 4's random access).
+TOOLS_ACCESSES = 48
+#: dot_prod on the card against the host walk, per variant: relative
+#: 1e-6 (float32 products of at most 5008 terms in [0, 1); one flipped
+#: carrier moves a dot by its y, about 2e-4 of the largest); the checksum
+#: within relative 1e-7.  The host walks over the .xsi and over the BCF
+#: sum the same float64 terms in another order: 1e-12 per variant.
+DOT_RTOL, CHECKSUM_RTOL, HOST_RTOL = 1e-6, 1e-7, 1e-12
+
+
+def tools_phase(card: str) -> dict:
+    """The random-access API and the tool suite on files (BASELINE.json
+    config 4): the file phase's 1KGP3-width BCF (2504 samples x 16,384
+    records, two 8192-record blocks) through `cli -c --device cuda`, then
+    Accessor.get_genotypes on TOOLS_ACCESSES records in a seeded random
+    order across both blocks (each equal to the input record), Xcf over
+    the variant file and over the input in lockstep, loading_time, af_stats
+    and dot_prod --device host on the .xsi and on the BCF, lockstep of the
+    two, and dot_prod on the card (its default device) on the .xsi; then a
+    uniformly haploid file (1233 samples x 8192 records, one block: 1KGP3's
+    chrX males outside the PARs) through dot_prod on the card and on the
+    host.  Every variant's dot on the card must be within relative
+    DOT_RTOL of the host walk's and the checksum within CHECKSUM_RTOL; the
+    host walks over the .xsi and the BCF agree per variant within HOST_RTOL
+    and in the checksum to 1e-6 (one unit of its sixth decimal); every
+    launch counter is set to 0 just before each dot_prod on the card and
+    read just after: wah_expand_bits and chain_decode once per block,
+    nothing else.  The counts are the tools' own: they stay out of the
+    kernels line, which reads the block paths."""
+    from xsqueezeit_tpu_torch.accessor import Accessor
+    from xsqueezeit_tpu_torch.bench import tools
+    from xsqueezeit_tpu_torch.cli import main as cli_main
+    from xsqueezeit_tpu_torch.io.bcf import BcfReader
+    from xsqueezeit_tpu_torch.mixed import Xcf
+
+    work = os.path.join(REPO, ".bench_work", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    secs = {}
+    out = {}
+
+    def path(f):
+        return os.path.join(work, f)
+
+    def timed(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        secs[key] = time.perf_counter() - t0
+        return res
+
+    def compress(src, dst):
+        rc = cli_main(["-c", "-f", src, "-o", dst, "--device", DEVICE,
+                       "--variant-block-length", str(L)])
+        require(rc == 0, f"cli -c --device {DEVICE} of {src} exited {rc}")
+
+    def max_rel(got, want):
+        return float(np.max(np.abs(got - want)
+                            / np.maximum(np.abs(want), np.finfo(float).tiny)))
+
+    def dots(label, src, xsi, n_blocks, haploid):
+        """dot_prod of the source and of the .xsi on the host, and of the
+        .xsi on the card; the checks of the docstring."""
+        plain = timed(f"{label}_dot_prod_source", tools.dot_prod, src,
+                      device="host")
+        host = timed(f"{label}_dot_prod_xsi", tools.dot_prod, xsi,
+                     device="host")
+        torch.cuda.synchronize()
+        with no_plain_passes():
+            reset_counts()
+            card_res = timed(f"{label}_dot_prod_cuda", tools.dot_prod, xsi)
+            torch.cuda.synchronize()
+            launches = read_counts()
+        ran = {k: v for k, v in launches.items() if v}
+        want = {"wah_expand_bits": n_blocks, "chain_decode": n_blocks}
+        require(ran == want, f"{label}: dot_prod --device {DEVICE} "
+                             f"launched {ran}, want {want}")
+        require(plain["variants"] == host["variants"] == card_res["variants"]
+                > 0, f"{label}: variant counts {plain['variants']} / "
+                     f"{host['variants']} / {card_res['variants']}")
+        require(card_res["device"] == DEVICE,
+                f"{label}: dot_prod ran on {card_res['device']}")
+        host_rel = max_rel(host["dots"], plain["dots"])
+        require(host_rel <= HOST_RTOL
+                and abs(host["checksum"] - plain["checksum"]) <= 1e-6 + 1e-8,
+                f"{label}: host walks, .xsi vs source: per variant relative "
+                f"{host_rel:.3g}, checksums {host['checksum']} vs "
+                f"{plain['checksum']}")
+        dot_rel = max_rel(card_res["dots"], host["dots"])
+        rel = (abs(card_res["checksum"] - host["checksum"])
+               / abs(host["checksum"]))
+        require(dot_rel <= DOT_RTOL and rel <= CHECKSUM_RTOL,
+                f"{label}: card vs host walk: per variant relative "
+                f"{dot_rel:.3g} (limit {DOT_RTOL}), checksum "
+                f"{card_res['checksum']} vs {host['checksum']} (relative "
+                f"{rel:.3g}, limit {CHECKSUM_RTOL})")
+        routes = {k: card_res[k] for k in ("device_blocks", "haploid_blocks",
+                                           "mixed_blocks", "host_blocks")}
+        want_routes = {"device_blocks": n_blocks,
+                       "haploid_blocks": n_blocks if haploid else 0,
+                       "mixed_blocks": 0, "host_blocks": 0}
+        require(routes == want_routes,
+                f"{label}: routes {routes}, want {want_routes}")
+        print(f"[tools] {label}: dot_prod of {host['variants']} variants: "
+              f"checksum source {plain['checksum']}, .xsi host "
+              f"{host['checksum']}, .xsi --device {DEVICE} "
+              f"{card_res['checksum']} (relative {rel:.3g}; per variant "
+              f"max relative {dot_rel:.3g}, host walks {host_rel:.3g}); "
+              f"seconds "
+              f"{plain['seconds']:.3f} / {host['seconds']:.3f} / "
+              f"{card_res['seconds']:.3f}; routes {routes}; launches {ran}")
+        return {"variants": host["variants"], "checksum_source":
+                plain["checksum"], "checksum_host": host["checksum"],
+                "checksum_card": card_res["checksum"], "relative": rel,
+                "dot_max_relative": dot_rel, "host_max_relative": host_rel,
+                "launches": ran, **routes}
+
+    try:
+        src, xsi = path("in.bcf"), path("o.xsi")
+        timed("synth_bcf", synth_bcf, src, FILE_RECORDS, FILE_SAMPLES,
+              seed=SEED)
+        timed("compress_cuda", compress, src, xsi)
+
+        # random access: the sampled input records, then the Accessor
+        rng = np.random.default_rng(SEED)
+        order = rng.choice(FILE_RECORDS, TOOLS_ACCESSES, replace=False)
+        wanted = set(order.tolist())
+        inp = GtInput(src)
+        want = {i: r.gt for i, r in enumerate(inp) if i in wanted}
+        inp.close()
+        reader = BcfReader(xsi + "_var.bcf")
+        recs = list(reader)
+        reader.close()
+        acc = Accessor(xsi)
+        block_of = [acc.split_bm(acc.position_from_bm_entry(recs[i]))[0]
+                    for i in order]
+        blocks_hit = set(block_of)
+        backward = sum(int(b0 == b1 and i1 < i0) for i0, i1, b0, b1 in
+                       zip(order, order[1:], block_of, block_of[1:]))
+        t0 = time.perf_counter()
+        bad = sum(int(not np.array_equal(acc.get_genotypes(recs[i]),
+                                         want[i])) for i in order)
+        secs["accessor_random"] = time.perf_counter() - t0
+        require(bad == 0 and blocks_hit == {0, 1} and backward > 0,
+                f"Accessor: {bad} of {TOOLS_ACCESSES} records differ "
+                f"(blocks {sorted(blocks_hit)}, {backward} backward seeks)")
+        out["accessor"] = {"records": TOOLS_ACCESSES,
+                           "backward_seeks": backward,
+                           "ms_per_record": secs["accessor_random"] * 1e3
+                           / TOOLS_ACCESSES}
+
+        # Xcf: the variant file (Accessor route) and the input, in lockstep
+        t0 = time.perf_counter()
+        x = Xcf()
+        i_var, i_src = x.add_reader(xsi + "_var.bcf"), x.add_reader(src)
+        require(x[i_var].is_xsi and not x[i_src].is_xsi,
+                "Xcf: routes of the variant file and the input")
+        n = bad = 0
+        for (_, a), (_, b) in zip(x[i_var], x[i_src]):
+            n += 1
+            bad += int(not np.array_equal(a, b))
+        x.close()
+        secs["xcf_lockstep"] = time.perf_counter() - t0
+        require(n == FILE_RECORDS and bad == 0,
+                f"Xcf: {bad} of {n} records differ")
+
+        lt = {k: timed(f"loading_time_{k}", tools.loading_time, p)
+              for k, p in (("xsi", xsi), ("bcf", src))}
+        require(lt["xsi"]["records"] == lt["bcf"]["records"] == FILE_RECORDS
+                and lt["xsi"]["gt_entries"] == lt["bcf"]["gt_entries"],
+                f"loading_time: {lt}")
+        af = {k: timed(f"af_stats_{k}", tools.af_stats, p)
+              for k, p in (("xsi", xsi), ("bcf", src))}
+        require(af["xsi"]["stats"] == af["bcf"]["stats"],
+                "af_stats: the .xsi's counts differ from the BCF's")
+        lock = timed("lockstep", tools.lockstep_load, src, xsi)
+        require(lock["identical"] and lock["records"] == FILE_RECORDS,
+                f"lockstep: {lock}")
+        out["loading_time"] = {k: {"gt_per_second": v["gt_per_second"],
+                                   "seconds": v["seconds"]}
+                               for k, v in lt.items()}
+        out["af_stats"] = {k: {"logical_gb_s": v["logical_gb_s"],
+                               "seconds": v["seconds"]}
+                           for k, v in af.items()}
+        out["lockstep_seconds"] = lock["seconds"]
+        print(f"[tools] 1KGP3 file ({FILE_SAMPLES} samples x {FILE_RECORDS} "
+              f"records, 2 blocks): Accessor {TOOLS_ACCESSES} records in "
+              f"random order equal; Xcf lockstep equal; loading_time "
+              f"gt_per_second .xsi {lt['xsi']['gt_per_second']:.4g}, BCF "
+              f"{lt['bcf']['gt_per_second']:.4g}; af_stats equal, "
+              f"logical_gb_s .xsi {af['xsi']['logical_gb_s']}, BCF "
+              f"{af['bcf']['logical_gb_s']}; lockstep identical")
+        out["1KGP3"] = dots("1KGP3", src, xsi, 2, False)
+
+        hsrc, hxsi = path("males.bcf"), path("males.xsi")
+        timed("synth_haploid", write_haploid_bcf, hsrc, MALES, L, SEED + 7)
+        timed("compress_haploid_cuda", compress, hsrc, hxsi)
+        out["haploid"] = dots("chrX-males", hsrc, hxsi, 1, True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {
+        "accessor_ms_per_record": out["accessor"]["ms_per_record"],
+        "gt_per_second": {k: v["gt_per_second"]
+                          for k, v in out["loading_time"].items()},
+        "logical_gb_s": {k: v["logical_gb_s"]
+                         for k, v in out["af_stats"].items()},
+        "dot_prod_seconds": {k: v for k, v in secs.items()
+                             if "dot_prod" in k},
+        "dot_prod_launches": {k: out[k]["launches"]
+                              for k in ("1KGP3", "haploid")},
+        "seconds": secs}
+    print(f"[tools] {json.dumps(summary)} ({card})")
+    return {**out, "seconds": secs}
+
+
 #: The keys of root bench.py's JSON line (bench.py:407-427), which the
 #: port's headline benchmark keeps.
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "encode_gbps",
@@ -1427,6 +1681,7 @@ def main() -> int:
              "file-wide": phase("file-wide", file_phase, card, "file-wide",
                                 0.01, True, TOPMED_SAMPLES,
                                 WIDE_FILE_RECORDS)}
+    tools = phase("tools", tools_phase, card)
     bench = phase("bench", bench_phase, card)
 
     for b in blocks.values():
@@ -1440,7 +1695,7 @@ def main() -> int:
     print(json.dumps({"blocks": {k: {x: v for x, v in b.items()
                                      if x != "launches"}
                                  for k, b in blocks.items()},
-                      "files": files, "bench": bench,
+                      "files": files, "tools": tools, "bench": bench,
                       "phase_seconds": phases,
                       "card": card}))
     print(json.dumps({"kernels": list(rows.values())}))

@@ -5,6 +5,8 @@ Marked `cuda`; every test skips where torch sees no CUDA device (the
 decision is made inside the fixture, never at import).  On a machine with
 a card:  python -m pytest tests/test_torch_cuda.py -q
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -446,3 +448,101 @@ def test_wide_block_roundtrip_on_card(dev, missing):
         np.testing.assert_array_equal(host.fill_genotype_array_advance(2),
                                       gt[i])
     assert set(counts) == {"wah_compress_bits", "wah_expand_bits"}
+
+
+def _cli_compress(vcf, xsi, device, block):
+    from xsqueezeit_tpu_torch.cli import main
+    assert main(["-c", "-f", vcf, "-o", xsi, "--device", device,
+                 "--variant-block-length", str(block)]) == 0
+
+
+#: name -> (writer(path), block length, (device, mixed) blocks on the card)
+DOT_PROD_FILES = {
+    "random": (lambda p: _fixtures().random_vcf(p, n_samples=300,
+                                                n_records=700, seed=4), 256,
+               (3, 0)),
+    "haploid": (lambda p: _fixtures().micro_haploid(p), 3, (1, 0)),
+    "mixed_ploidy": (lambda p: _fixtures().micro_mixed_ploidy(p), 2,
+                     (0, 2)),
+    "missing_non_uniform_phasing_ploidy": (
+        lambda p: _fixtures().micro_missing_non_uniform_phasing_ploidy(p), 2,
+        (1, 1)),
+}
+
+
+def _fixtures():
+    """tests/fixtures.py, loaded by its path: on a machine where another
+    package named `tests` is importable, `from tests import fixtures` can
+    find that one."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "xsi_test_fixtures",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", sorted(DOT_PROD_FILES))
+def test_dot_prod_on_card(dev, tmp_path, name):
+    """dot_prod on the card (its default device) of a file the card
+    compressed: every variant's dot within relative 1e-6 of the host
+    walk's, which equals the plain VCF walk's to 1e-12; wah_expand_bits
+    and chain_decode launch once per device block (uniformly diploid or
+    haploid), wah_expand_varw_bits once per mixed block, and no encode
+    route launches."""
+    from xsqueezeit_tpu_torch.bench import tools
+    write, block, (n_dev, n_mixed) = DOT_PROD_FILES[name]
+    vcf = write(str(tmp_path / "in.vcf"))
+    xsi = str(tmp_path / "o.xsi")
+    _cli_compress(vcf, xsi, "cuda", block)
+    host = tools.dot_prod(xsi, device="host")
+    plain = tools.dot_prod(vcf, device="host")
+    assert host["variants"] == plain["variants"] > 0
+    np.testing.assert_allclose(host["dots"], plain["dots"], rtol=1e-12,
+                               atol=0)
+    n0 = {**pbwt_kernels.launches, **wah_kernels.launches}
+    got = tools.dot_prod(xsi)
+    n1 = {**pbwt_kernels.launches, **wah_kernels.launches}
+    ran = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+    assert got["variants"] == host["variants"] and got["device"] == "cuda"
+    np.testing.assert_allclose(got["dots"], host["dots"], rtol=1e-6, atol=0)
+    assert (got["device_blocks"], got["mixed_blocks"],
+            got["host_blocks"]) == (n_dev, n_mixed, 0)
+    want = {}
+    if n_dev:
+        want.update(wah_expand_bits=n_dev, chain_decode=n_dev)
+    if n_mixed:
+        want["wah_expand_varw_bits"] = n_mixed
+    assert ran == want
+
+
+def test_accessor_on_a_card_compressed_file(dev, tmp_path):
+    """The Accessor reads a file the card wrote (byte-equal to the host
+    codec's): genotypes in random order across blocks, allele counts."""
+    from xsqueezeit_tpu_torch.accessor import Accessor
+    from xsqueezeit_tpu_torch.io.bcf import BcfReader
+    from xsqueezeit_tpu_torch.io.unified import GtInput
+    fixtures = _fixtures()
+    vcf = fixtures.random_vcf(str(tmp_path / "in.vcf"), n_samples=300,
+                              n_records=400, seed=9, p_multi=0.15)
+    for device in ("cuda", "numpy"):
+        os.makedirs(tmp_path / device)
+        _cli_compress(vcf, str(tmp_path / device / "o.xsi"), device, 128)
+    xsi = str(tmp_path / "cuda" / "o.xsi")
+    with open(xsi, "rb") as a, open(tmp_path / "numpy" / "o.xsi", "rb") as b:
+        assert a.read() == b.read()
+    inp = GtInput(vcf)
+    orig = [r.gt for r in inp]
+    inp.close()
+    reader = BcfReader(xsi + "_var.bcf")
+    recs = list(reader)
+    reader.close()
+    acc = Accessor(xsi)
+    for i in [5, 260, 3, 399, 255, 0, 380, 127, 128]:
+        np.testing.assert_array_equal(acc.get_genotypes(recs[i]), orig[i])
+        alleles = (orig[i] >> 1) - 1
+        np.testing.assert_array_equal(
+            acc.get_allele_counts(recs[i]),
+            np.bincount(alleles[alleles >= 0], minlength=recs[i].n_allele))

@@ -4,7 +4,8 @@ in chip_smoke.py imports jax, jaxlib or any module of the JAX package
 
 First a static scan of every source file's imports; then a subprocess
 that refuses those packages at import time, imports every module of the
-port and runs its CLI (-c and -x on the CPU) on a small file."""
+port and runs its CLI (-c and -x on the CPU) and two of its tools
+(loading_time, dot_prod --device cpu) on a small file."""
 import ast
 import os
 import subprocess
@@ -99,6 +100,9 @@ REFUSING = textwrap.dedent("""
     assert main(["-c", "-f", vcf, "-o", xsi, "--device", "cpu",
                  "--variant-block-length", "40"]) == 0
     assert main(["-x", "-f", xsi, "-o", out, "--device", "cpu"]) == 0
+    from xsqueezeit_tpu_torch.bench.__main__ import main as bench_main
+    assert bench_main(["loading_time", xsi]) == 0
+    assert bench_main(["dot_prod", xsi, "--device", "cpu"]) == 0
     assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
     print("imported", len(names), "modules")
 """)

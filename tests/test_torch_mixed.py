@@ -311,12 +311,17 @@ def test_mixed_decode_block_records(name, monkeypatch):
 
 
 def test_mixed_bits_match_jax():
-    """decode_all_mixed equals the JAX package's decode_all_mixed bit for
-    bit (slot-duplicated haploid rows included)."""
+    """decode_all of a mixed-ploidy block (decode_bits' "mixed" route)
+    equals the JAX package's decode_all_mixed bit for bit (slot-duplicated
+    haploid rows included)."""
     records = _mixed_weird_records(np.random.default_rng(21), 56, 72)
     payload = _encode(GtBlockEncoder, records, 56, dict(mac_threshold=4))
-    got = decoder_torch.TorchBlockDecoder(
-        payload, 56, 112, np.uint16, device="cpu").decode_all_mixed()
+    dec = decoder_torch.TorchBlockDecoder(payload, 56, 112, np.uint16,
+                                          device="cpu")
+    bits, route = dec.decode_bits()
+    assert route == "mixed" and bits.device.type == "cpu"
+    got = dec.decode_all()
+    np.testing.assert_array_equal(got, bits.numpy())
     want = decoder_jax.DeviceBlockDecoder(
         payload, 56, 112, np.uint16).decode_all_mixed()
     np.testing.assert_array_equal(got, want)

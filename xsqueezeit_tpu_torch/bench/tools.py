@@ -1,0 +1,501 @@
+"""Benchmark & validation tools — counterparts of the reference's L8 apps.
+
+The port's copy of xsqueezeit_tpu/bench/tools.py:
+
+  loading_time    load every record's genotype array (BCF or XSI path)
+  dot_prod        GWAS-style dot product; on the card (device="cuda", or
+                  "cpu" tensors) whole blocks decode on the torch device
+                  and one product per block runs there; device="host"
+                  walks the compressed WAH/sparse forms ("compressive
+                  acceleration"), or a BCF/VCF's gt arrays
+  af_stats        recompute AC/AN for every record from allele counts only
+  lockstep_load   walk two files (any mix of BCF/XSI) and assert identical
+                  genotypes record by record -- the scalable bit-exactness
+                  checker (reference: lockstep_loader/gt_lockstep_loader.hpp)
+  hrc_scale       HRC-width file round trip with a streamed lockstep
+  warmup          build the kernels, then one encode and decode per shape
+
+Not copied: the native accessor (`loading_time --native`, the native
+af_stats walk) and the multi-process scaling workers.  A haploid line
+stores sample indices and is n_samples bits wide: dot_prod maps its
+carriers to samples one to one (the JAX package's XSI walk halves them),
+and the device product takes y itself on a uniformly haploid block.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from ..accessor import Accessor
+from ..io.bcf import BcfReader
+from ..io.unified import GtInput
+from ..ops import pbwt_np, wah_np
+
+
+def _is_xsi(path: str) -> bool:
+    if path.endswith(".xsi"):
+        return True
+    try:
+        with open(path, "rb") as f:
+            head = f.read(8)
+            return len(head) == 8 and head[4:8] == bytes.fromhex("6717edfe")
+    except OSError:
+        return False
+
+
+def iter_genotypes(path: str):
+    """Yields (n_alleles, gt int32 array) for a BCF/VCF or XSI file."""
+    if _is_xsi(path):
+        acc = Accessor(path)
+        reader = BcfReader(acc.variant_filename())
+        for rec in reader:
+            yield rec.n_allele, acc.get_genotypes(rec)
+        reader.close()
+    else:
+        inp = GtInput(path)
+        for rec in inp:
+            yield rec.n_alleles, rec.gt
+        inp.close()
+
+
+def loading_time(path: str) -> dict:
+    """Load every record's gt array; returns timing stats."""
+    t0 = time.perf_counter()
+    n_records = 0
+    n_gt = 0
+    for n_alleles, gt in iter_genotypes(path):
+        n_records += 1
+        if gt is not None:
+            n_gt += gt.shape[0]
+    elapsed = time.perf_counter() - t0
+    return {"records": n_records, "gt_entries": n_gt, "seconds": elapsed,
+            "gt_per_second": n_gt / elapsed if elapsed else 0.0}
+
+
+def _carriers(gt: np.ndarray) -> np.ndarray:
+    """Slots holding the first ALT allele of an htslib gt array."""
+    return np.flatnonzero(((gt >> 1) - 1) == 1)
+
+
+def _xsi_line_sum(acc: Accessor, bm: int, n_alleles: int,
+                  y: np.ndarray) -> float:
+    """Sum of y over the samples carrying the first ALT of one record,
+    off its compressed forms: sparse lines sum y at the stored indices; WAH
+    lines decode their words and map the set bits through the arrangement.
+    A diploid line's slot h belongs to sample h >> 1, a haploid line's
+    slot s to sample s."""
+    ia = acc.get_internal_access(bm, n_alleles)
+    shift = 0 if ia.haploid else 1
+    if ia.sparse[0]:
+        stream = ia.pointers[0]
+        msb = 1 << (stream.dtype.itemsize * 8 - 1)
+        head = int(stream[0])
+        cnt = head & (msb - 1)
+        if head & msb:
+            # negated sparse: full decode fallback (ref parity:
+            # dot_prod/main.cpp treats negated lines the same way)
+            carriers = _carriers(acc.fill_genotype_array(bm, n_alleles))
+        else:
+            carriers = stream[1:1 + cnt].astype(np.int64)
+    else:
+        if ia.haploid:
+            width = acc.n_samples
+            a = pbwt_np.haploid_rearrangement_from_diploid(ia.a)
+        else:
+            width, a = acc.n_haps, ia.a
+        bits, _ = wah_np.wah_decode(ia.pointers[0], width)
+        carriers = a[np.flatnonzero(bits[:width])]
+    return y[carriers >> shift].sum()
+
+
+#: dot_prod's devices: the torch devices a whole block decodes on, and
+#: the host walk over the compressed forms.
+DOT_PROD_DEVICES = ("cuda", "cpu", "host")
+
+
+def dot_prod(path: str, seed: int = 42, device: str = "cuda") -> dict:
+    """Dot product of each bi-allelic variant's dosage with a random
+    phenotype vector: `dots` in record order, float64, and their sum
+    `checksum`.  With `device` "cuda" or "cpu", whole blocks of an XSI file
+    decode on that torch device and the products run there
+    (_dot_prod_device); "host" walks the records on the host, over the
+    compressed forms of an XSI file (_xsi_line_sum) or the gt arrays of a
+    BCF/VCF, which only "host" reads."""
+    if device not in DOT_PROD_DEVICES:
+        raise ValueError(f"dot_prod takes a device of {DOT_PROD_DEVICES}, "
+                         f"not {device!r}")
+    xsi = _is_xsi(path)
+    if device != "host":
+        if not xsi:
+            raise ValueError(f"dot_prod --device {device} reads .xsi input; "
+                             "a BCF or VCF takes --device host")
+        return _dot_prod_device(path, seed, device)
+    t0 = time.perf_counter()
+    checksum = 0.0
+    dots = []
+    if xsi:
+        acc = Accessor(path)
+        n_samples = len(acc.get_sample_list())
+        rng = np.random.default_rng(seed)
+        y = rng.random(n_samples)
+        reader = BcfReader(acc.variant_filename())
+        for rec in reader:
+            if rec.n_allele != 2:
+                continue
+            dots.append(_xsi_line_sum(acc, acc.position_from_bm_entry(rec),
+                                      rec.n_allele, y))
+            checksum += dots[-1]
+        reader.close()
+    else:
+        inp = GtInput(path)
+        n_samples = len(inp.samples)
+        rng = np.random.default_rng(seed)
+        y = rng.random(n_samples)
+        for rec in inp:
+            if rec.n_alleles != 2 or rec.gt is None:
+                continue
+            dots.append(y[_carriers(rec.gt) // rec.ploidy].sum())
+            checksum += dots[-1]
+        inp.close()
+    return {"variants": len(dots), "checksum": round(float(checksum), 6),
+            "seconds": time.perf_counter() - t0,
+            "dots": np.asarray(dots, np.float64)}
+
+
+def _dot_prod_device(path: str, seed: int, device: str) -> dict:
+    """dot_prod of an XSI file with whole blocks decoded on a torch device.
+
+    Records are grouped by block.  A block TorchBlockDecoder.decode_bits
+    takes decodes on the device (on "cuda": wah_expand_bits, then
+    chain_decode, or the blocked decode above 65,535 haplotypes; a
+    mixed-ploidy block through wah_expand_varw_bits and the mixed scan);
+    its bi-allelic records' lines are gathered there and multiplied in
+    float32 with the phenotype weights, one product per block: y[h >> 1] on
+    a diploid block, y on a uniformly haploid one (n_samples wide), and on
+    a mixed block y at the even slots for its haploid lines (they come back
+    slot-duplicated).  Only the per-variant dots leave the device.  Other
+    blocks (sort != select) take the per-record host walk.  Checksum-
+    compatible with the host walk."""
+    import torch
+
+    from ..codec.decoder_torch import TorchBlockDecoder
+    from ..utils.devprobe import torch_device
+
+    dev = torch_device(device)
+    t0 = time.perf_counter()
+    acc = Accessor(path)
+    n_samples = acc.n_samples
+    rng = np.random.default_rng(seed)
+    y = rng.random(n_samples)
+    y32 = torch.from_numpy(y.astype(np.float32)).to(dev)
+    y_dip = y32.repeat_interleave(2)                    # y[h >> 1]
+    y_even = torch.zeros_like(y_dip)
+    y_even[0::2] = y32                                  # haploid rows
+    w_mixed = torch.stack([y_dip, y_even], dim=1)       # [H, 2]
+
+    # per block: each record's n_allele, and each bi-allelic record's
+    # index among the file's variants
+    reader = BcfReader(acc.variant_filename())
+    blocks: dict[int, tuple[list[int], list[int]]] = {}
+    n = 0
+    for rec in reader:
+        blk = acc.split_bm(acc.position_from_bm_entry(rec))[0]
+        n_alleles, variants = blocks.setdefault(blk, ([], []))
+        n_alleles.append(rec.n_allele)
+        if rec.n_allele == 2:
+            variants.append(n)
+            n += 1
+    reader.close()
+
+    dots = np.zeros(n, np.float64)
+    checksum = 0.0
+    # haploid_blocks: the device blocks that are uniformly haploid
+    routes = {"device_blocks": 0, "haploid_blocks": 0, "mixed_blocks": 0,
+              "host_blocks": 0}
+    for blk, (n_alleles, variants) in blocks.items():
+        if not variants:
+            continue
+        # binary line of each bi-allelic record (one line each)
+        firsts = np.cumsum([0] + [max(na - 1, 0) for na in n_alleles])
+        keep = [int(f) for f, na in zip(firsts, n_alleles) if na == 2]
+        dec = TorchBlockDecoder(acc.xsi.gt_block_payload(blk), n_samples,
+                                acc.n_haps, acc.xsi.aet_dtype, device=dev)
+        m = dec.meta
+        if not (dec.eligible or dec.mixed_device_ok):
+            routes["host_blocks"] += 1
+            for v, first in zip(variants, keep):
+                m.seek(first)
+                gt = m.fill_genotype_array_advance(2)
+                shift = 0 if m.haploid_line[first] else 1
+                dots[v] = y[_carriers(gt) >> shift].sum()
+                checksum += float(dots[v])
+            continue
+        vals, route = dec.decode_bits()
+        rows = vals.index_select(
+            0, torch.as_tensor(keep, dtype=torch.int64, device=dev)
+        ).to(torch.float32)
+        if route == "mixed":
+            routes["mixed_blocks"] += 1
+            both = rows @ w_mixed
+            hap = torch.from_numpy(
+                m.haploid_line[keep].astype(bool)).to(dev)
+            block_dots = torch.where(hap, both[:, 1], both[:, 0])
+        else:
+            routes["device_blocks"] += 1
+            routes["haploid_blocks"] += int(dec.uniform_haploid)
+            block_dots = rows @ (y32 if dec.uniform_haploid else y_dip)
+        got = block_dots.cpu().numpy().astype(np.float64)
+        dots[variants] = got
+        checksum += float(got.sum())
+    return {"variants": n, "checksum": round(float(checksum), 6),
+            "seconds": time.perf_counter() - t0, "device": str(dev),
+            "dots": dots, **routes}
+
+
+def af_stats(path: str, annotate_out: str | None = None) -> dict:
+    """Recompute AC/AN per record using allele counts only (no gt arrays).
+
+    With `annotate_out`, also writes the variant BCF with AC/AN patched
+    into INFO (reference: af_stats/ Annotator writes an annotated variant
+    file)."""
+    t0 = time.perf_counter()
+    out = []
+    n_haps = 0
+    if _is_xsi(path):
+        from ..io.bcf import BcfWriter
+        from ..io.sites import encode_shared_from_vcf_cols, render_vcf_cols
+
+        acc = Accessor(path)
+        n_haps = acc.n_haps
+        reader = BcfReader(acc.variant_filename())
+        writer = None
+        hdr = reader.header
+        if annotate_out:
+            hdr.ensure_string(
+                "AC", '##INFO=<ID=AC,Number=A,Type=Integer,Description='
+                      '"Allele count in genotypes">')
+            hdr.ensure_string(
+                "AN", '##INFO=<ID=AN,Number=1,Type=Integer,Description='
+                      '"Total number of alleles in called genotypes">')
+            writer = BcfWriter(annotate_out, hdr)
+        recs = list(reader)
+        nas = np.fromiter((r.n_allele for r in recs), np.int32, len(recs))
+        bms = np.fromiter((acc.position_from_bm_entry(r) for r in recs),
+                          np.int32, len(recs))
+        flat = acc.fill_allele_counts_range(bms, nas)
+        offs = np.zeros(len(recs) + 1, np.int64)
+        np.cumsum(nas, out=offs[1:])
+        for i, rec in enumerate(recs):
+            counts = flat[offs[i]:offs[i + 1]]
+            an = int(counts.sum())
+            acs = [int(c) for c in counts[1:]]
+            out.append((an, acs))
+            if writer is not None:
+                cols = render_vcf_cols(hdr, rec)
+                info = [kv for kv in cols[7].split(";")
+                        if kv and not kv.startswith(("AC=", "AN="))
+                        and kv != "."]
+                info.append("AC=" + ",".join(str(c) for c in acs))
+                info.append(f"AN={an}")
+                cols[7] = ";".join(info)
+                shared = encode_shared_from_vcf_cols(
+                    hdr, cols, rec.n_fmt, rec.n_sample)
+                writer.write_raw(shared, rec.indiv)
+        if writer is not None:
+            writer.close()
+        reader.close()
+    else:
+        for n_alleles, gt in iter_genotypes(path):
+            alleles = (gt >> 1) - 1
+            valid = (alleles >= 0) & (gt != np.int32(-0x7FFFFFFF))
+            counts = np.bincount(alleles[valid], minlength=n_alleles)
+            out.append((int(valid.sum()), [int(c) for c in counts[1:n_alleles]]))
+    seconds = time.perf_counter() - t0
+    # throughput over the logical htslib gt bytes the counts stand in for
+    # (the reference's "compressive genomics" pitch: AC/AN without gt
+    # materialization, af_stats/main.cpp)
+    logical = len(out) * n_haps * 4
+    return {"records": len(out), "stats": out, "seconds": seconds,
+            "records_per_s": round(len(out) / seconds, 1) if seconds else 0,
+            "logical_gb_s": (round(logical / seconds / 1e9, 3)
+                             if seconds and logical else None)}
+
+
+def lockstep_load(path_a: str, path_b: str) -> dict:
+    """Walk two files in lockstep asserting identical genotypes."""
+    t0 = time.perf_counter()
+    n_records = 0
+    n_entries = 0
+    it_a = iter_genotypes(path_a)
+    it_b = iter_genotypes(path_b)
+    import itertools
+    for (na, ga), (nb, gb) in itertools.zip_longest(
+            it_a, it_b, fillvalue=(None, None)):
+        if na is None or nb is None:
+            raise AssertionError(
+                f"files differ in record count at record {n_records}")
+        if na != nb:
+            raise AssertionError(
+                f"record {n_records}: n_allele {na} != {nb}")
+        if (ga is None) != (gb is None):
+            raise AssertionError(f"record {n_records}: GT presence differs")
+        if ga is not None and not np.array_equal(ga, gb):
+            raise AssertionError(f"record {n_records}: genotypes differ")
+        n_records += 1
+        n_entries += 0 if ga is None else ga.shape[0]
+    return {"records": n_records, "gt_entries": n_entries,
+            "identical": True, "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# HRC-scale file-level validation (reference README.md:404-408 claims a
+# 17.4B-entry chrX bit-exact round trip at 64976 haplotypes)
+# ---------------------------------------------------------------------------
+def hrc_scale(n_records: int = 16384, n_samples: int = 32488,
+              block_length: int = 4096, workdir: str | None = None,
+              device: str = "cuda", keep: bool = False) -> dict:
+    """Synthesize an HRC-width (2*n_samples = 64976 haplotypes) multi-block
+    BCF, compress it and extract it back to BCF on `device` ("cuda",
+    "cpu" or "numpy"), and stream a chunked lockstep compare of every
+    genotype (bounded memory: one record in flight per side).  Defaults
+    give ~1.06e9 GT entries -- within 20x of the reference's 17.4B chrX
+    claim -- with peak RSS reported."""
+    import os
+    import resource
+    import tempfile
+
+    from ..utils.devprobe import torch_device
+    torch_device(device)           # "cuda" without a card fails here
+
+    own = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="xsi_hrc_")
+    os.makedirs(workdir, exist_ok=True)
+    inp = os.path.join(workdir, "hrc.bcf")
+    xsi = os.path.join(workdir, "hrc.xsi")
+    out = os.path.join(workdir, "hrc.out.bcf")
+
+    from .synth import synth_bcf
+    t0 = time.perf_counter()
+    synth_bcf(inp, n_records, n_samples)
+    t_synth = time.perf_counter() - t0
+
+    from ..codec.compressor import CompressorOptions, compress_file
+    t0 = time.perf_counter()
+    stats = compress_file(inp, xsi, CompressorOptions(
+        block_length=block_length, device=device))
+    t_comp = time.perf_counter() - t0
+
+    from ..codec.decompressor import Decompressor, DecompressorOptions
+    t0 = time.perf_counter()
+    Decompressor(xsi, DecompressorOptions(output_type="b",
+                                          device=device)).decompress(out)
+    t_ext = time.perf_counter() - t0
+
+    lock = lockstep_load(inp, out)
+    if lock["records"] != n_records:
+        raise AssertionError(f"{lock['records']} records read back, "
+                             f"{n_records} written")
+
+    peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    result = {
+        "n_records": n_records,
+        "n_haplotypes": n_samples * 2,
+        "device": device,
+        "gt_entries": lock["gt_entries"],
+        "identical": True,
+        "input_bcf_mb": round(os.path.getsize(inp) / 1e6, 1),
+        "xsi_mb": round(os.path.getsize(xsi) / 1e6, 1),
+        "logical_gb": round(n_records * n_samples * 2 * 4 / 1e9, 2),
+        "synth_s": round(t_synth, 1),
+        "compress_s": round(t_comp, 1),
+        "extract_s": round(t_ext, 1),
+        "lockstep_s": round(lock["seconds"], 1),
+        "n_blocks": -(-n_records // block_length),
+        "entries": stats["entries"],
+        "peak_rss_gb": round(peak_rss_gb, 2),
+    }
+    if own and not keep:
+        import shutil
+        shutil.rmtree(workdir, ignore_errors=True)
+    return result
+
+
+def warmup(n_samples: int, block_length: int = 8192,
+           mac_threshold: int | None = None,
+           fracs: tuple = (1.0, 0.7, 0.45, 0.2),
+           device: str = "cuda") -> dict:
+    """Build the kernels, then encode and decode one synthetic block per
+    `frac` at a production geometry.
+
+    On "cuda" the kernels compile with nvcc first (ops/_build.build(); the
+    JAX package precompiled XLA executables here); every later call of the
+    process loads the built library.  Each `frac` makes a block whose first
+    frac of the lines are a balanced common row (WAH) and the rest a
+    single-carrier rare row (sparse), encodes it with TorchBlockEncoder and
+    decodes the payload back with TorchBlockDecoder on `device`, checking
+    the bits.  Reports the build seconds (None on "cpu") and each shape's
+    encode and decode seconds."""
+    import torch
+
+    from ..codec.decoder_torch import TorchBlockDecoder
+    from ..codec.encoder_torch import TorchBlockEncoder
+    from ..ops import _build
+    from ..utils.devprobe import torch_device
+
+    dev = torch_device(device)
+    if dev is None:
+        raise ValueError("warmup takes cuda or cpu")
+    build_s = None
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        _build.build()
+        _build.library()
+        build_s = round(time.perf_counter() - t0, 2)
+
+    H = 2 * n_samples
+    thr = (max(int(H * 0.001), 1) if mac_threshold is None
+           else int(mac_threshold))
+    aet = np.uint16 if H <= 0xFFFF else np.uint32
+
+    # Two template records: a balanced common row (mac = H/2 -> WAH) and a
+    # single-carrier rare row (-> sparse).
+    common = np.full(H, 2, np.int32)
+    common[0::2] = 4
+    rare = np.full(H, 2, np.int32)
+    rare[0] = 4
+    want_common = (np.arange(H) % 2 == 0).astype(np.uint8)
+    want_rare = (np.arange(H) == 0).astype(np.uint8)
+
+    shapes = []
+    for frac in fracs:
+        n_wah = max(min(int(block_length * frac), block_length), 1)
+        enc = TorchBlockEncoder(n_samples, block_length, thr,
+                                default_phasing=0, aet_dtype=aet,
+                                device=dev)
+        for i in range(block_length):
+            enc.encode_record(common if i < n_wah else rare, 2)
+        t0 = time.perf_counter()
+        payload = enc.serialize()
+        t_enc = time.perf_counter() - t0
+
+        dec = TorchBlockDecoder(payload, n_samples, H, aet, device=dev)
+        t0 = time.perf_counter()
+        out = dec.decode_all()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        if not (np.array_equal(out[:n_wah], np.broadcast_to(
+                want_common, (n_wah, H)))
+                and np.array_equal(out[n_wah:], np.broadcast_to(
+                    want_rare, (block_length - n_wah, H)))):
+            raise AssertionError(f"warmup frac={frac}: decoded bits differ "
+                                 "from the encoded block")
+        shapes.append({"frac": frac, "n_wah": n_wah,
+                       "encode_s": round(t_enc, 2),
+                       "decode_s": round(t_dec, 2)})
+        print(f"warmup frac={frac}: {n_wah} WAH lines, "
+              f"encode {t_enc:.2f}s decode {t_dec:.2f}s", flush=True)
+    return {"n_samples": n_samples, "n_haps": H, "block_length": block_length,
+            "mac_threshold": thr, "device": str(dev), "build_s": build_s,
+            "shapes": shapes}

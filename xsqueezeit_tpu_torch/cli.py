@@ -9,7 +9,10 @@ Port of xsqueezeit_tpu/cli.py (compress, extract, info):
         [-O b|u|z|v|x] [-r REGIONS] [-R FILE] [-t TARGETS] [-s SAMPLES]
         [-S FILE] [-H] [-p] [--device cuda|cpu|numpy]
     python -m xsqueezeit_tpu_torch.cli -i -f out.xsi
+    python -m xsqueezeit_tpu_torch.cli --count-xcf -f in.{vcf,bcf}
 
+--profile DIR (with any mode) writes a torch.profiler Chrome trace of the
+run into DIR, with the card's activity on --device cuda.
 --device cuda (the default) runs the CUDA kernels and fails when there is
 no card; cpu runs their plain versions on CPU tensors; numpy is the
 host codec (the port's copy of the JAX package's NumPy codec).  Output
@@ -77,6 +80,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda: CUDA kernels (fails without a card); cpu: "
                         "their plain versions on CPU tensors; numpy: the "
                         "host codec")
+    p.add_argument("--profile", default="",
+                   help="Write a torch.profiler trace of the run to this "
+                        "directory (Chrome trace JSON)")
+    p.add_argument("--count-xcf", action="store_true",
+                   help="Count the variant entries of a VCF/BCF and print "
+                        "the elapsed time (reference debug utility)")
     return p
 
 
@@ -90,7 +99,8 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 1
     try:
-        return _dispatch(args)
+        with _profiler(args):
+            return _dispatch(args)
     except BrokenPipeError:
         # downstream closed the pipe: exit quietly like htslib tools
         try:
@@ -109,6 +119,27 @@ def main(argv: list[str] | None = None) -> int:
         msg = str(exc) or exc.__class__.__name__
         print(f"xsqueezeit: error: {msg}", file=sys.stderr)
         return 1
+
+
+def _profiler(args):
+    """torch.profiler over the run when --profile DIR is given (the
+    counterpart of the JAX package's jax.profiler.trace): host activity,
+    plus the card's on --device cuda; the trace is written into DIR when
+    the run ends."""
+    import contextlib
+    if not args.profile:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+    activities = [ProfilerActivity.CPU]
+    if args.device == "cuda" and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(args.profile))
 
 
 def _read_regions_file(path: str) -> list[str]:
@@ -133,6 +164,18 @@ def _dispatch(args) -> int:
         with open(args.file, "rb") as f:
             header = XsiHeader.unpack(f.read(256))
         print(header.info_string(), file=sys.stderr)
+        return 0
+
+    if args.count_xcf:
+        # reference parity: --count-xcf (xsqueezeit.cpp:58-64 ->
+        # count_entries, xcf.cpp:318-340)
+        import time
+        from .io.unified import count_entries
+        t0 = time.perf_counter()
+        count = count_entries(args.file)
+        elapsed = time.perf_counter() - t0
+        print(f"INFO : Number of entries is : {count}", file=sys.stderr)
+        print(f"Time taken : {elapsed:.6f} s", file=sys.stderr)
         return 0
 
     if args.compress:

@@ -226,14 +226,6 @@ class TorchBlockDecoder:
              for x in (stream, sorts, rank, is_wah, neg, car_line, car_idx)]
         return (*t, H, W, L)
 
-    def decode_all(self) -> np.ndarray:
-        """Decode the whole block; returns carrier bits uint8[L, H] in
-        natural haplotype order (cached; record_alleles folds records)."""
-        *args, H, W, L = self.device_inputs()
-        vals = _decode_block_vals(*args, H, W)
-        self._vals = vals.cpu().numpy()
-        self._neg = args[4].cpu().numpy().astype(bool)
-        return self._vals
 
     @property
     def mixed_device_ok(self) -> bool:
@@ -267,14 +259,35 @@ class TorchBlockDecoder:
         return (stream, group_off, np.ones(n_wah, bool), hap_w, rank,
                 is_wah, neg, car_line, car_idx, H, max(w_dip, w_hap), L)
 
-    def decode_all_mixed(self) -> np.ndarray:
-        """decode_all of a mixed-ploidy block; haploid lines come back
-        slot-duplicated in natural order (fold the even slots)."""
-        *arrays, H, w_max, _ = self.host_inputs_mixed()
-        t = [torch.from_numpy(x).to(self.device) for x in arrays]
-        self._vals = _decode_block_mixed(*t, H, w_max).cpu().numpy()
-        self._neg = arrays[6].astype(bool)
+    def decode_bits(self) -> tuple[torch.Tensor, str]:
+        """Decode the whole block on the decoder's device; returns its
+        carrier bits, a uint8 tensor [L, H] in natural haplotype order left
+        on the device, and the route taken: "device" for an eligible block
+        (H = n_eff), "mixed" for a mixed-ploidy one (H = n_haps, haploid
+        lines slot-duplicated: fold the even slots).  Any other block
+        decodes record by record on the host (GtBlockDecoder)."""
+        if self.eligible:
+            *arrays, H, W, _L, _n_wah = self.host_inputs()
+            neg = arrays[4]
+            t = [torch.from_numpy(x).to(self.device) for x in arrays]
+            vals, route = _decode_block_vals(*t, H, W), "device"
+        elif self.mixed_device_ok:
+            *arrays, H, w_max, _L = self.host_inputs_mixed()
+            neg = arrays[6]
+            t = [torch.from_numpy(x).to(self.device) for x in arrays]
+            vals, route = _decode_block_mixed(*t, H, w_max), "mixed"
+        else:
+            raise ValueError("the block takes no device route: decode it "
+                             "record by record on the host")
+        self._neg = neg.astype(bool)
+        return vals, route
+
+    def decode_all(self) -> np.ndarray:
+        """decode_bits copied to the host (cached; record_alleles folds
+        records)."""
+        self._vals = self.decode_bits()[0].cpu().numpy()
         return self._vals
+
 
     def record_alleles(self, first_line: int, n_alleles: int) -> np.ndarray:
         """Fold a record's binary lines into allele codes [H].
@@ -309,7 +322,7 @@ def _mixed_records(dev: TorchBlockDecoder, n_alleles_per_record: list[int],
     GtBlockDecoder.fill_genotype_array_advance does."""
     m = dev.meta
     if dev._vals is None:
-        dev.decode_all_mixed()
+        dev.decode_all()
     H, N = dev.n_haps, dev.n_samples
     idx = np.arange(H)
     phase = ((idx & 1) & m.default_phasing).astype(np.int32)

@@ -191,12 +191,17 @@ class Decompressor:
             self._decoders[block_id] = dec
         return dec
 
+    def _seek_bm(self, bm: int) -> GtBlockDecoder:
+        """The block decoder of FORMAT/BM value `bm`, at its record."""
+        dec = self._decoder_for(_block_of(bm))
+        dec.seek(bm & _OFFSET_MASK)
+        return dec
+
     def decode_bm(self, bm: int, n_alleles: int) -> np.ndarray:
-        block_id = (bm & 0xFFFFFFFF) >> BM_BLOCK_BITS
-        offset = bm & ((1 << BM_BLOCK_BITS) - 1)
-        dec = self._decoder_for(block_id)
-        dec.seek(offset)
-        return dec.fill_genotype_array_advance(n_alleles)
+        return self._seek_bm(bm).fill_genotype_array_advance(n_alleles)
+
+    def allele_counts_bm(self, bm: int, n_alleles: int) -> np.ndarray:
+        return self._seek_bm(bm).fill_allele_counts_advance(n_alleles)
 
     # ------------------------------------------------------------ records
     def _region_chunks(self, reader: BcfReader,

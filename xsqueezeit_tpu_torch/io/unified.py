@@ -2,9 +2,10 @@
 
 Yields records carrying both the raw BCF shared block (site columns) and the
 htslib-style genotype array, so downstream stages are format-agnostic.
-The port's copy of xsqueezeit_tpu/io/unified.py: the Python readers only
-(the JAX package's native batch reader, its record skipping and counting
-serve its native and multi-process paths, which the port does not have).
+The port's copy of xsqueezeit_tpu/io/unified.py: the Python readers and
+the record count (the JAX package's native batch reader, its record
+skipping and its block-offset scan serve its native and multi-process
+paths, which the port does not have).
 """
 from __future__ import annotations
 
@@ -108,3 +109,37 @@ def sniff_max_ploidy_first_entry(path: str) -> int:
         return rec.ploidy if rec.gt is not None else 0
     inp.close()
     return 0
+
+
+def count_entries(path: str) -> int:
+    """Number of variant records in a VCF/BCF (reference: count_entries,
+    xcf.cpp:318-340).  BCF records are skipped without decoding genotypes."""
+    fmt = sniff_format(path)
+    if fmt == "bcf":
+        return _count_entries_bcf_py(path)
+    from .vcf import VcfReader
+    n = 0
+    v = VcfReader(path)
+    for _ in v:
+        n += 1
+    v.close()
+    return n
+
+
+def _count_entries_bcf_py(path: str) -> int:
+    import struct
+    from .bgzf import BgzfReader
+    r = BgzfReader(path)
+    r.read(5)
+    (l_text,) = struct.unpack("<I", r.read(4))
+    r.read(l_text)
+    n = 0
+    while True:
+        head = r.read(8)
+        if len(head) < 8:
+            break
+        l_shared, l_indiv = struct.unpack("<II", head)
+        r.read(l_shared + l_indiv)
+        n += 1
+    r.close()
+    return n
