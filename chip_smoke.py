@@ -62,7 +62,18 @@ exactly:
    on the card (whole blocks decoded by wah_expand_bits and chain_decode,
    one product per block, held per variant against the host walk), also
    on a uniformly haploid chrX file;
-8. the port's headline benchmark, `python -m
+8. scale-out (scale_phase) on the file phase's 1KGP3-width BCF, its
+   single-process `-c --device cuda` and `-x` outputs the reference:
+   compress_file and the extract in this process over the device pool
+   [cuda:0, cuda:0] (two worker threads sharing the card), on [cuda:0]
+   alone and over the pool of two devices [cuda:0, cpu] (.xsi byte-equal,
+   records equal, launches counted); two ranks of `cli -c --distributed`
+   (gloo on localhost, both on the card: .xsi byte-equal, _var.bcf
+   records equal) and of `cli -x -O b --distributed` (records equal),
+   each rank's perf and kernel launches read from its -v line; and
+   `python -m xsqueezeit_tpu_torch.bench scaling --procs 1,2` at a small
+   size, its line printed;
+9. the port's headline benchmark, `python -m
    xsqueezeit_tpu_torch.bench.headline` in its own process (bench.py's
    workload and keys, its own bit-exact checks): exit 0 and its JSON
    line required, the line printed.
@@ -76,6 +87,7 @@ import contextlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1295,11 +1307,13 @@ def mixed_block_phase(card: str) -> dict:
 
 def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
                recompress: bool = False, samples: int = FILE_SAMPLES,
-               records: int = FILE_RECORDS) -> dict:
+               records: int = FILE_RECORDS, keep: str | None = None) -> dict:
     """The CLI on files: -c on the card and on the host codec give the same
     .xsi bytes; -x on the card gives the input's genotypes back; with
     `recompress`, -x -O x re-encodes the .xsi on the card and on the host
-    codec to the same bytes.  missing_frac of the entries are missing."""
+    codec to the same bytes.  missing_frac of the entries are missing.
+    `keep`: a directory the input, the card's .xsi (with its variant file
+    and index) and its -x output are moved into, for the scale phase."""
     work = os.path.join(REPO, ".bench_work", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1363,6 +1377,12 @@ def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
                     f"({len(outs[DEVICE])} B) differs from --device numpy's "
                     f"({len(outs['numpy'])} B)")
             same_as_source = outs[DEVICE] == xsi_a
+        if keep is not None:
+            shutil.rmtree(keep, ignore_errors=True)
+            os.makedirs(keep)
+            for f in ("in.bcf", "cuda.xsi", "cuda.xsi_var.bcf",
+                      "cuda.xsi_var.bcf.csi", "out.bcf"):
+                shutil.move(path(f), os.path.join(keep, f))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     recomp = ("" if not recompress else
@@ -1621,6 +1641,260 @@ def tools_phase(card: str) -> dict:
     return {**out, "seconds": secs}
 
 
+#: The scale phase: the file phase's outputs are kept here.
+SCALE_WORK = os.path.join(REPO, ".bench_work", "chip_smoke_scale")
+#: Ranks of the multi-process runs, all on the one card.
+SCALE_RANKS = 2
+#: The scaling tool's size: 1KGP3 width, four 1024-record blocks.
+SCALING_ARGS = ("--records", "4096", "--samples", str(FILE_SAMPLES),
+                "--block-length", "1024", "--procs", "1,2")
+#: Seconds a rank, or the scaling tool, may take before it is killed.
+RANK_TIMEOUT, SCALING_TIMEOUT = 600, 900
+ENCODE_ROUTES = ("chain_encode", "wah_compress_bits")
+DECODE_ROUTES = ("wah_expand_bits", "chain_decode")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(args: list[str], label: str) -> tuple[float, list[dict]]:
+    """SCALE_RANKS processes of `cli ARGS --distributed` side by side (gloo
+    on localhost, every rank on the card), each with -v; returns the wall
+    seconds and each rank's perf line.  A rank that fails or outlives
+    RANK_TIMEOUT fails the phase; every rank is ended before returning."""
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "xsqueezeit_tpu_torch.cli", *args, "-v",
+         "--device", DEVICE, "--distributed", f"127.0.0.1:{port}",
+         "--dist-nproc", str(SCALE_RANKS), "--dist-procid", str(i)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(SCALE_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"chip_smoke: FAIL: {label}: a rank ran "
+                                 f"over {RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    perfs = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"{label}: rank {i} exited "
+                                   f"{p.returncode}:\n{out[-3000:]}")
+        tag = f"xsqueezeit: rank {i}/{SCALE_RANKS} perf "
+        lines = [l for l in out.splitlines() if l.startswith(tag)]
+        require(len(lines) == 1, f"{label}: rank {i} printed no perf line")
+        perfs.append(json.loads(lines[0][len(tag):]))
+    return wall, perfs
+
+
+def rank_launches(label: str, perfs: list[dict], routes) -> list[dict]:
+    """Each rank's kernel launches; every one of `routes` must have run in
+    every rank."""
+    got = [p["launches"] for p in perfs]
+    for i, ran in enumerate(got):
+        missing = [r for r in routes if not ran.get(r)]
+        require(not missing, f"{label}: rank {i} launched {ran}, never "
+                             f"{missing}")
+    return got
+
+
+def same_records(a: str, b: str, label: str, genotypes: bool) -> int:
+    """Record-by-record equality of two BCFs: genotypes and allele counts
+    (an extract), or the raw shared and indiv blocks (a variant file)."""
+    from xsqueezeit_tpu_torch.io.bcf import BcfReader
+    if genotypes:
+        ra, rb = GtInput(a), GtInput(b)
+        key = (lambda r: (r.n_alleles, r.gt.tobytes()))
+    else:
+        ra, rb = BcfReader(a), BcfReader(b)
+        key = (lambda r: (r.shared, r.indiv))
+    try:
+        ka, kb = [key(r) for r in ra], [key(r) for r in rb]
+    finally:
+        ra.close()
+        rb.close()
+    bad = sum(int(x != y) for x, y in zip(ka, kb))
+    require(len(ka) == len(kb) == FILE_RECORDS and bad == 0,
+            f"{label}: {bad} records differ ({len(ka)} vs {len(kb)})")
+    return len(ka)
+
+
+def scale_phase(card: str) -> dict:
+    """Scale-out on the file phase's input (2504 samples x 16,384 phased
+    records, two 8192-record blocks), the file phase's single-process
+    `cli -c --device cuda` .xsi and its `cli -x` BCF the reference:
+    (a) compress_file and Decompressor in this process with the device
+        pool [cuda:0, cuda:0] (parallel/shard: a worker thread per pool
+        entry, both on the card) and, in turns with it, on [cuda:0] alone
+        (one, pool, pool, one; one device is a pool of one, batches of
+        one block), then once over the pool of two devices [cuda:0, cpu]
+        (block 0 on the card, block 1 through the plain versions on the
+        host): .xsi byte-equal, records equal; every launch counter is
+        set to 0 just before each run and read just after (chain_encode
+        and wah_compress_bits, then wah_expand_bits and chain_decode,
+        must have launched);
+    (b) SCALE_RANKS processes of `cli -c --distributed` (torch.distributed,
+        gloo, both ranks on the card): .xsi byte-equal, _var.bcf records
+        equal (its BGZF framing differs at the rank join);
+    (c) SCALE_RANKS processes of `cli -x -O b --distributed`: records
+        equal to the single-process -x;
+    (d) `python -m xsqueezeit_tpu_torch.bench scaling --device cuda` at
+        SCALING_ARGS (its own byte-identity check at every process
+        count), its line printed.
+    Each rank's perf (seconds of scan, encode, gather, assembly) and
+    kernel launches are printed: every rank must have launched the
+    encode routes (b) or the decode routes (c).  These counts are the
+    phase's own and stay out of the kernels line."""
+    from xsqueezeit_tpu_torch.codec.compressor import (
+        CompressorOptions,
+        compress_file,
+    )
+    from xsqueezeit_tpu_torch.codec.decompressor import (
+        Decompressor,
+        DecompressorOptions,
+    )
+
+    pool = (f"{DEVICE}:0",) * SCALE_RANKS
+    mixed = (f"{DEVICE}:0", "cpu")
+    secs, out = {}, {}
+
+    def path(f):
+        return os.path.join(SCALE_WORK, f)
+
+    try:
+        with open(path("cuda.xsi"), "rb") as f:
+            ref_xsi = f.read()
+        os.makedirs(path("pool"))
+
+        def compress(devices):
+            compress_file(path("in.bcf"), path("pool/o.xsi"),
+                          CompressorOptions(block_length=L, device=DEVICE,
+                                            devices=devices))
+
+        def compressed(devices):
+            with open(path("pool/o.xsi"), "rb") as f:
+                require(f.read() == ref_xsi, "(a) compress_file over "
+                                             f"{devices}: .xsi differs")
+
+        def extract(devices):
+            Decompressor(path("cuda.xsi"), DecompressorOptions(
+                device=DEVICE, devices=devices)).decompress(path("pool.bcf"))
+
+        def extracted(devices):
+            same_records(path("pool.bcf"), path("out.bcf"),
+                         f"(a) extract over {devices}", True)
+
+        launched = {}
+
+        def turn(key, fn, check, routes, devices, kind, suffix=""):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            fn(devices)
+            torch.cuda.synchronize()
+            secs[f"a_{key}_{kind}{suffix}"] = time.perf_counter() - t0
+            ran = {k: v for k, v in read_counts().items() if v}
+            check(devices)
+            missing = [r for r in routes if not ran.get(r)]
+            require(not missing, f"(a) {key} over {list(devices)} launched "
+                                 f"{ran}, never {missing}")
+            launched[f"{key}_{kind}"] = ran
+
+        steps = (("compress", compress, compressed, ENCODE_ROUTES),
+                 ("extract", extract, extracted, DECODE_ROUTES))
+        with no_plain_passes():
+            for step in steps:
+                for k, devices in enumerate((pool[:1], pool, pool,
+                                             pool[:1])):
+                    turn(*step, devices,
+                         "pool" if len(devices) > 1 else "one", f"_{k}")
+        # the host half of the mixed pool runs the plain versions
+        for step in steps:
+            turn(*step, mixed, "mixed")
+        enc, dec = launched["compress_pool"], launched["extract_pool"]
+        out["pool"] = {"devices": list(pool), "compress_launches": enc,
+                       "extract_launches": dec, "mixed_devices": list(mixed),
+                       "mixed_compress_launches": launched["compress_mixed"],
+                       "mixed_extract_launches": launched["extract_mixed"]}
+
+        os.makedirs(path("ranks"))
+        block = ["--variant-block-length", str(L)]
+        secs["b_compress_ranks"], perf_c = run_ranks(
+            ["-c", "-f", path("in.bcf"), "-o", path("ranks/o.xsi"),
+             *block], "(b) cli -c --distributed")
+        with open(path("ranks/o.xsi"), "rb") as f:
+            require(f.read() == ref_xsi,
+                    "(b) cli -c --distributed: .xsi differs")
+        same_records(path("ranks/o.xsi_var.bcf"),
+                     path("cuda.xsi_var.bcf"), "(b) _var.bcf", False)
+        out["compress_ranks"] = {"perf": perf_c, "launches": rank_launches(
+            "(b) cli -c --distributed", perf_c, ENCODE_ROUTES)}
+
+        secs["c_extract_ranks"], perf_x = run_ranks(
+            ["-x", "-f", path("cuda.xsi"), "-o", path("ranks.bcf"),
+             "-O", "b"], "(c) cli -x -O b --distributed")
+        same_records(path("ranks.bcf"), path("out.bcf"),
+                     "(c) cli -x -O b --distributed", True)
+        out["extract_ranks"] = {"perf": perf_x, "launches": rank_launches(
+            "(c) cli -x --distributed", perf_x, DECODE_ROUTES)}
+
+        t0 = time.perf_counter()
+        # its own session: a timeout ends the tool and its workers
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "xsqueezeit_tpu_torch.bench", "scaling",
+             *SCALING_ARGS, "--device", DEVICE, "--dir", path("scaling")],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=SCALING_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise SystemExit(f"chip_smoke: FAIL: (d) bench scaling ran over "
+                             f"{SCALING_TIMEOUT} s")
+        secs["d_scaling"] = time.perf_counter() - t0
+        require(proc.returncode == 0, f"(d) bench scaling exited "
+                                      f"{proc.returncode}: "
+                                      f"{stderr.strip()[-2000:]}")
+        line = (stdout.strip().splitlines() or [""])[-1]
+        scaling = json.loads(line)
+        require(scaling["byte_identical"] is True
+                and [r["procs"] for r in scaling["curve"]] == [1, 2],
+                f"(d) bench scaling: {line[:500]}")
+        for r in scaling["curve"]:
+            rank_launches(f"(d) scaling at {r['procs']} processes",
+                          [{"launches": x} for x in r["launches"]],
+                          ENCODE_ROUTES)
+        print(f"[scale] (d) {line}")
+        out["scaling"] = scaling
+    finally:
+        shutil.rmtree(SCALE_WORK, ignore_errors=True)
+    print(f"[scale] (a) pool {list(pool)}: .xsi byte-equal, -x records "
+          f"equal; launches compress {enc}, extract {dec}")
+    print(f"[scale] (a) pool {list(mixed)}: .xsi byte-equal, -x records "
+          f"equal; launches compress {out['pool']['mixed_compress_launches']}"
+          f", extract {out['pool']['mixed_extract_launches']}")
+    for label, key in (("(b) -c", "compress_ranks"),
+                       ("(c) -x -O b", "extract_ranks")):
+        for i, perf in enumerate(out[key]["perf"]):
+            print(f"[scale] {label} rank {i}/{SCALE_RANKS} perf "
+                  f"{json.dumps(perf)}")
+    print(f"[scale] seconds {json.dumps(secs)} ({card})")
+    return {**out, "seconds": secs}
+
+
 #: The keys of root bench.py's JSON line (bench.py:407-427), which the
 #: port's headline benchmark keeps.
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "encode_gbps",
@@ -1659,9 +1933,9 @@ def bench_phase(card: str) -> dict:
 def main() -> int:
     phases = {}
 
-    def phase(key, fn, *args):
+    def phase(key, fn, *args, **kw):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         phases[key] = time.perf_counter() - t0
         print(f"phase {key}: {phases[key]:.1f} s", flush=True)
         return out
@@ -1675,13 +1949,14 @@ def main() -> int:
         blocks[name] = phase(f"block_{name}", track_block_phase, name, card)
     blocks[MIXED_BLOCK] = phase(f"block_{MIXED_BLOCK}", mixed_block_phase,
                                 card)
-    files = {"file": phase("file", file_phase, card),
+    files = {"file": phase("file", file_phase, card, keep=SCALE_WORK),
              "file-missing": phase("file-missing", file_phase, card,
                                    "file-missing", 0.01, True),
              "file-wide": phase("file-wide", file_phase, card, "file-wide",
                                 0.01, True, TOPMED_SAMPLES,
                                 WIDE_FILE_RECORDS)}
     tools = phase("tools", tools_phase, card)
+    scale = phase("scale", scale_phase, card)
     bench = phase("bench", bench_phase, card)
 
     for b in blocks.values():
@@ -1695,7 +1970,8 @@ def main() -> int:
     print(json.dumps({"blocks": {k: {x: v for x, v in b.items()
                                      if x != "launches"}
                                  for k, b in blocks.items()},
-                      "files": files, "tools": tools, "bench": bench,
+                      "files": files, "tools": tools, "scale": scale,
+                      "bench": bench,
                       "phase_seconds": phases,
                       "card": card}))
     print(json.dumps({"kernels": list(rows.values())}))

@@ -546,3 +546,54 @@ def test_accessor_on_a_card_compressed_file(dev, tmp_path):
         np.testing.assert_array_equal(
             acc.get_allele_counts(recs[i]),
             np.bincount(alleles[alleles >= 0], minlength=recs[i].n_allele))
+
+
+@pytest.mark.parametrize("devices", [("cuda:0", "cpu"), ("cpu", "cuda:0"),
+                                     ("cuda:0", "cuda:1")])
+def test_pool_of_two_devices_on_card(dev, tmp_path, devices):
+    """compress_file and the extract over a pool of two different devices
+    (the card and the host, or two cards; blocks alternating): .xsi
+    byte-equal to the host codec's, records equal to its extract, the
+    cards' encode and decode routes launched."""
+    if torch.cuda.device_count() < 2 and "cuda:1" in devices:
+        pytest.skip("needs two CUDA devices")
+    from xsqueezeit_tpu_torch.codec.compressor import (
+        CompressorOptions,
+        compress_file,
+    )
+    from xsqueezeit_tpu_torch.codec.decompressor import (
+        Decompressor,
+        DecompressorOptions,
+    )
+    from xsqueezeit_tpu_torch.io.unified import GtInput
+
+    def records(path):
+        inp = GtInput(path)
+        out = [(r.n_alleles, r.gt.tolist()) for r in inp]
+        inp.close()
+        return out
+
+    vcf = _fixtures().random_vcf(str(tmp_path / "in.vcf"), n_samples=300,
+                                 n_records=700, seed=12, p_multi=0.15)
+    for d in ("numpy", "pool"):
+        os.makedirs(tmp_path / d)
+    want, got = (str(tmp_path / d / "o.xsi") for d in ("numpy", "pool"))
+    compress_file(vcf, want, CompressorOptions(block_length=128,
+                                               device="numpy"))
+    n0 = {**pbwt_kernels.launches, **wah_kernels.launches}
+    compress_file(vcf, got, CompressorOptions(block_length=128,
+                                              device="cuda", devices=devices))
+    n1 = {**pbwt_kernels.launches, **wah_kernels.launches}
+    for sfx in ("", "_var.bcf", "_var.bcf.csi"):
+        with open(want + sfx, "rb") as a, open(got + sfx, "rb") as b:
+            assert a.read() == b.read(), sfx
+    assert all(n1[k] > n0[k] for k in ("chain_encode", "wah_compress_bits"))
+    Decompressor(want, DecompressorOptions(
+        output_type="b", device="numpy")).decompress(str(tmp_path / "h.bcf"))
+    Decompressor(want, DecompressorOptions(
+        output_type="b", device="cuda", devices=devices)).decompress(
+            str(tmp_path / "p.bcf"))
+    n2 = {**pbwt_kernels.launches, **wah_kernels.launches}
+    assert all(n2[k] > n1[k] for k in ("wah_expand_bits", "chain_decode"))
+    assert records(str(tmp_path / "p.bcf")) == records(str(tmp_path / "h.bcf"))
+    assert len(records(vcf)) == 700

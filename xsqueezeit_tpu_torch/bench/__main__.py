@@ -1,8 +1,8 @@
 """Tool-suite entry point — counterparts of the reference's standalone
 benchmark/validation binaries (loading_time/, dot_prod/, af_stats/,
 lockstep_loader/) and the xcf.cpp test-data generators.  The port's copy
-of xsqueezeit_tpu/bench/__main__.py, without `scaling` (multi-host) and
-`loading_time --native` (no native library).
+of xsqueezeit_tpu/bench/__main__.py, without `loading_time --native` (no
+native library).
 
     python -m xsqueezeit_tpu_torch.bench loading_time  FILE
     python -m xsqueezeit_tpu_torch.bench dot_prod      FILE [--seed N]
@@ -19,9 +19,12 @@ of xsqueezeit_tpu/bench/__main__.py, without `scaling` (multi-host) and
     python -m xsqueezeit_tpu_torch.bench hrc   [--device cuda|cpu|numpy]
     python -m xsqueezeit_tpu_torch.bench warmup --samples N
                                                [--device cuda|cpu]
+    python -m xsqueezeit_tpu_torch.bench scaling [--procs 1,2,4]
+                                               [--device cuda|cpu|numpy]
 
-`dot_prod`, `e2e`, `hrc` and `warmup` run on the card unless --device
-says otherwise; on --device cuda without a card each exits 1 with one
+`dot_prod`, `e2e`, `hrc`, `warmup` and `scaling` run on the card unless
+--device says otherwise (`scaling`'s processes share it when there is
+one); on --device cuda without a card each exits 1 with one
 line.  `dot_prod` decodes whole blocks of an .xsi on the torch device;
 `--device host` walks the compressed forms on the host, and is the one
 that reads a BCF or VCF.
@@ -112,6 +115,15 @@ def main(argv: list[str] | None = None) -> int:
     s.add_argument("--fracs", default="1.0,0.7,0.45,0.2")
     s.add_argument("--device", default="cuda", choices=torch_devices)
 
+    s = sub.add_parser("scaling", help="multi-process compress scaling "
+                                       "curve (torch.distributed, gloo)")
+    s.add_argument("--records", type=int, default=20000)
+    s.add_argument("--samples", type=int, default=500)
+    s.add_argument("--block-length", type=int, default=1024)
+    s.add_argument("--procs", default="1,2,4")
+    s.add_argument("--dir", default=None)
+    s.add_argument("--device", default="cuda", choices=DEVICES)
+
     args = p.parse_args(argv)
     if args.cmd == "dot_prod" and args.device != "host" and \
             not _is_xsi(args.file):
@@ -190,6 +202,13 @@ def _dispatch(args) -> int:
             mac_threshold=args.maf_threshold,
             fracs=tuple(float(f) for f in args.fracs.split(",")),
             device=args.device)))
+    elif args.cmd == "scaling":
+        from .tools import scaling_curve
+        procs = tuple(int(x) for x in args.procs.split(",") if x)
+        print(json.dumps(scaling_curve(
+            n_records=args.records, n_samples=args.samples,
+            procs=procs, block_length=args.block_length,
+            workdir=args.dir, device=args.device)))
     return 0
 
 

@@ -14,9 +14,12 @@ The port's copy of xsqueezeit_tpu/bench/tools.py:
                   checker (reference: lockstep_loader/gt_lockstep_loader.hpp)
   hrc_scale       HRC-width file round trip with a streamed lockstep
   warmup          build the kernels, then one encode and decode per shape
+  scaling_curve   compress_file_multihost at 1, 2, 4 ... processes
+                  (torch.distributed, gloo on localhost), with the
+                  modelled dedicated-host wall clock broken out
 
 Not copied: the native accessor (`loading_time --native`, the native
-af_stats walk) and the multi-process scaling workers.  A haploid line
+af_stats walk).  A haploid line
 stores sample indices and is n_samples bits wide: dot_prod maps its
 carriers to samples one to one (the JAX package's XSI walk halves them),
 and the device product takes y itself on a uniformly haploid block.
@@ -499,3 +502,346 @@ def warmup(n_samples: int, block_length: int = 8192,
     return {"n_samples": n_samples, "n_haps": H, "block_length": block_length,
             "mac_threshold": thr, "device": str(dev), "build_s": build_s,
             "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# Multi-process scaling curve (BASELINE.md: >=80% efficiency at 4 hosts)
+# ---------------------------------------------------------------------------
+def _scaling_worker(cfg_json: str) -> None:
+    """Entry point of one scaling-bench OS process (see scaling_curve)."""
+    import json
+
+    from ..codec.compressor import CompressorOptions
+    from ..parallel.distributed import compress_file_multihost
+
+    cfg = json.loads(cfg_json)
+    perf: dict = {}
+    stats = compress_file_multihost(
+        cfg["input"], cfg["output"],
+        CompressorOptions(block_length=cfg["block_length"],
+                          device=cfg["device"]),
+        coordinator=cfg["coordinator"],
+        num_processes=cfg["nproc"], process_id=cfg["procid"],
+        perf=perf)
+    perf["procid"] = cfg["procid"]
+    if stats is not None:
+        perf["xsi_bytes"] = stats["xsi_bytes"]
+    with open(cfg["perf_out"], "w") as f:
+        json.dump(perf, f)
+
+
+def _gather_only_worker(cfg_json: str) -> None:
+    """Replay ONLY the overlapped gather's collective rounds (same round
+    structure and byte sizes as the real run, synthetic payloads, no
+    encode): the pure-communication cost sample for the scaling model.
+    The contended run's measured gather_s is dominated by straggler WAIT
+    (a fast process blocks in the collective until the slowest finishes
+    its chunk: barrier skew, not bytes), so the dedicated-host model
+    needs this isolated number."""
+    import json
+
+    from ..parallel.distributed import _process_group, gather_round_to_host0
+
+    cfg = json.loads(cfg_json)
+    with _process_group(cfg["coordinator"], cfg["nproc"], cfg["procid"]):
+        lens = cfg["payload_lens"]
+        chunk = max(1, int(cfg.get("chunk", 8)))
+        rounds = cfg["rounds"]
+        payloads = [b"\xAB" * n for n in lens]
+        all_n = cfg["all_counts"]
+        # warmup round (backend/socket setup is not per-byte cost)
+        gather_round_to_host0([b"x"])
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            batch = payloads[r * chunk:(r + 1) * chunk]
+            kc = np.asarray([max(min(chunk, n_i - r * chunk), 0)
+                             for n_i in all_n], np.int64)
+            gather_round_to_host0(batch, known_counts=kc)
+        wall = time.perf_counter() - t0
+    with open(cfg["perf_out"], "w") as f:
+        json.dump({"procid": cfg["procid"], "comm_s": wall,
+                   "rounds": rounds}, f)
+
+
+def _scaling_solo_worker(cfg_json: str) -> None:
+    """One worker's COMPUTE slice run alone (no peers, no contention):
+    the dedicated-host wall-clock sample for the scaling model."""
+    import json
+    import os
+
+    from ..codec.compressor import CompressorOptions
+    from ..io.unified import count_entries_offsets
+    from ..parallel.distributed import (
+        _encode_block_range,
+        _setup,
+        _var_segment,
+        _variant_pass,
+        plan_block_ranges,
+    )
+
+    cfg = json.loads(cfg_json)
+    opts = CompressorOptions(block_length=cfg["block_length"],
+                             device=cfg["device"])
+    (s_inp, _samples, n_samples, default_phased, max_ploidy, aet_dtype,
+     mac_threshold, ws) = _setup(cfg["input"], opts)
+    s_inp.close()
+    perf: dict = {}
+    t0 = time.perf_counter()
+    n_entries, block_voffs = count_entries_offsets(cfg["input"],
+                                                   cfg["block_length"])
+    perf["scan_s"] = time.perf_counter() - t0
+
+    n_blocks = -(-n_entries // opts.block_length)
+    rng = plan_block_ranges(max(n_blocks, 1), cfg["nproc"])[cfg["procid"]]
+
+    dist_var = (cfg["nproc"] > 1 and block_voffs is not None
+                and os.environ.get("XSI_DIST_VARPASS", "1")
+                not in ("0", "off", "no"))
+    if dist_var:
+        # distributed form: THIS worker's var segment (runs on a thread
+        # next to encode on a dedicated host; the model takes the max)
+        t0 = time.perf_counter()
+        _var_segment(cfg["input"], cfg["output"], opts, rng[0], rng[1],
+                     block_voffs, write_header=(cfg["procid"] == 0))
+        perf["varpass_s"] = time.perf_counter() - t0
+    elif cfg["procid"] == 0:
+        vin = GtInput(cfg["input"])
+        try:
+            t0 = time.perf_counter()
+            _variant_pass(vin, opts, cfg["output"], max_ploidy)
+            perf["varpass_s"] = time.perf_counter() - t0
+        finally:
+            vin.close()
+
+    t0 = time.perf_counter()
+    payloads = _encode_block_range(
+        cfg["input"], rng, n_samples, opts, mac_threshold, default_phased,
+        aet_dtype, ws, block_voffs=block_voffs)
+    perf["encode_s"] = time.perf_counter() - t0
+    perf["payload_bytes"] = sum(len(p) for p in payloads)
+    with open(cfg["perf_out"], "w") as f:
+        json.dump(perf, f)
+
+
+def _spawn(entry: str, cfg: dict, log):
+    """One worker process running bench.tools.<entry>(json(cfg)), in this
+    process's environment and working directory."""
+    import json
+    import subprocess
+    import sys
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; from xsqueezeit_tpu_torch.bench.tools import "
+         f"{entry}; {entry}(sys.argv[1])", json.dumps(cfg)],
+        stdout=log, stderr=log)
+
+
+def scaling_curve(n_records: int = 20000, n_samples: int = 500,
+                  procs: tuple = (1, 2, 4), block_length: int = 1024,
+                  workdir: str | None = None, device: str = "cuda") -> dict:
+    """Wall-clock scaling of `compress_file_multihost` at 1/2/4 OS
+    processes on a synthetic input (real torch.distributed with the gloo
+    backend and a localhost coordinator), each process encoding on
+    `device`, with the gather overhead broken out.
+
+    On one card every process shares it (their kernels queue on the same
+    device), and the processes share the host's cores, so the measured
+    wall clock cannot show speedup: it validates overhead, not
+    parallelism.  Models stand in for a pool where each process has a
+    host and a device of its own, Efficiency_N = T1 / (N * T_N) over each:
+      * solo_*: every process's slice re-run alone in a fresh process
+        (wall times: scan + the busiest encode + the gather residual +
+        assembly);
+      * modeled_* / compute_* (device="numpy" only): the same sum over
+        the contended run's CPU times, which equal wall time on a
+        dedicated host only when all the work is on the host.  With a
+        torch device the encode waits on the device, and that wait is not
+        CPU time, so these are None there.
+    Outputs are verified byte-identical to single-process compress_file
+    at every process count.  Each row also carries every process's
+    kernel launches.
+    """
+    import json
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    from ..utils.devprobe import torch_device
+    # fails before any work; None: the host codec, the CPU-time model holds
+    host_model = torch_device(device) is None
+    own = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="xsi_scaling_")
+    os.makedirs(workdir, exist_ok=True)
+    inp = os.path.join(workdir, "in.bcf")
+    from .synth import synth_bcf
+    synth_bcf(inp, n_records, n_samples)
+    if os.environ.get("XSI_SCAN_CACHE", "0") not in ("0", "off", "no"):
+        # warm-index mode: prime the sidecar once so every point (incl.
+        # the 1-process baseline) reads the same warm scan: the steady
+        # state for repeated compressions of a static input
+        from ..io.unified import count_entries_offsets
+        count_entries_offsets(inp, block_length)
+
+    # single-process reference bytes
+    from ..codec.compressor import CompressorOptions, compress_file
+    ref = os.path.join(workdir, "ref.xsi")
+    t0 = time.perf_counter()
+    compress_file(inp, ref, CompressorOptions(block_length=block_length,
+                                              device=device))
+    t_single = time.perf_counter() - t0
+    with open(ref, "rb") as f:
+        ref_bytes = f.read()
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def load(path):
+        with open(path) as f:
+            return json.load(f)
+
+    results = []
+    for n in procs:
+        out = os.path.join(workdir, f"out_{n}.xsi")
+        coord = f"127.0.0.1:{free_port()}"
+        cfgs = [dict(input=inp, output=out, block_length=block_length,
+                     device=device, coordinator=coord, nproc=n, procid=i,
+                     perf_out=os.path.join(workdir, f"perf_{n}_{i}.json"))
+                for i in range(n)]
+        with open(os.path.join(workdir, f"workers_{n}.log"), "wb") as logf:
+            t0 = time.perf_counter()
+            children = [_spawn("_scaling_worker", cfg, logf)
+                        for cfg in cfgs]
+            rcs = [c.wait() for c in children]
+            wall = time.perf_counter() - t0
+            if any(rcs):
+                raise RuntimeError(f"scaling worker failed: rcs={rcs}")
+            with open(out, "rb") as f:
+                if f.read() != ref_bytes:
+                    raise RuntimeError(f"{n}-process output differs from "
+                                       "single-process bytes")
+
+            perfs = [load(c["perf_out"]) for c in cfgs]
+            perfs_by_id = {p["procid"]: p for p in perfs}
+            p0 = perfs_by_id[0]
+            # CPU times are contention-immune: on dedicated hosts (one
+            # busy process each, the host codec) they equal wall time, so
+            # the model below is the wall clock of a real N-host run (kept
+            # for device="numpy" only).  Process 0 runs the
+            # variant pass on a thread overlapped with its encode, so its
+            # span is max(varpass, encode0).  Gather is communication:
+            # keep its measured wall (localhost gloo under contention, a
+            # pessimistic bound) and report efficiency both with and
+            # without it.
+            scan_max = max(p["scan_cpu_s"] for p in perfs)
+            var0 = p0.get("varpass_cpu_s", 0.0)
+            enc0 = p0["encode_cpu_s"]
+            enc_others = max([p["encode_cpu_s"] for p in perfs
+                              if p["procid"] != 0], default=0.0)
+            span = max(var0, enc0, enc_others)
+            gather_max = max(p.get("gather_s", 0.0) for p in perfs)
+            assemble = p0.get("assemble_cpu_s", 0.0)
+            gather_bytes = sum(p.get("payload_bytes", 0)
+                               for p in perfs if p["procid"] != 0)
+            modeled = scan_max + span + gather_max + assemble
+
+            # SOLO pass: each worker's compute slice re-run alone (fresh
+            # process, no contention): with N processes sharing the host
+            # even CPU times inflate (cache thrash), so the dedicated-host
+            # model samples each slice uncontended.  p0's span is
+            # max(varpass, encode): on a real host they run on separate
+            # threads and cores.
+            solo_perfs = []
+            for i in range(n):
+                solo_cfg = dict(
+                    input=inp,
+                    output=os.path.join(workdir, f"solo_{n}_{i}.xsi"),
+                    block_length=block_length, device=device, nproc=n,
+                    procid=i,
+                    perf_out=os.path.join(workdir, f"solo_{n}_{i}.json"))
+                best: dict = {}
+                for _rep in range(2):   # min-of-2: stray host contention
+                    child = _spawn("_scaling_solo_worker", solo_cfg, logf)
+                    if child.wait() != 0:
+                        raise RuntimeError(
+                            f"solo worker failed: see {logf.name}")
+                    for k, v in load(solo_cfg["perf_out"]).items():
+                        best[k] = min(best[k], v) if k in best else v
+                solo_perfs.append(best)
+            solo_scan = max(p["scan_s"] for p in solo_perfs)
+            solo_var0 = max(p.get("varpass_s", 0.0) for p in solo_perfs)
+            # per-host span: encode and the (possibly distributed) variant
+            # pass run on threads of the same host: take the busiest host
+            solo_span = max(max(p["encode_s"], p.get("varpass_s", 0.0))
+                            for p in solo_perfs)
+
+            # Pure-communication sample: replay ONLY the gather rounds
+            # (same structure and bytes, synthetic payloads).  With the
+            # overlapped gather, communication hides behind encode; the
+            # dedicated-host residual is what cannot hide: the tail
+            # round, or the spill when comm_total exceeds the encode span.
+            comm_total = 0.0
+            rounds = max(int(p.get("gather_rounds", 0)) for p in perfs)
+            if n > 1 and rounds:
+                gcoord = f"127.0.0.1:{free_port()}"
+                gcfgs = [dict(
+                    coordinator=gcoord, nproc=n, procid=i,
+                    payload_lens=perfs_by_id[i].get("payload_lens", []),
+                    rounds=rounds,
+                    chunk=max(int(p.get("gather_chunk", 8)) for p in perfs),
+                    all_counts=[len(perfs_by_id[j].get("payload_lens", []))
+                                for j in range(n)],
+                    perf_out=os.path.join(workdir, f"go_{n}_{i}.json"))
+                    for i in range(n)]
+                gchildren = [_spawn("_gather_only_worker", cfg, logf)
+                             for cfg in gcfgs]
+                grcs = [c.wait() for c in gchildren]
+                if any(grcs):
+                    raise RuntimeError(f"gather-only worker failed: {grcs}")
+                comm_total = max(load(c["perf_out"])["comm_s"]
+                                 for c in gcfgs)
+        comm_residual = (max(comm_total - solo_span, comm_total / rounds)
+                         if rounds else 0.0)
+        solo_wall = solo_scan + solo_span + comm_residual + assemble
+
+        results.append(dict(
+            procs=n, wall_s=wall, scan_cpu_s=scan_max,
+            varpass_cpu_s=var0, encode_max_cpu_s=max(enc0, enc_others),
+            gather_s=gather_max, assemble_cpu_s=assemble,
+            gather_mb=gather_bytes / 1e6,
+            solo_scan_s=solo_scan, solo_varpass_s=solo_var0,
+            solo_encode_max_s=max(p["encode_s"] for p in solo_perfs),
+            comm_total_s=comm_total, comm_residual_s=comm_residual,
+            solo_wall_s=solo_wall,
+            solo_compute_wall_s=solo_wall - comm_residual,
+            modeled_wall_s=modeled if host_model else None,
+            compute_wall_s=modeled - gather_max if host_model else None,
+            launches=[perfs_by_id[i].get("launches", {})
+                      for i in range(n)]))
+
+    base = results[0]["modeled_wall_s"]
+    base_c = results[0]["compute_wall_s"]
+    base_s = results[0]["solo_wall_s"]
+    base_sc = results[0]["solo_compute_wall_s"]
+
+    def eff(num, den):   # micro workloads can bring a wall close to 0
+        return num / max(den, 1e-6)
+
+    for r in results:
+        r["modeled_efficiency"] = r["compute_efficiency"] = None
+        if host_model:
+            r["modeled_efficiency"] = eff(base,
+                                          r["procs"] * r["modeled_wall_s"])
+            r["compute_efficiency"] = eff(base_c,
+                                          r["procs"] * r["compute_wall_s"])
+        r["solo_efficiency"] = eff(base_s, r["procs"] * r["solo_wall_s"])
+        r["solo_compute_efficiency"] = eff(
+            base_sc, r["procs"] * r["solo_compute_wall_s"])
+    if own:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"records": n_records, "samples": n_samples,
+            "block_length": block_length, "device": device,
+            "single_process_compress_s": t_single,
+            "byte_identical": True, "curve": results}

@@ -13,6 +13,12 @@ Port of xsqueezeit_tpu/cli.py (compress, extract, info):
 
 --profile DIR (with any mode) writes a torch.profiler Chrome trace of the
 run into DIR, with the card's activity on --device cuda.
+--distributed HOST:PORT --dist-nproc N --dist-procid I (with -c, or -x to
+-O b) runs one of N processes of a torch.distributed (gloo) job: launch N
+with the same arguments and I = 0..N-1; process 0 listens at HOST:PORT
+and writes the output.  Each encodes or decodes its range of blocks on
+--device; ranks may share one card.  With -v each rank prints its
+timings and kernel launches as one JSON line on stderr.
 --device cuda (the default) runs the CUDA kernels and fails when there is
 no card; cpu runs their plain versions on CPU tensors; numpy is the
 host codec (the port's copy of the JAX package's NumPy codec).  Output
@@ -86,6 +92,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--count-xcf", action="store_true",
                    help="Count the variant entries of a VCF/BCF and print "
                         "the elapsed time (reference debug utility)")
+    p.add_argument("--distributed", default="", metavar="HOST:PORT",
+                   help="Multi-process run: the torch.distributed (gloo) "
+                        "address of process 0; launch one identical "
+                        "process per rank with --dist-nproc/--dist-procid "
+                        "(process 0 writes output)")
+    p.add_argument("--dist-nproc", type=int, default=None,
+                   help="Total number of processes of the distributed run")
+    p.add_argument("--dist-procid", type=int, default=None,
+                   help="This process's id (0-based) in the distributed run")
     return p
 
 
@@ -158,6 +173,15 @@ def _read_regions_file(path: str) -> list[str]:
     return out
 
 
+def _print_rank_perf(args, perf: dict) -> None:
+    """One JSON line per rank on stderr: its seconds, sizes and kernel
+    launches (parallel/distributed.py's perf)."""
+    import json
+    perf = {k: v for k, v in perf.items() if k != "payload_lens"}
+    print(f"xsqueezeit: rank {args.dist_procid}/{args.dist_nproc} perf "
+          f"{json.dumps(perf)}", file=sys.stderr)
+
+
 def _dispatch(args) -> int:
     if args.info:
         from .format.header import XsiHeader
@@ -185,7 +209,20 @@ def _dispatch(args) -> int:
             zstd=args.zstd, zstd_level=args.zstd_level,
             wah_encode_missing=args.wah_encode_missing,
             verbose=args.verbose, device=args.device)
-        stats = compress_file(args.file, args.output, opts)
+        if args.distributed:
+            from .parallel.distributed import compress_file_multihost
+            perf: dict = {}
+            stats = compress_file_multihost(
+                args.file, args.output, opts,
+                coordinator=args.distributed,
+                num_processes=args.dist_nproc,
+                process_id=args.dist_procid, perf=perf)
+            if args.verbose:
+                _print_rank_perf(args, perf)
+            if stats is None:      # non-zero process: encode + gather only
+                return 0
+        else:
+            stats = compress_file(args.file, args.output, opts)
         if args.verbose:
             print(f"Compressed {stats['entries']} entries "
                   f"({stats['variants']} variants) of {stats['n_samples']} "
@@ -211,6 +248,17 @@ def _dispatch(args) -> int:
             samples_file=args.samples_file, output_type=output_type,
             no_header=args.no_header, verbose=args.verbose,
             device=args.device)
+        if args.distributed:
+            from .parallel.distributed import decompress_file_multihost
+            perf = {}
+            decompress_file_multihost(
+                args.file, out, opts,
+                coordinator=args.distributed,
+                num_processes=args.dist_nproc,
+                process_id=args.dist_procid, perf=perf)
+            if args.verbose:
+                _print_rank_perf(args, perf)
+            return 0
         Decompressor(args.file, opts).decompress(out)
         return 0
 

@@ -7,10 +7,13 @@ identical to the JAX package's.  Each input record contributes (1) its
 site columns + FORMAT/BM pointer to the variant BCF and (2) its genotype
 matrix rows to the current GT block, flushed to the container every
 `block_length` records.  Blocks encode with TorchBlockEncoder on the
-chosen device (one device, no mesh); device="numpy" keeps the host
-encoder.  The JAX package's native routes (batched BCF parse, native
-variant pass, native block encoder) are not copied: the port's host code
-is NumPy.
+chosen device; device="numpy" keeps the host encoder.  With more than one
+device of that kind in the process (or a device list given in
+`CompressorOptions.devices`), blocks batch over the pool
+(parallel/shard.MeshBlockEncoder), as the JAX package's mesh batching
+does.  The JAX package's native routes (batched BCF parse, native variant
+pass, native block encoder) are not copied: the port's host code is
+NumPy.
 
 One deliberate fix over the reference, kept from the JAX package: the
 sparse/arrangement index width (A_T) is keyed on N_HAPS everywhere.
@@ -21,7 +24,7 @@ import functools
 import os
 import struct
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,6 +63,10 @@ class CompressorOptions:
     wah_encode_missing: bool = False  # WS_WAH weirdness strategy
     verbose: bool = False
     device: str = "cuda"  # "cuda" | "cpu" | "numpy"
+    #: The block pool: torch devices blocks spread over; None takes every
+    #: local device of `device`'s kind (parallel/shard.local_mesh), or
+    #: `device` alone.
+    devices: tuple | None = None
 
     def __post_init__(self):
         if self.block_length < 1:
@@ -70,7 +77,15 @@ class CompressorOptions:
 class BlockEncodeDispatcher:
     """Buffers one block of records and encodes it at flush time with
     `device_cls` (uniform and mixed-ploidy blocks) or the host
-    GtBlockEncoder (no device class, or rows of other lengths)."""
+    GtBlockEncoder (no device class, or rows of other lengths).
+
+    Device blocks batch through parallel/shard.MeshBlockEncoder over the
+    device pool (_pool_devices), `batch_target` = one block per pool
+    device at a time: single-process multi-device data parallelism, the
+    generalised form of the reference's 2-thread split
+    (xsqueezeit.cpp:120-148).  One device is a pool of one (batches of
+    one block).  Payload bytes are the same whatever the pool; only
+    wall-clock changes."""
 
     def __init__(self, n_samples, block_length, mac_threshold,
                  default_phasing, aet_dtype, weirdness_strategy, device_cls):
@@ -83,6 +98,10 @@ class BlockEncodeDispatcher:
         self.device_cls = device_cls
         self.pending: list[tuple[np.ndarray, int]] = []
         self._executor = None
+        self._mesh = None           # lazy: probed on the first device block
+        self._mesh_encoder = None
+        self._batch: list = []      # [(device encoder, Future)]
+        self.batch_target = 1
         # Host-path block encodes run on a small worker pool (order is
         # preserved by the caller's future deque, not by worker count).
         # Device paths keep one worker (device dispatch serializes anyway).
@@ -98,7 +117,7 @@ class BlockEncodeDispatcher:
     def inflight_target(self) -> int:
         """Blocks allowed in flight before the driver blocks on the head
         future (bounds memory: one block's records is L x H x 4 bytes)."""
-        return self.encode_workers + 1
+        return max(2 * self.batch_target, self.encode_workers + 1)
 
     @property
     def full(self) -> bool:
@@ -111,35 +130,94 @@ class BlockEncodeDispatcher:
     def encode_record(self, gt: np.ndarray, n_alleles: int) -> None:
         self.pending.append((gt, n_alleles))
 
-    def _encode(self, records) -> bytes:
+    def _device_eligible(self, records) -> bool:
+        """Uniform blocks and mixed-ploidy blocks (haploid + diploid
+        interleaved) take the device; anything else (ploidy > 2 is
+        guarded upstream) stays on the NumPy encoder."""
         n_samples = self.n_haps // 2
         lengths = {g.shape[0] for g, _ in records}
-        # Uniform blocks and mixed-ploidy blocks (haploid + diploid
-        # interleaved) take the device; anything else (ploidy > 2 is
-        # guarded upstream) stays on the NumPy encoder.
-        uniform = lengths <= {self.n_haps, n_samples} and bool(lengths)
-        cls = self.device_cls if self.device_cls and uniform \
-            else GtBlockEncoder
+        return (self.device_cls is not None and bool(lengths)
+                and lengths <= {self.n_haps, n_samples})
+
+    def _fill(self, cls, records):
         enc = cls(**self._kw)
         for gt, na in records:
             enc.encode_record(gt, na)
-        return enc.serialize()
+        return enc
+
+    def _encode(self, records) -> bytes:
+        cls = (self.device_cls if self._device_eligible(records)
+               else GtBlockEncoder)
+        return self._fill(cls, records).serialize()
 
     def serialize(self) -> bytes:
         records, self.pending = self.pending, []
         return self._encode(records)
 
+    # ------------------------------------------------------- mesh batching
+    def _pool_devices(self) -> list:
+        """The device pool device blocks batch over (one device or more)."""
+        raise NotImplementedError
+
+    def _probe_mesh(self) -> list:
+        """Resolve the device pool once, on the first device block."""
+        if self._mesh is None:
+            self._mesh = self._pool_devices()
+            self.batch_target = len(self._mesh)
+        return self._mesh
+
+    def _dispatch_batch(self) -> None:
+        batch, self._batch = self._batch, []
+        if not batch:
+            return
+
+        def run():
+            try:
+                if self._mesh_encoder is None:
+                    from ..parallel.shard import MeshBlockEncoder
+                    self._mesh_encoder = MeshBlockEncoder(
+                        self._mesh, self._kw["mac_threshold"])
+                payloads = self._mesh_encoder.encode_batch(
+                    [e for e, _ in batch])
+                for (_, fut), p in zip(batch, payloads):
+                    fut.set_result(p)
+            except BaseException as exc:   # handed to the block futures
+                for _, fut in batch:
+                    if not fut.done():
+                        fut.set_exception(exc)
+
+        self._executor.submit(run)
+
+    def flush(self) -> None:
+        """Dispatch any partially-filled mesh batch (call before waiting
+        on a pending future, or the tail blocks never resolve)."""
+        self._dispatch_batch()
+
     def submit(self):
         """Encode the buffered block on a worker thread, so the caller can
         keep parsing input while the device works.  Returns a
-        Future[bytes]; the caller's future deque preserves block order."""
+        Future[bytes]; the caller's future deque preserves block order.
+        Device blocks gather into batches of `batch_target` that encode
+        over the device pool; host blocks encode on their own."""
         if self._executor is None:
             self._executor = ThreadPoolExecutor(
                 max_workers=self.encode_workers)
         records, self.pending = self.pending, []
+        if self._device_eligible(records):
+            self._probe_mesh()
+            fut = Future()
+            # ingest here, beside the parse; the pool does the rest
+            self._batch.append((self._fill(self.device_cls, records), fut))
+            if len(self._batch) >= self.batch_target:
+                self._dispatch_batch()
+            return fut
         return self._executor.submit(self._encode, records)
 
     def shutdown(self) -> None:
+        for _, fut in self._batch:
+            if not fut.done():
+                fut.cancel()
+        self._batch = []
         if self._executor is not None:
             self._executor.shutdown(wait=False, cancel_futures=True)
             self._executor = None
@@ -149,16 +227,23 @@ class TorchEncodeDispatcher(BlockEncodeDispatcher):
     """BlockEncodeDispatcher whose device encoder is TorchBlockEncoder on
     `device` (None: the host encoder).  The device was chosen explicitly,
     so every block of ploidy 1 or 2, mixed ploidy included, takes it (no
-    size threshold, no reachability probe)."""
+    size threshold, no reachability probe).  `devices` is the block pool
+    (None: every local device of `device`'s kind, or `device` alone)."""
 
     def __init__(self, n_samples, block_length, mac_threshold,
                  default_phasing, aet_dtype, weirdness_strategy,
-                 device: torch.device | None):
+                 device: torch.device | None, devices=None):
         super().__init__(
             n_samples, block_length, mac_threshold, default_phasing,
             aet_dtype, weirdness_strategy,
             device_cls=(None if device is None else
                         functools.partial(TorchBlockEncoder, device=device)))
+        self.device = device
+        self.devices = devices
+
+    def _pool_devices(self) -> list:
+        from ..parallel.shard import device_pool
+        return device_pool(self.devices, self.device)
 
 
 def make_variant_header(src: BcfHeader, xsi_basename: str) -> BcfHeader:
@@ -224,7 +309,7 @@ def compress_file(input_path: str, output_path: str,
     block = TorchEncodeDispatcher(
         n_samples, opts.block_length, mac_threshold,
         default_phasing=default_phased, aet_dtype=aet_dtype,
-        weirdness_strategy=ws, device=device)
+        weirdness_strategy=ws, device=device, devices=opts.devices)
     try:
         return _compress_loop(inp, opts, xsi, var_writer, var_header, csi,
                               block, var_path, output_path, max_ploidy)
@@ -279,12 +364,18 @@ def _compress_loop(inp, opts, xsi, var_writer, var_header, csi, block,
         csi.add(rid, pos0, pos0 + max(rlen, 1), vbeg, vend)
 
         # genotype block entry (pipelined: earlier blocks encode on a
-        # worker thread while this loop parses the next block's records)
+        # worker thread while this loop parses the next block's records;
+        # a device pool keeps up to one batch in flight on top)
         if block.full:
             pending_blocks.append(block.submit())
             while pending_blocks and pending_blocks[0].done():
                 xsi.write_block(pending_blocks.popleft().result())
+            # Bound in-flight memory.  Before a blocking wait, dispatch any
+            # partially-filled batch: the head future could otherwise sit
+            # in a batch that never fills.
             while len(pending_blocks) > block.inflight_target:
+                if not pending_blocks[0].done():
+                    block.flush()
                 xsi.write_block(pending_blocks.popleft().result())
         block.encode_record(rec.gt, rec.n_alleles)
 
@@ -295,10 +386,11 @@ def _compress_loop(inp, opts, xsi, var_writer, var_header, csi, block,
         if opts.verbose and entry_counter % 1000 == 0:
             print(f"Handled {entry_counter} VCF entries (lines)")
 
+    if block.bcf_lines:          # the tail block joins the last batch
+        pending_blocks.append(block.submit())
+    block.flush()
     while pending_blocks:
         xsi.write_block(pending_blocks.popleft().result())
-    if block.bcf_lines:
-        xsi.write_block(block.serialize())
     xsi.finalize(num_variants=variant_counter, xcf_entries=entry_counter,
                  max_ploidy=seen_max_ploidy)
     if opts.verbose:

@@ -393,6 +393,26 @@ def _mixed_records(dev: TorchBlockDecoder, n_alleles_per_record: list[int],
     return out
 
 
+def mesh_decode_all(decoders: list[TorchBlockDecoder], devices: list
+                    ) -> None:
+    """decode_all of several blocks over a device pool (data parallelism
+    on the block axis, the decode-side counterpart of
+    parallel/shard.MeshBlockEncoder): block i decodes on devices[i % n],
+    one worker thread per device.  Fills each decoder's cached bits
+    exactly as its own decode_all() would (it is decode_all, on the
+    block's pool device), so downstream record folding and overlays are
+    unchanged.  Each block decodes alone at its own shapes: nothing is
+    padded, so no padding carrier needs masking.  Every decoder must be
+    eligible or mixed_device_ok."""
+    from ..parallel.shard import map_blocks
+
+    def decode(dec, device):
+        dec.device = torch.device(device)
+        dec.decode_all()
+
+    map_blocks(decode, decoders, devices)
+
+
 def decode_block_records(payload, n_samples, n_haps, aet_dtype,
                          n_alleles_per_record: list[int],
                          offsets: list[int] | None = None,

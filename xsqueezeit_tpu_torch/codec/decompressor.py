@@ -8,8 +8,13 @@ Supports region (-r) and target (-t) filtering and sample subsetting (-s)
 with AC/AN recomputation, and re-compression to a fresh XSI (-O x).
 Whole blocks decode with decoder_torch on the chosen device and -O x
 re-encodes with TorchBlockEncoder on it; device="numpy" keeps the host
-codec (GtBlockDecoder per record).  The JAX package's device route and
-its native accessor and extract loop are not copied.
+codec (GtBlockDecoder per record).  With more than one device of that
+kind (or `DecompressorOptions.devices`), consecutive blocks decode in
+batches over the pool (decoder_torch.mesh_decode_all), as the JAX
+package's mesh decode does.  `block_range` and records-only BGZF
+segments serve the multi-process extract (parallel/distributed.py).  The
+JAX package's device route and its native accessor and extract loop are
+not copied.
 """
 from __future__ import annotations
 
@@ -53,7 +58,11 @@ from .compressor import (
     compress_file,
     make_variant_header,
 )
-from .decoder_torch import decode_block_records
+from .decoder_torch import (
+    TorchBlockDecoder,
+    decode_block_records,
+    mesh_decode_all,
+)
 from .gt_block_decoder import GtBlockDecoder
 
 _OFFSET_MASK = (1 << BM_BLOCK_BITS) - 1
@@ -111,6 +120,12 @@ class DecompressorOptions:
     no_header: bool = False
     verbose: bool = False
     device: str = "cuda"       # "cuda" | "cpu" | "numpy"
+    block_range: tuple[int, int] | None = None  # [start, end) block window
+    #                 (multi-host partition; parallel/distributed.py)
+    #: The block pool: torch devices blocks spread over; None takes every
+    #: local device of `device`'s kind (parallel/shard.local_mesh), or
+    #: `device` alone.
+    devices: tuple | None = None
 
 
 def _block_of(bm: int) -> int:
@@ -261,6 +276,11 @@ class Decompressor:
                     break
             if bm is None:
                 raise ValueError("Variant record without BM field")
+            if self.opts.block_range is not None:
+                blk = _block_of(bm)
+                if not (self.opts.block_range[0] <= blk
+                        < self.opts.block_range[1]):
+                    continue
             if regions is not None or targets is not None:
                 chrom = (reader.header.dict_contigs[rec.rid]
                          if rec.rid < len(reader.header.dict_contigs) else "")
@@ -392,8 +412,12 @@ class Decompressor:
             out.append(f"AN={an}")
         return ";".join(out) if out else "."
 
-    def _decompress_to_bcf(self, output_path, level: int = 6) -> dict:
-        """output_path: path or file object."""
+    def _decompress_to_bcf(self, output_path, level: int = 6,
+                           write_header: bool = True,
+                           write_eof: bool = True) -> dict:
+        """output_path: path or file object.  write_header/write_eof=False
+        emit a records-only BGZF body segment (multi-host partition;
+        segments concatenate into one valid BCF)."""
         header = self.output_header()
         self._declare_subset_tags(header)
         header.ensure_string(
@@ -405,7 +429,8 @@ class Decompressor:
         # gt_decompressor_new.hpp:315); the output writer never calls
         # tell_virtual, so the threaded pipeline stays fully async.
         writer = BcfWriter(output_path, header, level=level,
-                           threads=min(os.cpu_count() or 1, 8))
+                           threads=min(os.cpu_count() or 1, 8),
+                           write_header=write_header)
         n = 0
         for rec, gt in self.iter_decoded_records():
             ploidy = self._line_ploidy(gt.shape[0])
@@ -417,7 +442,7 @@ class Decompressor:
             indiv = encode_gt_indiv(header, gt, ploidy, n_out)
             writer.write_raw(shared, indiv, want_offsets=False)
             n += 1
-        writer.close()
+        writer.close(write_eof=write_eof)
         return self._emit_stats(n)
 
     def _patch_shared_ac_an(self, shared: bytes, gt: np.ndarray,
@@ -517,7 +542,7 @@ class Decompressor:
             n_out, opts.block_length, mac_threshold,
             default_phasing=default_phased, aet_dtype=aet_dtype,
             weirdness_strategy=WeirdnessStrategy.WS_SPARSE,
-            device=self.torch_device)
+            device=self.torch_device, devices=self.opts.devices)
         entry_counter = variant_counter = 0
         bm_block = bm_offset = 0
         pending: deque = deque()
@@ -549,6 +574,8 @@ class Decompressor:
                     while pending and pending[0].done():
                         xsi.write_block(pending.popleft().result())
                     while len(pending) > block.inflight_target:
+                        if not pending[0].done():
+                            block.flush()
                         xsi.write_block(pending.popleft().result())
                 block.encode_record(gt, rec.n_allele)
 
@@ -556,10 +583,11 @@ class Decompressor:
                 variant_counter += rec.n_allele - 1
                 entry_counter += 1
 
+            if block.bcf_lines:      # the tail block joins the last batch
+                pending.append(block.submit())
+            block.flush()
             while pending:
                 xsi.write_block(pending.popleft().result())
-            if block.bcf_lines:
-                xsi.write_block(block.serialize())
             xsi.finalize(num_variants=variant_counter,
                          xcf_entries=entry_counter, max_ploidy=max_ploidy)
             var_writer.close()
@@ -590,49 +618,78 @@ class Decompressor:
             "variant_bytes": os.path.getsize(var_path),
         }
 
+    def _local_mesh(self) -> list:
+        """Decode-side device pool: the option's list, else every local
+        device of the decoder's kind, else the decoder's device alone."""
+        from ..parallel.shard import device_pool
+        return device_pool(self.opts.devices, self.torch_device)
+
     def iter_decoded_records(self):
         """Yields (variant_rec, gt) in file order, decoding whole blocks on
-        the device.  Block k decodes on a worker thread while block k-1's
-        records are emitted (one worker keeps the order)."""
+        the device.  Batch k of consecutive blocks decodes on a worker
+        thread while batch k-1's records are emitted (one worker keeps the
+        order).  A batch holds one block per pool device and its eligible
+        blocks decode over the pool (mesh_decode_all), the read-side
+        counterpart of the compressor's batching; other blocks decode on
+        the decompressor's device."""
         if self.torch_device is None:
             for rec, bm in self.iter_variant_records():
                 yield rec, self.decode_bm(bm, rec.n_allele)
             return
 
-        def decode(block_id, recs):
-            payload = self.xsi.gt_block_payload(block_id)
-            return decode_block_records(
-                payload, self.n_samples, self.n_haps, self.xsi.aet_dtype,
+        mesh = self._local_mesh()
+        batch_target = len(mesh)
+
+        def decode_batch(groups):
+            """groups: [(block_id, [(rec, offset), ...]), ...] consecutive.
+            Returns [gts_list_per_group]."""
+            payloads = [self.xsi.gt_block_payload(block_id)
+                        for block_id, _ in groups]
+            decs = [TorchBlockDecoder(p, self.n_samples, self.n_haps,
+                                      self.xsi.aet_dtype,
+                                      device=self.torch_device)
+                    for p in payloads]
+            mesh_decode_all([d for d in decs if d.eligible], mesh)
+            return [decode_block_records(
+                p, self.n_samples, self.n_haps, self.xsi.aet_dtype,
                 [r.n_allele for r, _ in recs], [off for _, off in recs],
-                device=self.torch_device)
+                predecoded=d)
+                for p, d, (_, recs) in zip(payloads, decs, groups)]
+
+        pending: list = []        # (rec, offset) of the current block
+        pending_block = -1
+        batch: list = []          # [(block_id, recs)] awaiting decode
+        in_flight = None          # (groups, Future[list[gts]])
+
+        def emit(done):
+            for (_, recs), gts in zip(done[0], done[1].result()):
+                yield from zip((r for r, _ in recs), gts)
 
         with ThreadPoolExecutor(max_workers=1) as executor:
-            in_flight = None      # (records, Future[list[gt]])
-            pending: list = []    # (rec, offset) of the current block
-            pending_block = -1
-
-            def flush():
-                nonlocal in_flight, pending
+            def flush_batch():
+                nonlocal in_flight, batch
+                groups, batch = batch, []
                 prev = in_flight
-                in_flight = (pending, executor.submit(decode, pending_block,
-                                                      pending))
-                pending = []
+                in_flight = (groups, executor.submit(decode_batch, groups))
                 return prev
 
             for rec, bm in self.iter_variant_records():
                 block_id = _block_of(bm)
                 if block_id != pending_block:
                     if pending:
-                        prev = flush()
-                        if prev is not None:
-                            yield from zip((r for r, _ in prev[0]),
-                                           prev[1].result())
+                        batch.append((pending_block, pending))
+                        pending = []
                     pending_block = block_id
+                    if len(batch) >= batch_target:
+                        prev = flush_batch()
+                        if prev is not None:
+                            yield from emit(prev)
                 pending.append((rec, bm & _OFFSET_MASK))
             if pending:
-                prev = flush()
+                batch.append((pending_block, pending))
+            if batch:
+                prev = flush_batch()
                 if prev is not None:
-                    yield from zip((r for r, _ in prev[0]), prev[1].result())
+                    yield from emit(prev)
             if in_flight is not None:
-                yield from zip((r for r, _ in in_flight[0]),
-                               in_flight[1].result())
+                yield from emit(in_flight)

@@ -558,7 +558,11 @@ class BcfWriter:
     def write_record(self, rec: BcfRecord) -> None:
         self.write_raw(rec.shared, rec.indiv)
 
-    def close(self):
+    def close(self, write_eof: bool = True):
+        """write_eof=False ends a records-only BODY segment without the
+        BGZF EOF marker (BgzfWriter.finish)."""
+        if not self._f.closed:
+            self._f.finish(write_eof=write_eof)
         self._f.close()
 
 

@@ -156,10 +156,10 @@ def _launch(name: str, device, K: int, *args) -> None:
     and count the launch under its route."""
     if K == 1:
         _build.launch(device, f"xsi_{name}", *args)
-        launches[name] += 1
+        _build.count(launches, name)
     else:
         _build.launch(device, f"xsi_{name}_cluster", *args, K)
-        launches[f"{name}_cluster"] += 1
+        _build.count(launches, f"{name}_cluster")
 
 
 def chain_encode(q0: torch.Tensor, ss: torch.Tensor,

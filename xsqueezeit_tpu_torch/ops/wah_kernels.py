@@ -100,7 +100,7 @@ def _expand(name: str, stream: torch.Tensor, n_lines: int, w: int,
                   out.data_ptr(), n_lines, w, w if h is None else h,
                   int(group_off is not None), int(h is not None),
                   line_threads)
-    launches[name] += 1
+    _build.count(launches, name)
     return out
 
 
@@ -179,7 +179,7 @@ def _compress(name: str, src: torch.Tensor, ld: int, L: int, w: int,
     n_out = torch.empty(L, dtype=torch.int32, device=src.device)
     _build.launch(src.device, "xsi_wah_compress", src.data_ptr(), ld,
                   out.data_ptr(), n_out.data_ptr(), L, w, h, int(bits))
-    launches[name] += 1
+    _build.count(launches, name)
     return out, n_out
 
 
