@@ -76,7 +76,19 @@ exactly:
 9. the port's headline benchmark, `python -m
    xsqueezeit_tpu_torch.bench.headline` in its own process (bench.py's
    workload and keys, its own bit-exact checks): exit 0 and its JSON
-   line required, the line printed.
+   line required, the line printed;
+10. the native host library (native_build_phase after the kernels' build,
+   native_phase after the file phases): g++'s version, whether zlib.h,
+   zstd.h and libdeflate.h and libz.so.1 are there, both libraries built
+   from xsqueezeit_tpu_torch/native (forced) and their seconds; then on
+   the file phase's input `cli -c --device cuda` with the native routes,
+   with XSI_NATIVE=0 and on `--device numpy` (.xsi, _var.bcf, .csi
+   byte-equal; chain_encode and wah_compress_bits once per block on both
+   cuda runs), `cli -x` on cuda to VCF and on numpy to BCF (the input's
+   genotypes), a block's host ingest and the 1KGP3-chrX block's host
+   parse with the native routes and without (carriers and records equal),
+   c_api_test and c_xcf_test built with gcc against the port's libraries
+   (their genotypes the Accessor's), and `loading_time --native`.
 
 Any failure exits non-zero; the last line of standard output is the result
 JSON, the line before it the card's name and power limit.
@@ -123,6 +135,7 @@ TOPMED_SAMPLES = 97256
 MALES = 1233
 #: Exception-track blocks at 1KGP3 width (the 1KGP3 block's alleles).
 TRACK_BLOCKS = ("1KGP3-missing", "1KGP3-chrX")
+TRACK_PAYLOADS: dict = {}  # name -> (payload, samples): track_block_phase
 MIXED_BLOCK = "chrX-males-PAR"
 ONE_CTA = ("chain_encode", "chain_decode", "wah_expand_bits",
            "wah_compress_bits")
@@ -1100,6 +1113,7 @@ def track_block_phase(name: str, card: str) -> dict:
         name, enc, lambda p: decoder_torch.decode_block_records(
             p, n_samples, H, np.uint16, [2] * L, device=DEVICE),
         ref_payload, gt)
+    TRACK_PAYLOADS[name] = (payload, n_samples)    # for the native phase
 
     # ---- the fused decode, and the timings (bench.py's unit) ----------
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, np.uint16,
@@ -1930,6 +1944,263 @@ def bench_phase(card: str) -> dict:
     return result
 
 
+NATIVE_WORK = os.path.join(REPO, ".bench_work", "chip_smoke_native")
+#: the 1KGP3-chrX block's decode with the lifting walk, PERF.md section 5
+RUN_D_CHRX_DECODE_MS = 1203.0
+
+
+@contextlib.contextmanager
+def environ(**kw):
+    """os.environ with `kw` set (None: unset) for the block's duration."""
+    old = {k: os.environ.get(k) for k in kw}
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def native_build_phase() -> dict:
+    """The port's native host library, built from
+    xsqueezeit_tpu_torch/native with g++ (its own copy of native/): the
+    machine's compiler and headers, then both libraries, forced."""
+    from xsqueezeit_tpu_torch.interop import native
+
+    gxx = run([native.CXX, "--version"]).splitlines()[0]
+    headers = {h: native._compiles((), f"#include <{h}>\nint main()"
+                                       "{return 0;}\n")
+               for h in ("zlib.h", "zstd.h", "libdeflate.h")}
+    import ctypes.util
+    libz = ctypes.util.find_library("z")
+    flags, libs = native.build_flags()
+    secs = {}
+    for name, fn in (("libxsqueezeit_tpu", native.build_native),
+                     ("libxsqueezeit", native.build_c_api)):
+        fn(force=True)
+        secs[name] = native.last_build_seconds
+    native.load_library()
+    print(f"[native] {gxx}; headers {json.dumps(headers)}; libz: {libz}; "
+          f"flags {' '.join(flags)} {' '.join(libs)}; build seconds "
+          f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    require(headers["zlib.h"] and libz is not None,
+            "zlib.h or libz.so.1 missing: the native library cannot build")
+    return {"gxx": gxx, "headers": headers, "libz": libz,
+            "flags": flags + libs, "build_seconds": secs}
+
+
+def native_phase(card: str) -> dict:
+    """The native host library on the file phase's input (2504 samples x
+    16,384 phased records, two 8192-record blocks, kept in SCALE_WORK):
+    `cli -c --device cuda` with the native routes on, with XSI_NATIVE=0,
+    and `--device numpy` (the native block encoder) in this process:
+    .xsi, _var.bcf and .csi byte-equal across the three, chain_encode and
+    wah_compress_bits launched once per block on both cuda runs (every
+    counter set to 0 just before each run and read just after); `cli -x
+    --device cuda` to VCF (native offsets walk and GT formatter) and `cli
+    -x --device numpy` to BCF (the native extract loop), each with the
+    input's records and genotypes; the host ingest of the first block
+    (TorchBlockEncoder.encode_records) with the native ingest and with
+    NumPy's; the 1KGP3-chrX block's host parse (TorchBlockDecoder's
+    host inputs and the track walk) with the native offsets walk and with
+    the lifting walk, carriers equal; c_api_test and c_xcf_test built with
+    gcc against the port's libraries and run on the .xsi, their genotypes
+    the Accessor's; and `bench loading_time --native` on it.  Wall times
+    are printed beside the card."""
+    from xsqueezeit_tpu_torch import cli
+    from xsqueezeit_tpu_torch.accessor import Accessor
+    from xsqueezeit_tpu_torch.bench import tools
+    from xsqueezeit_tpu_torch.interop import native
+    from xsqueezeit_tpu_torch.io.bcf import BcfReader
+
+    src = os.path.join(SCALE_WORK, "in.bcf")
+    shutil.rmtree(NATIVE_WORK, ignore_errors=True)
+    os.makedirs(NATIVE_WORK)
+    secs, launches = {}, {}
+    flags, _ = native.build_flags()
+    # the emitter's bytes are zlib's (the Python writer's) unless the
+    # build found libdeflate; then its zlib mode is asked for
+    zlib_mode = "1" if "-DUSE_LIBDEFLATE" in flags else None
+
+    def path(*f):
+        return os.path.join(NATIVE_WORK, *f)
+
+    def run_cli(key, args, **env):
+        reset_counts()
+        t0 = time.perf_counter()
+        with environ(XSI_EMIT_ZLIB=zlib_mode, **env):
+            rc = cli.main(args)
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        launches[key] = {k: v for k, v in read_counts().items() if v}
+        require(rc == 0, f"[native] cli {' '.join(args)}: exit {rc}")
+
+    def read(f):
+        with open(f, "rb") as fh:
+            return fh.read()
+
+    try:
+        n_blocks = -(-FILE_RECORDS // L)
+        runs = (("native", DEVICE, {}), ("off", DEVICE, {"XSI_NATIVE": "0"}),
+                ("numpy", "numpy", {}))
+        for key, device, env in runs:
+            os.makedirs(path(key))
+            run_cli(f"compress_{key}", ["-c", "-f", src, "-o",
+                                        path(key, "o.xsi"), "--device",
+                                        device, "--variant-block-length",
+                                        str(L)], **env)
+        for sfx in ("", "_var.bcf", "_var.bcf.csi"):
+            a = read(path("native", "o.xsi" + sfx))
+            for key in ("off", "numpy"):
+                require(read(path(key, "o.xsi" + sfx)) == a,
+                        f"[native] o.xsi{sfx}: -c {key} differs from -c "
+                        "with the native routes")
+        for key in ("compress_native", "compress_off"):
+            for route in ENCODE_ROUTES:
+                require(launches[key].get(route) == n_blocks,
+                        f"[native] {key}: {route} launched "
+                        f"{launches[key].get(route)} times, not once per "
+                        f"block ({n_blocks})")
+        xsi = path("native", "o.xsi")
+        run_cli("extract_cuda_vcf", ["-x", "-f", xsi, "-o",
+                                     path("out.vcf"), "--device", DEVICE])
+        run_cli("extract_numpy_bcf", ["-x", "-f", xsi, "-o",
+                                      path("out.bcf"), "--device", "numpy"])
+        t0 = time.perf_counter()
+        for out in ("out.vcf", "out.bcf"):
+            a_in, b_in = GtInput(src), GtInput(path(out))
+            n = bad = 0
+            for a, b in zip(a_in, b_in):
+                n += 1
+                bad += int(a.n_alleles != b.n_alleles
+                           or not np.array_equal(a.gt, b.gt))
+            n += sum(1 for _ in b_in)
+            a_in.close()
+            b_in.close()
+            require(n == FILE_RECORDS and bad == 0,
+                    f"[native] -x to {out}: {bad} records differ, {n} read")
+        secs["compare_extracts"] = time.perf_counter() - t0
+
+        # ---- the host ingest of one block, native and NumPy ----------
+        inp = GtInput(src)
+        gt_all, offs, na, _, n = next(inp.iter_gt_batches())
+        inp.close()
+        n_samples = FILE_SAMPLES
+        kw = dict(n_samples=n_samples, block_bcf_lines=L,
+                  mac_threshold=int(2 * n_samples * 0.001),
+                  default_phasing=1, aet_dtype=np.uint16)
+
+        def ingest():
+            enc = encoder_torch.TorchBlockEncoder(device=DEVICE, **kw)
+            enc.encode_records(gt_all, offs, na, 0, min(n, L))
+            return enc
+
+        ingest_ms = {}
+        for key, env in (("native", {}), ("numpy", {"XSI_NATIVE": "0"})):
+            with environ(**env):
+                ingest_ms[key] = wall_ms(ingest, iters=3, warmup=1)
+        with environ(XSI_NATIVE="0"):
+            want = ingest().serialize()
+        require(ingest().serialize() == want,
+                "[native] payload of the native ingest differs from NumPy's")
+
+        # ---- the chrX block's host parse, native and lifting ---------
+        payload, n_chrx = TRACK_PAYLOADS["1KGP3-chrX"]
+        H = 2 * n_chrx
+        dec = decoder_torch.TorchBlockDecoder(payload, n_chrx, H, np.uint16,
+                                              device=DEVICE)
+        m = dec.meta
+
+        def parse():
+            dec.host_inputs()
+            return [decoder_torch.track_carriers(s, np.flatnonzero(f),
+                                                 np.uint16)
+                    for s, f in ((m.missing_sparse, m.line_has_missing),
+                                 (m.eov_sparse, m.line_has_eov))
+                    if f is not None]
+
+        parse_ms, carriers = {}, {}
+        for key, env in (("native", {}), ("lifting", {"XSI_NATIVE": "0"})):
+            with environ(**env):
+                carriers[key] = parse()
+                parse_ms[key] = wall_ms(parse, iters=3, warmup=1)
+        require(len(carriers["native"]) == len(carriers["lifting"]) and all(
+            np.array_equal(x, y) for a, b in zip(carriers["native"],
+                                                 carriers["lifting"])
+            for x, y in zip(a, b)),
+            "[native] chrX carriers of the native walk differ from the "
+            "lifting walk's")
+        with environ(XSI_NATIVE="0"):
+            want = decoder_torch.decode_block_records(
+                payload, n_chrx, H, np.uint16, [2] * L, device=DEVICE)
+        t0 = time.perf_counter()
+        got = decoder_torch.decode_block_records(
+            payload, n_chrx, H, np.uint16, [2] * L, device=DEVICE)
+        secs["chrx_decode_records_native"] = time.perf_counter() - t0
+        require(all(np.array_equal(a, b) for a, b in zip(got, want))
+                and len(got) == len(want) == L,
+                "[native] chrX decode_block_records differs between walks")
+        del got, want
+
+        # ---- the C API programs ---------------------------------------
+        t0 = time.perf_counter()
+        progs = native.build_c_api_tests(NATIVE_WORK)
+        secs["build_c_api_tests"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_api = run([progs["c_api_test"], xsi])
+        out_xcf = run([progs["c_xcf_test"], xsi + "_var.bcf"])
+        secs["c_programs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        acc = Accessor(xsi)
+        reader = BcfReader(acc.variant_filename())
+        chk, total = [], 0
+        for rec in reader:
+            g = acc.get_genotypes(rec).astype(np.int64)
+            total += int(g.sum())
+            chk.append(int((g * np.arange(1, g.shape[0] + 1)).sum()))
+        reader.close()
+        secs["accessor_walk"] = time.perf_counter() - t0
+        got = [int(line.split()[-1]) for line in out_xcf.splitlines()
+               if line.startswith("record ")]
+        require(f"records_read={FILE_RECORDS} gt_checksum={total}"
+                in out_api, f"[native] c_api_test: {out_api.strip()[-200:]}")
+        require(got == chk, f"[native] c_xcf_test: {len(got)} checksums, "
+                            f"{sum(a != b for a, b in zip(got, chk))} "
+                            "differ from the Accessor's")
+
+        lt = tools.loading_time(xsi, native=True)
+        require(lt["records"] == FILE_RECORDS,
+                f"[native] loading_time --native read {lt['records']}")
+    finally:
+        shutil.rmtree(NATIVE_WORK, ignore_errors=True)
+    print(f"[native] {FILE_RECORDS} records x {FILE_SAMPLES} samples: -c "
+          f"--device {DEVICE} native / XSI_NATIVE=0 / --device numpy "
+          f".xsi, _var.bcf, .csi byte-equal (XSI_EMIT_ZLIB={zlib_mode}); "
+          f"launches {json.dumps({k: launches[k] for k in launches})}; -x "
+          f"--device {DEVICE} to VCF and --device numpy to BCF: the input's "
+          "genotypes on every record; c_api_test and c_xcf_test equal to "
+          "the Accessor on every record")
+    print(f"[native] seconds: "
+          f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    print(f"[native] host ingest of one {L}-record block "
+          f"(encode_records): native {ingest_ms['native']:.1f} ms, NumPy "
+          f"{ingest_ms['numpy']:.1f} ms | 1KGP3-chrX host parse (host "
+          f"inputs + track walk): native {parse_ms['native']:.1f} ms, "
+          f"lifting {parse_ms['lifting']:.1f} ms (run D's whole decode: "
+          f"{RUN_D_CHRX_DECODE_MS} ms) | loading_time --native "
+          f"{json.dumps(lt)} ({card})")
+    return {"seconds": secs, "launches": launches, "ingest_ms": ingest_ms,
+            "chrx_parse_ms": parse_ms, "loading_time_native": lt,
+            "emit_zlib": zlib_mode}
+
+
 def main() -> int:
     phases = {}
 
@@ -1942,6 +2213,7 @@ def main() -> int:
 
     card = phase("machine", machine_facts)
     phase("build", build_kernels)
+    native_build = phase("native_build", native_build_phase)
     rows, checks = phase("kernels", check_kernels, card)
     blocks = {name: phase(f"block_{name}", block_phase, name, n, seed, card)
               for name, n, seed in BLOCKS}
@@ -1955,6 +2227,7 @@ def main() -> int:
              "file-wide": phase("file-wide", file_phase, card, "file-wide",
                                 0.01, True, TOPMED_SAMPLES,
                                 WIDE_FILE_RECORDS)}
+    nat = phase("native", native_phase, card)
     tools = phase("tools", tools_phase, card)
     scale = phase("scale", scale_phase, card)
     bench = phase("bench", bench_phase, card)
@@ -1970,7 +2243,9 @@ def main() -> int:
     print(json.dumps({"blocks": {k: {x: v for x, v in b.items()
                                      if x != "launches"}
                                  for k, b in blocks.items()},
-                      "files": files, "tools": tools, "scale": scale,
+                      "files": files, "native": nat,
+                      "native_build": native_build,
+                      "tools": tools, "scale": scale,
                       "bench": bench,
                       "phase_seconds": phases,
                       "card": card}))

@@ -16,6 +16,7 @@ pytest.importorskip("torch")
 from xsqueezeit_tpu.accessor import Accessor as JaxAccessor
 from xsqueezeit_tpu.cli import main as jax_cli
 from xsqueezeit_tpu.codec.decompressor import Decompressor as JaxDecompressor
+from xsqueezeit_tpu.interop.native import NativeAccessor as JaxNativeAccessor
 from xsqueezeit_tpu.io.unified import GtInput as JaxInput
 from xsqueezeit_tpu.io.unified import count_entries as jax_count_entries
 from xsqueezeit_tpu.mixed import Xcf as JaxXcf
@@ -147,16 +148,29 @@ def test_split_bm_and_names(compressed):
         Accessor.xsi_filename_from_variant(xsi)
 
 
-def test_micro_fixtures_match(micro):
+def test_micro_fixtures_match(micro, monkeypatch):
     """Every exception-track, haploid and mixed-ploidy fixture: genotypes,
     allele counts and internal access per record, in reverse order (every
     step a backward seek), equal to the JAX package's; `haploid` says
-    which lines hold one slot per sample."""
+    which lines hold one slot per sample.  Allele counts come from the
+    native count-only engine, equal to the JAX package's native engine;
+    with XSI_NATIVE=0 from the Python decoder, equal to the JAX package's
+    Python route."""
     name, vcf, xsi = micro
     acc, jacc = Accessor(xsi), JaxAccessor(xsi)
+    jnat = JaxNativeAccessor(xsi)
     recs = _variant_records(xsi)
     orig = _input_gts(vcf)
     assert len(recs) == len(orig) > 0
+    for i in reversed(range(len(recs))):
+        rec = recs[i]
+        np.testing.assert_array_equal(acc.get_allele_counts(rec),
+                                      jnat.fill_allele_counts_bm(
+                                          acc.position_from_bm_entry(rec),
+                                          rec.n_allele))
+    jnat.close()
+    monkeypatch.setenv("XSI_NATIVE", "0")
+    acc = Accessor(xsi)
     for i in reversed(range(len(recs))):
         rec = recs[i]
         np.testing.assert_array_equal(acc.get_genotypes(rec), orig[i],

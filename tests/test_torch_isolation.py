@@ -120,3 +120,81 @@ def test_port_runs_with_jax_and_the_jax_package_refused(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "imported" in r.stdout
     assert read_all(out)[0] == read_all(vcf)[0]
+
+
+AUDITED = textwrap.dedent("""
+    import os, sys
+
+    REPO, BCF, WORK = sys.argv[1:4]
+    events = []
+
+    def hook(event, args):
+        if event in ("open", "ctypes.dlopen", "subprocess.Popen"):
+            events.append((event, args))
+
+    sys.addaudithook(hook)
+    FORBIDDEN = ("jax", "jaxlib", "xsqueezeit_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in FORBIDDEN:
+                raise ImportError(f"{name} is refused in this process")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    from xsqueezeit_tpu_torch.bench.__main__ import main as bench_main
+    from xsqueezeit_tpu_torch.cli import main
+    from xsqueezeit_tpu_torch.interop import native
+
+    native.build_c_api(force=True)     # a build this process surely runs
+    for device in ("cpu", "numpy"):
+        xsi = os.path.join(WORK, device + ".xsi")
+        assert main(["-c", "-f", BCF, "-o", xsi, "--device", device,
+                     "--variant-block-length", "40"]) == 0
+        for out in ("o.vcf", "o.bcf"):
+            assert main(["-x", "-f", xsi, "-o",
+                         os.path.join(WORK, device + out),
+                         "--device", device]) == 0
+    assert bench_main(["loading_time", xsi, "--native"]) == 0
+    build = os.path.join(REPO, "xsqueezeit_tpu_torch", "build")
+    src = os.path.join(REPO, "xsqueezeit_tpu_torch", "native")
+    jax_native = os.path.join(REPO, "native")
+    loaded = [str(a[0]) for e, a in events if e == "ctypes.dlopen"
+              and "xsqueezeit" in str(a[0])]
+    assert loaded and all(p.startswith(build + os.sep) for p in loaded), \\
+        loaded
+    opened = [str(a[0]) for e, a in events if e == "open"]
+    assert not [p for p in opened if p.startswith(jax_native + os.sep)]
+    runs = [list(map(str, a[1])) for e, a in events
+            if e == "subprocess.Popen"]
+    compiles = [r for r in runs if any(x.endswith(".cpp") for x in r)]
+    assert compiles, runs
+    assert not [r for r in runs if os.path.basename(r[0]) == "make"]
+    for r in compiles:
+        for x in r:
+            assert not x.startswith(jax_native + os.sep), r
+            if x.endswith(".cpp"):
+                assert x.startswith(src + os.sep), r
+            if x.endswith(".so") or ".so." in x:
+                assert x.startswith(build + os.sep), r
+    print("loaded", sorted(set(loaded)))
+""")
+
+
+def test_native_library_builds_and_loads_only_from_the_port(tmp_path):
+    """With the JAX package refused, the port builds its native libraries
+    from xsqueezeit_tpu_torch/native/ into xsqueezeit_tpu_torch/build/ and
+    loads them only from there (CLI -c / -x on cpu and numpy, a BCF input,
+    and loading_time --native); it never opens the JAX package's native/
+    directory nor runs make."""
+    pytest.importorskip("torch")
+    from xsqueezeit_tpu_torch.bench.synth import synth_bcf
+
+    bcf = str(tmp_path / "in.bcf")
+    synth_bcf(bcf, 90, 30, seed=8)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", AUDITED, REPO, bcf,
+                        str(tmp_path)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stderr
+    assert "libxsqueezeit_tpu.so" in r.stdout

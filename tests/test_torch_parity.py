@@ -5,7 +5,9 @@ padding), per-record decode, the container and header, the variant BCF,
 its CSI index, and the CLI's -c / -x files.  The JAX package is the
 reference; its CLI runs on its host codec (the tests pin XSI_DEVICE=numpy,
 tests/conftest.py).  Tolerance: exact equality."""
+import difflib
 import os
+import re
 
 import numpy as np
 import pytest
@@ -26,6 +28,8 @@ from xsqueezeit_tpu_torch.format.container import XsiReader
 from xsqueezeit_tpu_torch.format.header import XsiHeader
 from xsqueezeit_tpu_torch.io.unified import GtInput
 from tests import fixtures
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _zero_alt(path):
@@ -167,3 +171,85 @@ def test_container_and_header_match(tmp_path, zstd):
     assert r.samples == jr.samples and r.n_blocks() == jr.n_blocks() > 1
     for b in range(r.n_blocks()):
         assert bytes(r.gt_block_payload(b)) == bytes(jr.gt_block_payload(b))
+
+
+# ---------------------------------------------------------- the copies
+#: The two declared changes of the port's copies of native/: (removed,
+#: added) text of each hunk.  Every other file is byte-equal.
+DECLARED = {
+    "xsi_accessor.cpp": [
+        ("", "#ifdef XSI_HAVE_ZSTD\n"),
+        ("", "#endif\n"),
+        ("", '#ifndef XSI_HAVE_ZSTD\n      set_error("zstd-compressed '
+             'container, but this library was built "\n                '
+             '"without zstd (zstd.h not found)");\n      return nullptr;\n'
+             '#else\n'),
+        ("", "#endif\n"),
+        ("", '#ifndef XSI_HAVE_ZSTD\n  if (f->header.specific_bitset & 4) '
+             '{\n    set_error("zstd-compressed container, but this library '
+             'was built "\n              "without zstd (zstd.h not found)");'
+             '\n    return nullptr;\n  }\n#endif\n'),
+    ],
+    "c_api.cpp": [
+        ("", "  bool read_error = false;     // a gzip read error, not yet "
+             "reported\n"),
+        ('        if (g < 0) {\n          // a corrupt deflate stream must '
+         'not read as a clean EOF —\n          // surface it once and stop '
+         '(no errnum channel in the shim)\n          int errnum = 0;\n     '
+         '     const char *msg = gzerror(gzf, &errnum);\n          fprintf('
+         'stderr, "c_xcf: gzip read error (%s) — input truncated "\n       '
+         '                   "at this point\\n",\n                  msg && '
+         '*msg ? msg : "unknown zlib error");\n',
+         '        int errnum = Z_OK;\n        const char *msg = g <= 0 ? '
+         'gzerror(gzf, &errnum) : nullptr;\n        if (g < 0 || (g == 0 && '
+         'errnum == Z_BUF_ERROR)) {\n          // a corrupt deflate stream, '
+         'or one cut short (zlib reports\n          // Z_BUF_ERROR at its '
+         'end), must not read as a clean EOF —\n          // report it once '
+         'and stop (bcf_sr_next_line returns -2)\n          fprintf(stderr, '
+         '"c_xcf: gzip read error (%s)\\n",\n                  g < 0 && msg '
+         '&& *msg ? msg\n                                       : "input '
+         'ends inside a gzip stream");\n          read_error = true;\n'),
+        ("", "  bool read_error = false;\n"),
+        ("", "    if (r->read_error) {\n      r->read_error = false;       "
+             "// reported once; the reader is at EOF\n      read_error = "
+             "true;\n    }\n"),
+        ("", "  // htslib's convention for a failed read (bcf_read < -1): a "
+             "corrupt or\n  // truncated input must not read as a clean end "
+             "of file\n  if (read_error) return -2;\n"),
+    ],
+}
+
+
+def _tree(root):
+    out = set()
+    for d, _, files in os.walk(root):
+        out |= {os.path.relpath(os.path.join(d, f), root) for f in files}
+    return out
+
+
+def test_native_copies_equal_the_originals_but_the_declared_changes():
+    """The port's copy of native/ (its C++ sources and headers, the htslib
+    shim and the two C API test programs) is byte-equal to the JAX
+    package's but for the two declared changes: zstd only where zstd.h is
+    found, and the C API's gzip read error reported as an error.  Its
+    comments name the xSqueezeIt reference's files without the directory
+    the originals give for the reference tree."""
+    orig_dir = os.path.join(REPO, "native")
+    port_dir = os.path.join(REPO, "xsqueezeit_tpu_torch", "native")
+    want = {f for f in _tree(orig_dir)
+            if f.endswith((".cpp", ".h")) or f.startswith("hts_shim")
+            or f in ("c_api_test.c", "c_xcf_test.c")}
+    assert _tree(port_dir) == want
+    for rel in sorted(want):
+        a, b = (_read(os.path.join(d, rel)).decode()
+                for d in (orig_dir, port_dir))
+        a = re.sub(r"/\w+/reference/", "the xSqueezeIt reference's ", a)
+        if rel not in DECLARED:
+            assert a == b, rel
+            continue
+        al, bl = a.splitlines(keepends=True), b.splitlines(keepends=True)
+        hunks = [("".join(al[i1:i2]), "".join(bl[j1:j2]))
+                 for op, i1, i2, j1, j2 in difflib.SequenceMatcher(
+                     None, al, bl, autojunk=False).get_opcodes()
+                 if op != "equal"]
+        assert hunks == DECLARED[rel], rel

@@ -231,8 +231,16 @@ def test_af_stats(compressed):
     assert tools.af_stats(xsi)["logical_gb_s"] is not None
 
 
-def test_af_stats_on_every_fixture(micro):
+def test_af_stats_on_every_fixture(micro, monkeypatch):
+    """The port's native walk equals the JAX package's native walk (its
+    route without XSI_DEVICE), and with XSI_NATIVE=0 its Python walk
+    equals the JAX package's Python walk."""
     _, vcf, xsi = micro
+    got = tools.af_stats(xsi)["stats"]
+    monkeypatch.setenv("XSI_DEVICE", "auto")
+    assert got == jax_tools.af_stats(xsi)["stats"]
+    monkeypatch.setenv("XSI_DEVICE", "numpy")
+    monkeypatch.setenv("XSI_NATIVE", "0")
     assert tools.af_stats(xsi)["stats"] == jax_tools.af_stats(xsi)["stats"]
     assert tools.af_stats(vcf)["stats"] == jax_tools.af_stats(vcf)["stats"]
 

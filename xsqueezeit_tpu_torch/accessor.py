@@ -1,8 +1,8 @@
 """Random-access Accessor API.
 
-The port's copy of xsqueezeit_tpu/accessor.py, without the native
-count-only engine (the port has no native library): every record decodes
-on the host with the port's GtBlockDecoder.
+The port's copy of xsqueezeit_tpu/accessor.py: genotypes decode on the
+host with the port's GtBlockDecoder; allele counts come from the native
+count-only engine (interop/native.py) unless XSI_NATIVE=0.
 
 Python counterpart of the reference's `Accessor` class
 (the xSqueezeIt reference's include/accessor.hpp): open a `.xsi` file,
@@ -25,6 +25,7 @@ import numpy as np
 
 from .format.constants import BM_BLOCK_BITS, XSI_BCF_VAR_EXTENSION
 from .format.container import XsiReader
+from .interop import native
 from .codec.gt_block_decoder import GtBlockDecoder
 
 
@@ -55,6 +56,8 @@ class InternalGtAccess:
 
 
 class Accessor:
+    _nat_acc = None     # the native engine, opened at first count
+
     def __init__(self, path: str):
         self.path = path
         self.xsi = XsiReader(path)
@@ -107,10 +110,33 @@ class Accessor:
         dec.seek(offset)
         return dec.fill_genotype_array_advance(n_alleles)
 
+    def _native(self):
+        """Native count-only engine (native/xsi_accessor.cpp), opened at
+        first use; None for a container it does not decode
+        (native.decodes) or with XSI_NATIVE=0.  A build or open failure
+        raises."""
+        if (self._nat_acc is None and native.decodes(self.xsi.aet_dtype)
+                and native.enabled()):
+            self._nat_acc = native.NativeAccessor(self.path)
+        return self._nat_acc
+
+    def close(self) -> None:
+        if self._nat_acc is not None:
+            self._nat_acc.close()
+            self._nat_acc = None
+
+    def __del__(self):
+        self.close()
+
     def fill_allele_counts(self, bm: int, n_alleles: int) -> np.ndarray:
         """AC per allele without materializing genotypes (reference
         count-only path accessor_internals_new.hpp:407-438): WAH popcounts
-        and sparse lengths off the block decoder's cursor."""
+        and sparse lengths straight off the compressed forms — natively
+        (xsi_fill_allele_counts_bm), or off the block decoder's cursor
+        with XSI_NATIVE=0."""
+        acc = self._native()
+        if acc is not None:
+            return acc.fill_allele_counts_bm(bm, n_alleles)
         block_id, offset = self.split_bm(bm)
         dec = self._decoder(block_id)
         dec.seek(offset)
@@ -118,7 +144,13 @@ class Accessor:
 
     def fill_allele_counts_range(self, bms, n_alleles) -> "np.ndarray":
         """AC of many records, flat int64 counts back-to-back (sum of
-        n_alleles entries): the af_stats walk, one record at a time."""
+        n_alleles entries): the af_stats walk, in ONE native crossing
+        (xsi_count_alleles_range: sparse heads + WAH run-word popcounts,
+        no gt arrays, no PBWT upkeep), or one record at a time with
+        XSI_NATIVE=0."""
+        acc = self._native()
+        if acc is not None:
+            return acc.count_alleles_range(bms, n_alleles)
         return np.concatenate(
             [self.fill_allele_counts(int(bm), int(na))
              for bm, na in zip(bms, n_alleles)]) if len(bms) else \

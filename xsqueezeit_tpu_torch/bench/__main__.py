@@ -1,10 +1,9 @@
 """Tool-suite entry point — counterparts of the reference's standalone
 benchmark/validation binaries (loading_time/, dot_prod/, af_stats/,
 lockstep_loader/) and the xcf.cpp test-data generators.  The port's copy
-of xsqueezeit_tpu/bench/__main__.py, without `loading_time --native` (no
-native library).
+of xsqueezeit_tpu/bench/__main__.py.
 
-    python -m xsqueezeit_tpu_torch.bench loading_time  FILE
+    python -m xsqueezeit_tpu_torch.bench loading_time  FILE [--native]
     python -m xsqueezeit_tpu_torch.bench dot_prod      FILE [--seed N]
                                                   [--device cuda|cpu|host]
     python -m xsqueezeit_tpu_torch.bench af_stats      FILE [--summary]
@@ -48,6 +47,8 @@ def main(argv: list[str] | None = None) -> int:
 
     s = sub.add_parser("loading_time")
     s.add_argument("file")
+    s.add_argument("--native", action="store_true",
+                   help="read through the C++ accessor library (XSI only)")
     s = sub.add_parser("dot_prod")
     s.add_argument("file")
     s.add_argument("--seed", type=int, default=42)
@@ -139,7 +140,7 @@ def main(argv: list[str] | None = None) -> int:
 def _dispatch(args) -> int:
     if args.cmd == "loading_time":
         from .tools import loading_time
-        print(json.dumps(loading_time(args.file)))
+        print(json.dumps(loading_time(args.file, native=args.native)))
     elif args.cmd == "dot_prod":
         from .tools import dot_prod
         out = dot_prod(args.file, seed=args.seed, device=args.device)

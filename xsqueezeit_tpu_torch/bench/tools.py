@@ -18,8 +18,9 @@ The port's copy of xsqueezeit_tpu/bench/tools.py:
                   (torch.distributed, gloo on localhost), with the
                   modelled dedicated-host wall clock broken out
 
-Not copied: the native accessor (`loading_time --native`, the native
-af_stats walk).  A haploid line
+`loading_time --native` reads an XSI through the port's native accessor,
+and af_stats walks it natively (interop/native.py; XSI_NATIVE=0 takes
+the Python record reader; a native failure raises).  A haploid line
 stores sample indices and is n_samples bits wide: dot_prod maps its
 carriers to samples one to one (the JAX package's XSI walk halves them),
 and the device product takes y itself on a uniformly haploid block.
@@ -62,15 +63,28 @@ def iter_genotypes(path: str):
         inp.close()
 
 
-def loading_time(path: str) -> dict:
-    """Load every record's gt array; returns timing stats."""
+def loading_time(path: str, native: bool = False) -> dict:
+    """Load every record's gt array; returns timing stats.
+
+    `native=True` reads an XSI file through the C++ accessor library
+    (the integration path, reference: loading_time/ NewLoader)."""
     t0 = time.perf_counter()
     n_records = 0
     n_gt = 0
-    for n_alleles, gt in iter_genotypes(path):
-        n_records += 1
-        if gt is not None:
-            n_gt += gt.shape[0]
+    if native:
+        from ..interop.native import NativeAccessor
+        acc = NativeAccessor(path)
+        try:
+            for n_alleles, gt in acc:
+                n_records += 1
+                n_gt += gt.shape[0]
+        finally:
+            acc.close()
+    else:
+        for n_alleles, gt in iter_genotypes(path):
+            n_records += 1
+            if gt is not None:
+                n_gt += gt.shape[0]
     elapsed = time.perf_counter() - t0
     return {"records": n_records, "gt_entries": n_gt, "seconds": elapsed,
             "gt_per_second": n_gt / elapsed if elapsed else 0.0}
@@ -271,6 +285,23 @@ def af_stats(path: str, annotate_out: str | None = None) -> dict:
 
         acc = Accessor(path)
         n_haps = acc.n_haps
+        nat = acc._native()
+        if nat is not None and not annotate_out:
+            # fully native walk: ONE crossing scans every (BM, n_allele)
+            # off the variant file, ONE crossing counts every record off
+            # the compressed streams — no Python record objects at all.
+            # A native error raises (and the accessor is closed).
+            try:
+                bms, nas = nat.scan_records()
+                flat = nat.count_alleles_range(bms, nas)
+            finally:
+                acc.close()
+            offs = np.zeros(len(nas) + 1, np.int64)
+            np.cumsum(nas, out=offs[1:])
+            for i in range(len(nas)):
+                counts = flat[offs[i]:offs[i + 1]]
+                out.append((int(counts.sum()), [int(c) for c in counts[1:]]))
+            return _af_result(out, n_haps, time.perf_counter() - t0)
         reader = BcfReader(acc.variant_filename())
         writer = None
         hdr = reader.header
@@ -314,7 +345,10 @@ def af_stats(path: str, annotate_out: str | None = None) -> dict:
             valid = (alleles >= 0) & (gt != np.int32(-0x7FFFFFFF))
             counts = np.bincount(alleles[valid], minlength=n_alleles)
             out.append((int(valid.sum()), [int(c) for c in counts[1:n_alleles]]))
-    seconds = time.perf_counter() - t0
+    return _af_result(out, n_haps, time.perf_counter() - t0)
+
+
+def _af_result(out: list, n_haps: int, seconds: float) -> dict:
     # throughput over the logical htslib gt bytes the counts stand in for
     # (the reference's "compressive genomics" pitch: AC/AN without gt
     # materialization, af_stats/main.cpp)

@@ -8,13 +8,14 @@ Supports region (-r) and target (-t) filtering and sample subsetting (-s)
 with AC/AN recomputation, and re-compression to a fresh XSI (-O x).
 Whole blocks decode with decoder_torch on the chosen device and -O x
 re-encodes with TorchBlockEncoder on it; device="numpy" keeps the host
-codec (GtBlockDecoder per record).  With more than one device of that
+codec: the native accessor per record and, for a full-sample BCF, the
+native extract loop (interop/native.py; XSI_NATIVE=0 takes
+GtBlockDecoder and the Python writer).  With more than one device of that
 kind (or `DecompressorOptions.devices`), consecutive blocks decode in
 batches over the pool (decoder_torch.mesh_decode_all), as the JAX
 package's mesh decode does.  `block_range` and records-only BGZF
 segments serve the multi-process extract (parallel/distributed.py).  The
-JAX package's device route and its native accessor and extract loop are
-not copied.
+JAX package's device route is not copied.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from ..format.constants import (
 )
 from ..format.container import XsiReader, XsiWriter
 from ..format.header import XsiHeader
+from ..interop import native
 from ..io.bcf import (
     BcfHeader,
     BcfReader,
@@ -133,6 +135,8 @@ def _block_of(bm: int) -> int:
 
 
 class Decompressor:
+    _nat_acc = None     # the native accessor, opened at first decode
+
     def __init__(self, xsi_path: str, opts: DecompressorOptions | None = None):
         self.xsi_path = xsi_path
         self.opts = opts or DecompressorOptions()
@@ -212,10 +216,35 @@ class Decompressor:
         dec.seek(bm & _OFFSET_MASK)
         return dec
 
+    def _native_accessor(self):
+        """BM-keyed native decode (native/xsi_accessor.cpp), the host
+        codec's per-record engine (device="numpy"): ~9x the per-record
+        NumPy decode.  None on a torch device, for a container it does
+        not decode (native.decodes) or with XSI_NATIVE=0; a build or open
+        failure raises."""
+        if (self._nat_acc is None and self.torch_device is None
+                and native.decodes(self.xsi.aet_dtype) and native.enabled()):
+            self._nat_acc = native.NativeAccessor(self.xsi_path)
+        return self._nat_acc
+
+    def close(self) -> None:
+        if self._nat_acc is not None:
+            self._nat_acc.close()
+            self._nat_acc = None
+
+    def __del__(self):
+        self.close()
+
     def decode_bm(self, bm: int, n_alleles: int) -> np.ndarray:
+        acc = self._native_accessor()
+        if acc is not None:
+            return acc.fill_genotypes_bm(bm, n_alleles)
         return self._seek_bm(bm).fill_genotype_array_advance(n_alleles)
 
     def allele_counts_bm(self, bm: int, n_alleles: int) -> np.ndarray:
+        acc = self._native_accessor()
+        if acc is not None:
+            return acc.fill_allele_counts_bm(bm, n_alleles)
         return self._seek_bm(bm).fill_allele_counts_advance(n_alleles)
 
     # ------------------------------------------------------------ records
@@ -412,12 +441,67 @@ class Decompressor:
             out.append(f"AN={an}")
         return ";".join(out) if out else "."
 
+    def _can_extract_native(self, output_path, write_header: bool,
+                            write_eof: bool) -> bool:
+        """The native extract loop is the host codec's (device="numpy")
+        full-sample-set BCF output to a plain path (header + EOF),
+        unfiltered or region/target-restricted (the CSI chunk lookup
+        stays in Python; the C loop seeks the chunk voffsets and applies
+        the same overlap rules), of a container it decodes
+        (native.decodes).  XSI_NATIVE=0 takes the Python loop."""
+        o = self.opts
+        return (isinstance(output_path, str) and output_path != "-"
+                and self._select is None and o.block_range is None
+                and write_header and write_eof
+                and self.torch_device is None
+                and native.decodes(self.xsi.aet_dtype) and native.enabled())
+
+    def _decompress_to_bcf_native(self, output_path: str, level: int) -> dict:
+        header = self.output_header()
+        gt_key = header.ensure_string(
+            "GT",
+            '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">')
+        text = header.to_text().encode() + b"\0"
+        o = self.opts
+        if not o.regions and not o.targets:
+            n = native.native_extract(self.xsi_path, output_path, text,
+                                      gt_key, level)
+            return self._emit_stats(n)
+
+        # Region/target extract: resolve chrom names + CSI chunks here,
+        # hand the C loop pre-computed voffsets and filter triplets.
+        reader = BcfReader(self.var_path)
+        contigs = reader.header.dict_contigs
+        LO, HI = -(1 << 62), 1 << 62
+
+        regions = parse_region_list(o.regions) if o.regions else None
+        reg_t = ([(contigs.index(r.chrom) if r.chrom in contigs else -1,
+                   r.start if r.start is not None else LO,
+                   r.end if r.end is not None else HI)
+                  for r in regions] if regions else None)
+        tgt_t = None
+        if o.targets:
+            tgt_t = [(contigs.index(r.chrom) if r.chrom in contigs else -1,
+                      r.start if r.start is not None else LO,
+                      r.end if r.end is not None else HI)
+                     for r in parse_region_list(o.targets)]
+        chunks = self._region_chunks(reader, regions) if regions else None
+        reader.close()
+        if chunks is not None and not chunks:
+            chunks = [(0, 0)]   # indexed, nothing overlaps: emit no records
+        n = native.native_extract_ranges(self.xsi_path, output_path, text,
+                                         gt_key, level, chunks=chunks,
+                                         regions=reg_t, targets=tgt_t)
+        return self._emit_stats(n)
+
     def _decompress_to_bcf(self, output_path, level: int = 6,
                            write_header: bool = True,
                            write_eof: bool = True) -> dict:
         """output_path: path or file object.  write_header/write_eof=False
         emit a records-only BGZF body segment (multi-host partition;
         segments concatenate into one valid BCF)."""
+        if self._can_extract_native(output_path, write_header, write_eof):
+            return self._decompress_to_bcf_native(output_path, level)
         header = self.output_header()
         self._declare_subset_tags(header)
         header.ensure_string(

@@ -3,9 +3,11 @@
 The port's copy of xsqueezeit_tpu/codec/encoder_base.py.  The compute
 core is supplied by the subclass, TorchBlockEncoder (codec/encoder_torch),
 which produces the `out` dict that assembles through here, so payload
-bytes equal the per-record GtBlockEncoder's (the oracle).  The JAX
-package's native ingest, its JAX track encode and the line-axis bucket
-padding (which only bounded XLA recompiles) are not copied.
+bytes equal the per-record GtBlockEncoder's (the oracle).  Batched
+records ingest through the native one-pass ingest unless
+XSI_NATIVE_ENCODE=0 (or XSI_NATIVE=0).  The JAX package's JAX track
+encode and the line-axis bucket padding (which only bounded XLA
+recompiles) are not copied.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..format.constants import (
     WeirdnessStrategy,
 )
 from ..format.dictionary import write_dictionary
+from ..interop import native
 from ..ops import wah_np
 
 MISSING_CODE = -1
@@ -170,6 +173,31 @@ class BlockEncoderBase:
         na_arr = np.asarray(na[lo:hi], np.int64)
         base = len(self._n_alleles)
         check_phase = (W != self.n_samples or self.n_samples == self.n_haps)
+        if (na_arr.max(initial=2) <= 127
+                and native.enabled("XSI_NATIVE_ENCODE")):
+            # ONE streaming C pass (gt_encoder.cpp xsi_ingest_codes) for
+            # codes + all stats, vs ~6 whole-matrix numpy passes below
+            # (the numpy branch stays as the oracle; byte-parity pinned).
+            codes, miss, eov, alt_flat, alt_offs, nup_flags = \
+                native.ingest_codes_native(gt_mat, na_arr,
+                                           self.default_phasing, check_phase)
+            self._allele_rows.extend(codes)
+            self._n_missing.extend(int(x) for x in miss)
+            self._n_eov.extend(int(x) for x in eov)
+            if alt_flat.shape[0] == n and bool(np.all(na_arr == 2)):
+                self._alt_counts.extend(alt_flat.reshape(-1, 1))
+            else:
+                for j in range(n):
+                    self._alt_counts.append(
+                        alt_flat[alt_offs[j]:alt_offs[j + 1]])
+            if check_phase:
+                for j in np.flatnonzero(nup_flags):
+                    row = gt_mat[j]
+                    self._nup_flagged[base + int(j)] = (
+                        ((row & 1) != self.default_phasing)
+                        & self._second_slot_mask(W))
+            self._n_alleles.extend(int(x) for x in na_arr)
+            return
         codes = alleles_from_gt(gt_mat, int(na_arr.max(initial=2)))
         self._allele_rows.extend(codes)        # row views, one backing array
         if int(codes.min(initial=0)) < 0:

@@ -2,10 +2,10 @@
 
 Yields records carrying both the raw BCF shared block (site columns) and the
 htslib-style genotype array, so downstream stages are format-agnostic.
-The port's copy of xsqueezeit_tpu/io/unified.py: the Python readers, the
-record count, record skipping and the block-offset scan of the
-multi-process paths.  The JAX package's native batch reader is not
-copied, and its native frame walk is done here in Python on BcfReader.
+The port's copy of xsqueezeit_tpu/io/unified.py: BCF records and the
+record count come from the native batch reader and frame walk
+(interop/native.py) unless XSI_NATIVE_PARSE=0 or XSI_NATIVE=0, which
+take the Python reader and a Python frame walk.  A native failure raises.
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..interop import native
 from .bcf import BCF_MAGIC, BcfHeader, BcfReader
+from .bgzf import BgzfReader
 from .sites import encode_shared_from_vcf_cols
 from .vcf import VcfReader
 
@@ -43,12 +45,30 @@ def sniff_format(path: str) -> str:
     return "vcf"
 
 
+class _PastTheEnd:
+    """The batch reader of a stream skipped past its last record."""
+
+    def __iter__(self):
+        return iter(())
+
+    def iter_batches(self, limit=None):
+        return iter(())
+
+    def close(self) -> None:
+        pass
+
+
 class GtInput:
     """Opens a VCF/BCF and exposes header info + record iteration."""
 
     def __init__(self, path: str):
         self.path = path
         self.format = sniff_format(path)
+        self._consumed = 0      # records advanced past (iteration or skip)
+        self._py_consumed = 0   # records the PYTHON _bcf reader advanced
+        self._seek_voff = 0     # seek_fast's frame offset (0: none)
+        self._seek_consumed = 0
+        self._native = None
         if self.format == "bcf":
             self._bcf = BcfReader(path)
             self.header = self._bcf.header
@@ -61,9 +81,57 @@ class GtInput:
                 header_text + "\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"
                 + ("\tFORMAT\t" + "\t".join(self.samples) if self.samples else ""))
 
+    def _native_reader(self):
+        """The native batch GT walker (interop/native.NativeGtBatchReader):
+        ~an order of magnitude faster than the Python record parse, which
+        is the compress pipeline's ceiling.  None when XSI_NATIVE_PARSE=0
+        (or XSI_NATIVE=0) or the header has no GT key; a build or open
+        failure raises."""
+        if not native.enabled("XSI_NATIVE_PARSE"):
+            return None
+        gt_key = self.header.str2idx.get("GT")
+        if gt_key is None:
+            return None
+        # record stream starts after magic(5) + l_text(4) + header text;
+        # records already consumed through THIS GtInput (skip_records /
+        # a partial prior iteration) are frame-skipped natively so both
+        # parsers expose the same stream position semantics.
+        skip = 9 + self._bcf.header_text_len
+        voff = self._seek_voff
+        base = self._seek_consumed if voff else 0
+        try:
+            return native.NativeGtBatchReader(
+                self.path, skip, gt_key, len(self.samples),
+                skip_recs=self._consumed - base, start_voff=voff)
+        except OSError:
+            # the open frame-skips the records consumed so far and fails
+            # on a skip past the end: that window iterates empty
+            if (self._consumed - base > 0 and not voff
+                    and self._consumed >= count_entries(self.path)):
+                return _PastTheEnd()
+            raise
+
     def __iter__(self):
         if self.format == "bcf":
+            reader = self._native_reader()
+            if reader is not None:
+                self._native = reader
+                try:
+                    for shared, gt, n_alleles, ploidy in reader:
+                        self._consumed += 1
+                        # ploidy 0 = record without usable GT (Python
+                        # reader parity: gt is None, consumers skip)
+                        yield GtInputRecord(shared,
+                                            gt if ploidy > 0 else None,
+                                            n_alleles, ploidy)
+                finally:
+                    reader.close()
+                    self._native = None
+                return
+            self._reconcile_py_position()
             for rec in self._bcf:
+                self._consumed += 1
+                self._py_consumed += 1
                 out = rec.genotypes()
                 gt, ploidy = out if out is not None else (None, 0)
                 yield GtInputRecord(rec.shared, gt, rec.n_allele, ploidy)
@@ -73,6 +141,38 @@ class GtInput:
                     self.header, rec.fixed, 0, 0)
                 yield GtInputRecord(shared, rec.gt, rec.n_alleles, rec.ploidy)
 
+    def iter_gt_batches(self, limit: int | None = None):
+        """Batch GT iteration for the compress hot loop: a generator of
+        (gt_all, offs, na, pl, n) with gt_all OWNERSHIP transferred to the
+        consumer (interop.native.NativeGtBatchReader.iter_batches swaps in
+        a fresh buffer per full batch), so consumers may hold references
+        across async block encodes without copying — the dispatcher's
+        segment blocks do.  Returns None when the native batch reader is
+        off (VCF text, XSI_NATIVE_PARSE=0, no GT key); callers take
+        per-record iteration.  `limit` bounds the records PARSED (a
+        multihost worker's window; without it the tail batch decodes past
+        the window)."""
+        if self.format != "bcf":
+            return None
+        reader = self._native_reader()
+        if reader is None:
+            return None
+        # registered like __iter__'s reader so close() reaches a partially
+        # consumed stream (error paths break/raise before exhaustion)
+        self._native = reader
+
+        def gen():
+            try:
+                for batch in reader.iter_batches(limit):
+                    self._consumed += batch[4]
+                    yield batch
+            finally:
+                reader.close()
+                if self._native is reader:
+                    self._native = None
+
+        return gen()
+
     def iter_sites(self):
         """Sites-only iteration: GtInputRecord with gt=None but real
         n_alleles/ploidy, skipping genotype value decode (BCF reads only
@@ -80,7 +180,10 @@ class GtInput:
         distributed variant pass, where genotypes are encoded by other
         workers and decoding them here would serialize the pipeline."""
         if self.format == "bcf":
+            self._reconcile_py_position()
             for rec in self._bcf:
+                self._consumed += 1
+                self._py_consumed += 1
                 yield GtInputRecord(rec.shared, None, rec.n_allele,
                                     rec.gt_ploidy())
         else:
@@ -90,13 +193,21 @@ class GtInput:
                 yield GtInputRecord(shared, None, rec.n_alleles, rec.ploidy)
 
     def skip_records(self, n: int) -> int:
-        """Fast-forward past n records without parsing site/genotype data
-        (BCF: frame words only; VCF: raw line reads).  Returns the number
-        skipped, short at EOF: a window beyond EOF iterates empty."""
+        """Fast-forward past n records without parsing site/genotype data.
+        BCF: LAZY — returns n unconditionally (the skip is applied when
+        iteration positions the parser; beyond-EOF skips iterate empty).
+        VCF: raw line reads, short at EOF."""
         if n <= 0:
             return 0
         if self.format == "bcf":
-            return self._bcf.skip_records(n)
+            # LAZY: only the consumed counter advances here.  Whichever
+            # parser serves the next iteration positions itself from it
+            # (the native reader frame-skips in C, the Python branch
+            # reconciles via _reconcile_py_position) — an eager Python
+            # skip would decompress the prefix a second time under the
+            # native parser (multi-process workers pay that per worker).
+            self._consumed += n
+            return n
         done = 0
         for line in self._vcf._f:
             if line.strip():
@@ -107,12 +218,23 @@ class GtInput:
 
     def seek_fast(self, n_consumed: int, voffset: int) -> None:
         """Position the stream at record `n_consumed` whose frame starts
-        at BGZF virtual offset `voffset` (from count_entries_offsets):
-        no prefix decompression.  BCF only."""
-        del n_consumed      # the offset alone positions the Python reader
+        at BGZF virtual offset `voffset` (from count_entries_offsets) —
+        O(1), no prefix decompression.  BCF only."""
+        self._consumed = n_consumed
+        self._py_consumed = n_consumed
+        self._seek_voff = voffset
+        self._seek_consumed = n_consumed
         self._bcf.seek_virtual(voffset)
 
+    def _reconcile_py_position(self) -> None:
+        behind = self._consumed - self._py_consumed
+        if behind > 0:
+            self._py_consumed += self._bcf.skip_records(behind)
+
     def close(self):
+        if self._native is not None:
+            self._native.close()
+            self._native = None
         if self.format == "bcf":
             self._bcf.close()
         else:
@@ -202,9 +324,10 @@ def _scan_cache_store(path: str, every: int, count: int, voffs) -> None:
 def count_entries_offsets(path: str, every: int
                           ) -> tuple[int, "np.ndarray | None"]:
     """(record count, BGZF virtual offsets of records 0, every, 2*every..)
-    for a BCF: one frame walk; the offsets let workers seek straight to
-    their block range (no prefix decompression).  Returns (count, None)
-    for VCF text or every <= 0.  XSI_SCAN_CACHE=1 reads/writes a
+    for a BCF — one native frame walk (a Python one with
+    XSI_NATIVE_PARSE=0); the offsets let workers seek straight to their
+    block range (no prefix decompression).  Returns (count, None) for VCF
+    text or every <= 0.  XSI_SCAN_CACHE=1 reads/writes a
     `<path>.gtscan` sidecar (size+mtime validated) so repeated runs skip
     the pass entirely."""
     cached = _scan_cache_load(path, every)
@@ -218,11 +341,41 @@ def count_entries_offsets(path: str, every: int
 
 def _count_entries_offsets_uncached(path: str, every: int
                                     ) -> tuple[int, "np.ndarray | None"]:
-    """The JAX package's native frame walk (gt_batch.cpp
-    xsi_bcf_count_offsets) on BcfReader: the virtual offset of a record's
-    frame is taken before it is skipped."""
     if sniff_format(path) != "bcf":
         return count_entries(path), None
+    if not native.enabled("XSI_NATIVE_PARSE"):
+        return _count_entries_offsets_py(path, every)
+    import ctypes
+    import struct
+
+    lib = native.load_library()
+    lib.xsi_bcf_count_offsets.restype = ctypes.c_int64
+    lib.xsi_bcf_count_offsets.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64]
+    r0 = BgzfReader(path)
+    r0.read(5)
+    (l_text,) = struct.unpack("<I", r0.read(4))
+    r0.close()
+    if every > 0:
+        cap = max(os.path.getsize(path) // 28 // every + 2, 16)
+        voffs = np.zeros(cap, np.uint64)
+        vp = voffs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+    else:
+        cap, voffs, vp = 0, None, None
+    n = lib.xsi_bcf_count_offsets(path.encode(), 9 + l_text, every, vp, cap)
+    if n < 0:
+        raise ValueError(f"{path}: corrupt or truncated BCF record stream")
+    if every <= 0:
+        return int(n), None
+    n_marks = min((int(n) + every - 1) // every, cap)
+    return int(n), voffs[:n_marks]
+
+
+def _count_entries_offsets_py(path: str, every: int
+                              ) -> tuple[int, "np.ndarray | None"]:
+    """The frame walk of xsi_bcf_count_offsets on BcfReader: the virtual
+    offset of a record's frame is taken before it is skipped."""
     r = BcfReader(path)
     try:
         n = 0
@@ -245,7 +398,7 @@ def _count_entries_offsets_uncached(path: str, every: int
 def count_entries(path: str) -> int:
     """Number of variant records in a VCF/BCF (reference: count_entries,
     xcf.cpp:318-340).  BCF records are skipped without decoding genotypes
-    (count_entries_offsets)."""
+    (natively unless XSI_NATIVE_PARSE=0 — count_entries_offsets)."""
     fmt = sniff_format(path)
     if fmt == "bcf":
         n, _ = count_entries_offsets(path, 0)

@@ -17,12 +17,12 @@ from __future__ import annotations
 
 import gzip
 import io
-import os
 from dataclasses import dataclass
 
 import numpy as np
 
 from ..format.constants import INT32_VECTOR_END
+from ..interop import native
 
 
 @dataclass
@@ -214,8 +214,16 @@ class VcfReader:
 
 def format_gt_region_bytes(gt: np.ndarray, ploidy: int,
                            n_samples: int) -> bytes:
-    """Tab-separated genotype region of one record as ASCII bytes (the
-    JAX package's Python renderer; its native C renderer is not copied)."""
+    """Tab-separated genotype region of one record as ASCII bytes.
+
+    Native C renderer (bcf_emit.cpp xsi_format_gt_region: the -O v/-O z
+    per-record hot spot — the numpy formulation in format_gt_region costs
+    ~70 us/record at 2504 samples in small-array overhead alone); the
+    Python paths are the oracle (equality pinned by tests), taken with
+    XSI_NATIVE=0.  (The switch is read per call — cheap, and the tests
+    set it mid-process.)"""
+    if native.enabled():
+        return native.format_gt_region_bytes_native(gt, ploidy, n_samples)
     return _format_gt_region_py(gt, ploidy, n_samples)
 
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..interop import native
+
 
 def msb(dtype: np.dtype) -> int:
     return 1 << (np.dtype(dtype).itemsize * 8 - 1)
@@ -53,9 +55,9 @@ def sparse_line_offsets(stream: np.ndarray, n_lines: int) -> np.ndarray:
 
     The walk is pointer-chasing (each head stores its line's length), so
     the naive form is a Python loop — too slow on the block decode path
-    (~0.5 us per line x thousands of sparse lines per block).  Large
-    inputs vectorise with binary lifting (the JAX package's copy also has
-    a native walk, not ported here): jump table
+    (~0.5 us per line x thousands of sparse lines per block).  The native
+    walk (gt_encoder.cpp xsi_sparse_offsets*) does it in microseconds;
+    with XSI_NATIVE=0, large inputs vectorise with binary lifting: jump table
     J_b[p] = position reached after 2^b line-advances from p (computed for
     EVERY position, head or not; only values reached from offset 0 are
     ever read), then offset i composes the set bits of i.
@@ -66,6 +68,8 @@ def sparse_line_offsets(stream: np.ndarray, n_lines: int) -> np.ndarray:
     flag = msb(stream.dtype)
     if n_lines <= 0:
         return np.zeros(1, np.int64)
+    if n_lines >= 128 and native.enabled():
+        return native.sparse_offsets_native(stream, n_lines)
     if n_lines < 128 or stream.shape[0] < 4096:
         offsets = np.empty(n_lines + 1, np.int64)
         pos = 0

@@ -30,10 +30,13 @@ The JAX package's jax.distributed + multihost_utils.process_allgather
 becomes torch.distributed with the gloo backend on CPU tensors: what
 crosses between ranks is host bytes (serialized payloads, variant-file
 segments, counts), and gloo, unlike NCCL, lets several ranks share one
-card.  The JAX package's native variant-pass segment and native extract
-segment have no counterpart: the port has no native library, so both are
-Python here (`_var_segment` renders its window with BcfWriter, and the
-extract segment is Decompressor._decompress_to_bcf over a block range).
+card.  The host stages take the port's native library as the JAX
+package's do: each rank parses its window in batches, the variant pass
+(whole or per-rank segment) is native for a BCF input, and the host codec
+(device="numpy") extracts its segment with the native extract loop.
+XSI_NATIVE=0 takes the Python routes (`_var_segment` then renders its
+window with BcfWriter, and the extract segment is
+Decompressor._decompress_to_bcf over a block range).
 """
 from __future__ import annotations
 
@@ -53,7 +56,10 @@ import numpy as np
 from ..codec.compressor import (
     CompressorOptions,
     TorchEncodeDispatcher,
+    _gt_loop_batched,
+    _native_var_pass_eligible,
     make_variant_header,
+    variant_pass_native,
 )
 from ..format.constants import (
     BM_BLOCK_BITS,
@@ -62,6 +68,7 @@ from ..format.constants import (
 )
 from ..format.container import XsiWriter
 from ..format.header import XsiHeader
+from ..interop import native
 from ..io.bcf import BcfWriter, patch_shared_sample_counts
 from ..io.bgzf import BGZF_EOF
 from ..io.csi import CsiBuilder, depth_for_max_len
@@ -266,16 +273,22 @@ def _encode_block_range(input_path: str, block_range: tuple[int, int],
         if block_voffs is not None and start_blk < len(block_voffs):
             inp.seek_fast(lo, int(block_voffs[start_blk]))
         else:
-            inp.skip_records(lo)   # a window beyond EOF iterates empty
-        for i, rec in enumerate(inp, start=lo):
-            if i >= hi:
-                break
-            if rec.gt is None:
-                raise ValueError("Record without GT data cannot be "
-                                 "compressed")
-            if disp.full:
-                emit()
-            disp.encode_record(rec.gt, rec.n_alleles)
+            inp.skip_records(lo)   # lazy: a window beyond EOF iterates empty
+        batches = inp.iter_gt_batches(limit=hi - lo)
+        if batches is not None:
+            # the single-process batch loop with this worker's record
+            # window (same segments and encoders: byte-identical)
+            _gt_loop_batched(batches, disp, emit, max_records=hi - lo)
+        else:
+            for i, rec in enumerate(inp, start=lo):
+                if i >= hi:
+                    break
+                if rec.gt is None:
+                    raise ValueError("Record without GT data cannot be "
+                                     "compressed")
+                if disp.full:
+                    emit()
+                disp.encode_record(rec.gt, rec.n_alleles)
     finally:
         inp.close()
     if disp.bcf_lines:
@@ -357,7 +370,9 @@ def _var_segment(input_path: str, output_path: str, opts,
     (rid, pos, rlen, vbeg, vend, n_variants, max_ploidy), var_header),
     or None for VCF text (no offsets to seek to: the serial pass runs).
     BGZF members are self-contained, so segments concatenate into a
-    valid BCF; vbeg/vend are segment-local and shift at assembly."""
+    valid BCF; vbeg/vend are segment-local and shift at assembly.  The
+    window renders natively (var_pass.cpp xsi_var_pass_segment) unless
+    XSI_NATIVE=0."""
     inp = GtInput(input_path)
     try:
         if inp.format != "bcf":
@@ -368,6 +383,10 @@ def _var_segment(input_path: str, output_path: str, opts,
                  + (np.zeros(0, np.uint64),) * 2 + (0, 0))
         if start_blk >= end_blk or start_blk >= len(block_voffs):
             return b"", empty, var_header
+        if _native_var_pass_eligible(inp):
+            return _native_var_segment(
+                input_path, opts, start_blk, end_blk, block_voffs,
+                write_header, var_header, 9 + inp._bcf.header_text_len)
         lo = start_blk * opts.block_length
         hi = end_blk * opts.block_length
         inp.seek_fast(lo, int(block_voffs[start_blk]))
@@ -385,6 +404,29 @@ def _var_segment(input_path: str, output_path: str, opts,
            arr[:, 2].astype(np.int32), arr[:, 3].astype(np.uint64),
            arr[:, 4].astype(np.uint64), nv, mp)
     return buf.getvalue(), tup, var_header
+
+
+def _native_var_segment(input_path, opts, start_blk, end_blk, block_voffs,
+                        write_header, var_header, header_skip):
+    """_var_segment's window through native_var_pass_segment."""
+    text = var_header.to_text().encode() + b"\0"
+    bm_prefix = encode_bm_indiv(var_header, 0)[:-4]
+    gt_key = var_header.str2idx.get("GT", -1)
+    max_recs = (end_blk - start_blk) * opts.block_length
+    fd, seg = tempfile.mkstemp(suffix=".varseg")
+    os.close(fd)
+    try:
+        rid, pos, rlen, _bm, vbeg, vend, nv, mp = \
+            native.native_var_pass_segment(
+                input_path, seg, text, 6, bm_prefix, opts.block_length,
+                gt_key, 0 if start_blk == 0 else int(block_voffs[start_blk]),
+                start_blk * opts.block_length, max_recs, write_header,
+                header_skip=header_skip, cap_hint=max_recs + 1)
+        with open(seg, "rb") as f:
+            data = f.read()
+    finally:
+        os.remove(seg)
+    return data, (rid, pos, rlen, vbeg, vend, nv, mp), var_header
 
 
 def _assemble_var_segments(output_path: str, var_header, parts) -> tuple:
@@ -438,8 +480,10 @@ def _unpack_var_tuples(data: bytes):
 def _variant_pass(inp, opts, output_path, sniffed_ploidy):
     """Streaming pass over the input: writes the `_var.bcf` + CSI and
     counts entries/variants (the worker-0 half of the pipeline).  The
-    same records, BM values and BGZF framing as compress_file's loop, so
-    single- and multi-process variant files are byte-identical."""
+    same gate, records, BM values and BGZF framing as compress_file's
+    loop, so single- and multi-process variant files are byte-identical."""
+    if _native_var_pass_eligible(inp):
+        return variant_pass_native(inp, opts, output_path, sniffed_ploidy)
     var_path = output_path + XSI_BCF_VAR_EXTENSION
     var_header = make_variant_header(inp.header, os.path.basename(output_path))
     var_writer = BcfWriter(var_path, var_header)
@@ -779,6 +823,42 @@ def _compress_multihost(input_path, output_path, opts, pidx, pcount, perf,
     }
 
 
+def _native_segment_bytes(d, start_blk: int, end_blk: int,
+                          pidx: int) -> tuple[bytes, int] | None:
+    """This worker's BCF body segment through the native extract loop
+    (xsi_extract_segment: decode + frame + BGZF deflate in C), or None
+    when the route is off (a torch device, a sample subset, filters, a
+    container it does not decode, XSI_NATIVE=0): the Python driver then
+    runs."""
+    o = d.opts
+    if (d.torch_device is not None or d._select is not None or o.regions
+            or o.targets or not native.decodes(d.xsi.aet_dtype)
+            or not native.enabled()):
+        return None
+    header = d.output_header()
+    gt_key = header.ensure_string(
+        "GT", '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">')
+    text = header.to_text().encode() + b"\0"
+    # seek straight to this worker's var.bcf window: one cheap native
+    # frame walk captures per-block virtual offsets (the compress side's
+    # trick), so workers skip zero prefix records
+    chunks = None
+    _, voffs = count_entries_offsets(d.var_path, d.xsi.header.ss_rate)
+    if voffs is not None and start_blk < len(voffs):
+        end_v = int(voffs[end_blk]) if end_blk < len(voffs) else 1 << 62
+        chunks = [(int(voffs[start_blk]), end_v)]
+    fd, seg_path = tempfile.mkstemp(suffix=".bcfseg")
+    os.close(fd)
+    try:
+        n = native.native_extract_segment(
+            d.xsi_path, seg_path, text, gt_key, 6, start_blk, end_blk,
+            write_header=(pidx == 0), write_eof=False, chunks=chunks)
+        with open(seg_path, "rb") as f:
+            return f.read(), n
+    finally:
+        os.remove(seg_path)
+
+
 def decompress_file_multihost(xsi_path: str, output_path: str,
                               opts=None,
                               coordinator: str | None = None,
@@ -793,8 +873,9 @@ def decompress_file_multihost(xsi_path: str, output_path: str,
     [header segment][body 0]...[body N-1][EOF]: a valid BCF with the
     records in original order.  Output equals the single-process
     extraction record for record (BGZF block boundaries differ at segment
-    joins, so bytes are not identical; contents are).  The JAX package's
-    native extract segment has no counterpart here (no native library).
+    joins, so bytes are not identical; contents are).  The host codec
+    (device="numpy") extracts its segment with the native extract loop
+    (_native_segment_bytes) unless XSI_NATIVE=0.
 
     Only -O b output is supported multi-host.  `perf`, when given,
     receives this process's decode and gather seconds, its segment size
@@ -813,11 +894,16 @@ def decompress_file_multihost(xsi_path: str, output_path: str,
         n_blocks = d.xsi.n_blocks()
         start_blk, end_blk = process_layout(max(n_blocks, 1), pidx, pcount)
         d.opts.block_range = (start_blk, end_blk)
-        body = io.BytesIO()
-        stats = d._decompress_to_bcf(body, write_header=(pidx == 0),
-                                     write_eof=False)
-        data = body.getvalue()
-        del body
+        native_seg = _native_segment_bytes(d, start_blk, end_blk, pidx)
+        if native_seg is not None:
+            data, n_rec = native_seg
+            stats = d._emit_stats(n_rec)
+        else:
+            body = io.BytesIO()
+            stats = d._decompress_to_bcf(body, write_header=(pidx == 0),
+                                         write_eof=False)
+            data = body.getvalue()
+            del body
         if perf is not None:
             perf["decode_s"] = time.perf_counter() - t0
             perf["segment_bytes"] = len(data)
