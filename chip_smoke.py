@@ -25,7 +25,15 @@ exactly:
    with a CTA per line; after the 1KGP3, HRC and chrX PAR blocks below,
    the chains and the WAH routes again at the block's own shapes,
    registers, sort flags, bit grids and streams (1KGP3: 301 chunks; HRC:
-   325 chunks, on 8 CTAs and on the other cluster sizes);
+   325 chunks, on 8 CTAs and on the other cluster sizes); the PBWT device
+   scans (csrc/pbwt_scan.cu) against their plain versions: the rank chain
+   at 1KGP3 (301 chunks x 5008, 16-bit totals), HRC (325 x 64,976, a
+   cluster of 8 CTAs), the chrX PAR parity scan's (255 x 2466, 18-bit) and
+   H = 1 and 2, and the mixed decode scan at chrX PAR width (4573 lines in
+   runs of each ploidy, all haploid, all diploid) and at HRC width (512
+   lines, state in device memory); after each block the rank chain again
+   at the block's own totals, and after the chrX PAR block the mixed scan
+   at its own lines;
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
    threshold 10, the rare-heavy mix of bench.py), the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
@@ -38,10 +46,12 @@ exactly:
    every launch counter is set to 0 just before each block's run and read
    just after, and each kernel route of that path must have launched
    (and no other); while it runs, wah_torch's plain pack_bits,
-   unpack_bits and wah_word_offsets raise.  Prints ms/block and GB/s in
-   bench.py's unit (L * H * 4 logical gt bytes), the compression ratio,
-   the device part of the decode alone, and the peak device memory of
-   encode and decode, each also with the old WAH pipeline;
+   unpack_bits and wah_word_offsets and pbwt_kernels' plain rank chain and
+   mixed scan raise (the TOPMed block's path runs the plain rank chain:
+   its 16-bit ranks do not reach 194,512 haplotypes).  Prints ms/block and
+   GB/s in bench.py's unit (L * H * 4 logical gt bytes), the compression
+   ratio, the device part of the decode alone, and the peak device memory
+   of encode and decode, each also with the old WAH pipeline;
 5. the exception-track and mixed-ploidy blocks, checked the same way:
    1KGP3-missing (the 1KGP3 block with 1 % of entries missing, as
    bench.py's missing regime: every record carries a missing track),
@@ -138,24 +148,30 @@ TRACK_BLOCKS = ("1KGP3-missing", "1KGP3-chrX")
 TRACK_PAYLOADS: dict = {}  # name -> (payload, samples): track_block_phase
 MIXED_BLOCK = "chrX-males-PAR"
 ONE_CTA = ("chain_encode", "chain_decode", "wah_expand_bits",
-           "wah_compress_bits")
+           "wah_compress_bits", "rank_chain")
 #: Kernel routes each block's path must launch (the others must not: the
 #: int32-group WAH routes are the TPU kernels' contract, held and timed
 #: against their plain versions, but the codec calls the bits routes).
 PATH_KERNELS = {
     "1KGP3": ONE_CTA,
     "HRC": ("chain_encode_cluster", "chain_decode_cluster",
-            "wah_expand_bits", "wah_compress_bits"),
+            "wah_expand_bits", "wah_compress_bits", "rank_chain"),
     # the packed-key scan and the blocked decode (plain torch) in place of
-    # the chains: no chain route may launch
+    # the chains, and the plain rank chain: no chain route may launch
     "TOPMed": ("wah_expand_bits", "wah_compress_bits"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
-    MIXED_BLOCK: ("wah_compress_bits", "wah_expand_varw_bits"),
+    MIXED_BLOCK: ("wah_compress_bits", "wah_expand_varw_bits", "rank_chain",
+                  "decode_scan_mixed"),
 }
-#: Plain-torch passes that must not run on a block's card path (they are
-#: replaced by functions that raise while it runs).
-PLAIN_PASSES = ("pack_bits", "unpack_bits", "wah_word_offsets")
+#: Plain passes that must not run on a block's card path (they are
+#: replaced by functions that raise while it runs), by module.
+PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
+                (pbwt_kernels, ("rank_chain_plain",
+                                "decode_scan_mixed_plain")))
+#: The plain passes a block's path takes by design: above 65,535
+#: haplotypes the rank chain is the plain one (the kernel's ranks are u16).
+PLAIN_ROUTES = {"TOPMed": ("rank_chain_plain",)}
 #: Kernel-check shapes: 1KGP3 and HRC widths.
 KERNEL_SHAPES = dict(H=5008, C=16, n_ch=256, n_lines=4096)
 HRC_SHAPES = dict(H=HRC_H, C=16, n_ch=64, n_lines=4096)
@@ -183,6 +199,9 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     "wah_expand_bits": ("wah.cu", "wah_pallas.py:51"),
     "wah_compress_bits": ("wah.cu", "wah_pallas.py:112"),
     "wah_expand_varw_bits": ("wah.cu", "wah_jax.py:227"),
+    # XLA scans of the JAX package, Python-stepped loops before this port
+    "rank_chain": ("pbwt_scan.cu", "pbwt_jax.py:213"),
+    "decode_scan_mixed": ("pbwt_scan.cu", "pbwt_jax.py:564"),
 }
 
 
@@ -219,6 +238,8 @@ KERNEL_NAMES = {
                       "wah_compress_kernelILb0E"),),
     "wah_compress_bits": (("wah_compress_kernel<true>",
                            "wah_compress_kernelILb1E"),),
+    "rank_chain": (("rank_chain_kernel",),),
+    "decode_scan_mixed": (("decode_scan_mixed_kernel",),),
 }
 
 
@@ -279,6 +300,70 @@ def chain_bytes(name: str, args) -> int:
         return q0.nbytes + ss.nbytes + q0.shape[0] * ss.shape[1] * q0.shape[1]
     yc, ss = args
     return yc.nbytes + ss.nbytes + yc.shape[0] * yc.shape[2] * 4
+
+
+def rank_bytes(T) -> int:
+    """Bytes a rank chain must move: T read (as the kernel reads it, int32)
+    and r0, r_starts (int64) and r_final written."""
+    n_ch, H = T.shape
+    return n_ch * H * 4 + 8 * H + n_ch * H * 8 + 8 * H
+
+
+def rank_floor(T) -> dict:
+    """The rank chain's sequential floor on these totals: its sorting
+    lines that move someone (bits that vary over a chunk's row), each one
+    stable partition of the whole row, and the kernel's block-wide passes
+    (two such lines a pass)."""
+    t = T.cpu().numpy().astype(np.int64)
+    vary = np.bitwise_or.reduce(t, axis=1) & ~np.bitwise_and.reduce(t, axis=1)
+    bits = np.array([bin(int(v)).count("1") for v in vary])
+    return {"chunks": int(t.shape[0]), "sorting_lines": int(bits.sum()),
+            "passes": int(((bits + 1) // 2).sum())}
+
+
+def mixed_bytes(ys, hap) -> int:
+    """Bytes the mixed scan must move: the stored lines read (a haploid
+    line only its ceil(H / 2) front-packed bits, a diploid one H) and two
+    flags per line, vals and a_final (int64) written."""
+    Lw, H = ys.shape
+    n_hap = int(hap.sum())
+    read = n_hap * ((H + 1) // 2) + (Lw - n_hap) * H
+    return read + Lw * H + 2 * Lw + 8 * H
+
+
+def mixed_floor(sorts, hap) -> dict:
+    """The mixed scan's sequential floor: every line is one step over the
+    row, a haploid line one block scan more, a sorting line one more."""
+    return {"lines": int(sorts.shape[0]), "sorting_lines": int(sorts.sum()),
+            "haploid_lines": int(hap.sum())}
+
+
+def rank_totals(rng, n_ch: int, H: int, bits: int):
+    """int32[n_ch, H] chunk history totals below 2^bits: bit k a sorting
+    line, set with a density drawn per chunk and line from the blocks'
+    allele-frequency mix."""
+    T = np.zeros((n_ch, H), np.int32)
+    for k in range(bits):
+        p = rng.choice([0.0005, 0.01, 0.05, 0.3, 0.7], (n_ch, 1))
+        T |= (rng.random((n_ch, H)) < p).astype(np.int32) << k
+    return T
+
+
+def mixed_lines(rng, n_lines: int, H: int, kind: str, dev):
+    """Stored lines of a mixed-ploidy block's WAH lines: haploid lines hold
+    their H / 2 front-packed bits, zero past them; kind "runs" (each
+    ploidy in runs of 64 lines), "haploid" or "diploid".  Every line sorts
+    (as the codec's WAH lines do).  Returns (ys, sorts, hap) on dev."""
+    hap = {"runs": np.repeat(rng.random(-(-n_lines // 64)) < 0.5,
+                             64)[:n_lines],
+           "haploid": np.ones(n_lines, bool),
+           "diploid": np.zeros(n_lines, bool)}[kind]
+    dens = rng.choice([0.002, 0.05, 0.3, 0.7, 0.99], n_lines)
+    ys = bernoulli_rows(rng, dens, H)
+    ys[hap, H // 2:] = 0
+    return (torch.from_numpy(ys).to(dev),
+            torch.ones(n_lines, dtype=torch.bool, device=dev),
+            torch.from_numpy(hap).to(dev))
 
 
 def make_block(rng, H: int):
@@ -574,9 +659,43 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         ]
         del words_cpu
 
+    # the PBWT device scans (their own generator): the rank chain at the
+    # main path's widths (HRC on a cluster), the chrX PAR parity scan's and
+    # the narrowest; the mixed scan at chrX PAR width and at HRC width
+    # (its state in device memory).  Their plain versions step from the
+    # host, one chunk or line at a time: timed over fewer calls.
+    srng = np.random.default_rng(4)
+    for label, n_ch, H, bits in (("1KGP3", 301, 5008, 16),
+                                 ("HRC", 325, HRC_H, 16),
+                                 ("chrX-PAR parity", 255, 2 * MALES, 18),
+                                 ("H=1", 64, 1, 30), ("H=2", 64, 2, 30)):
+        T = torch.from_numpy(rank_totals(srng, n_ch, H, bits)).to(dev)
+        r0 = torch.arange(H, device=dev)
+        K = pbwt_kernels.rank_route(H)
+        cases.append((
+            "rank_chain", label, f"n_ch={n_ch} H={H} {bits}-bit T K={K}",
+            lambda T=T, r0=r0: pbwt_kernels.rank_chain(T, r0),
+            lambda T=T, r0=r0: pbwt_kernels.rank_chain_plain(T, r0, 16),
+            None, rank_bytes(T), None,
+            {"plain_iters": 3, "floor": rank_floor(T)}))
+    for label, n, H, kind in (("chrX-PAR", 4573, 2 * MALES, "runs"),
+                              ("chrX-PAR haploid", 1024, 2 * MALES,
+                               "haploid"),
+                              ("chrX-PAR diploid", 1024, 2 * MALES,
+                               "diploid"),
+                              ("HRC", 512, HRC_H, "runs")):
+        ys, so, hp = mixed_lines(srng, n, H, kind, dev)
+        cases.append((
+            "decode_scan_mixed", label, f"Lw={n} H={H} {kind}",
+            lambda a=(ys, so, hp): pbwt_kernels.decode_scan_mixed(*a),
+            lambda a=(ys, so, hp): pbwt_kernels.decode_scan_mixed_plain(*a),
+            None, mixed_bytes(ys, hp), None,
+            {"plain_iters": 1, "floor": mixed_floor(so, hp)}))
+
     rows, checks = {}, []
     wide_labels = {label for label, _ in WIDE_WAH}
-    for name, label, shape, kern, plain, extra, nbytes, old in cases:
+    for name, label, shape, kern, plain, extra, nbytes, old, *meta in cases:
+        meta = meta[0] if meta else {}
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = diff(got, want)
@@ -590,11 +709,14 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             note = f" and vs {extra[0]}"
         del got, want
         iters = 20 if label in ("1KGP3", "1KGP3 forced", "chrX-PAR") else 10
-        ms, plain_ms = cuda_ms(kern, iters=iters), cuda_ms(plain, iters=iters)
+        p_iters = meta.get("plain_iters", iters)
+        ms = cuda_ms(kern, iters=iters)
+        plain_ms = cuda_ms(plain, iters=p_iters, warmup=min(3, p_iters))
         check = timed_check(name, label, shape, err, ms, plain_ms, nbytes,
                             note, card, kernel_device_ms(name, kern),
                             host_ms(kern),
-                            old and cuda_ms(old, iters=iters))
+                            old and cuda_ms(old, iters=iters),
+                            meta.get("floor"))
         checks.append(check)
         # the kernels line holds each route at its own path's width: the
         # cluster chains at HRC, the per-line-width expand at chrX PAR
@@ -609,41 +731,52 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
 
 
 def timed_check(name, label, shape, err, ms, plain_ms, nbytes, note,
-                card, kernel_ms, enqueue_ms, old_ms=None) -> dict:
+                card, kernel_ms, enqueue_ms, old_ms=None, floor=None) -> dict:
     """Print one kernel check and return its record (with the bound).
     ms: the wrapper per call by CUDA events; kernel_ms: the kernel alone
     (profiler; None: not measured); enqueue_ms: the host's time per call;
     old_ms: a fused WAH route's old pipeline (torch pack_bits + the int32
-    compress, or the int32 expand + torch unpack_bits) by CUDA events."""
+    compress, or the int32 expand + torch unpack_bits) by CUDA events;
+    floor: a scan's sequential steps on these inputs (rank_floor,
+    mixed_floor), printed beside the byte bound."""
     b_ms = bound_ms(nbytes)
     alone = ("not measured" if kernel_ms is None else
              f"{kernel_ms:.4f} ms (share {b_ms / kernel_ms:.4f})")
     old = "" if old_ms is None else f"; the old pipeline {old_ms:.4f} ms"
+    seq = "" if floor is None else f"; sequential floor {floor}"
     print(f"kernel {name} [{label}: {shape}]: bit-exact vs plain{note}; "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
-          f"({nbytes} B), roofline share {b_ms / ms:.4f}; the kernel alone "
-          f"{alone}; host enqueue {enqueue_ms:.4f} ms/call{old} ({card})")
+          f"({nbytes} B), roofline share {b_ms / ms:.4f}{seq}; the kernel "
+          f"alone {alone}; host enqueue {enqueue_ms:.4f} ms/call{old} "
+          f"({card})")
     return {"name": name, "width": label, "shape": shape, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
             "host_enqueue_ms": enqueue_ms, "bytes": nbytes,
-            "bound_ms": b_ms, "old_pipeline_ms": old_ms}
+            "bound_ms": b_ms, "old_pipeline_ms": old_ms,
+            "sequential_floor": floor}
 
 
 def kernel_row(check: dict) -> dict:
     """The kernels line's entry of a route, from one of its checks.  No
-    single PyTorch call computes a chunk chain of stable partitions or a
-    WAH expansion or compression: library_ms is null."""
+    single PyTorch call computes a chunk chain of stable partitions, a WAH
+    expansion or compression, or a whole rank chain or mixed scan (their
+    plain versions take a sort or a dozen ops per chunk or line):
+    library_ms is null."""
     src, replaces = ROUTES[check["name"]]
-    return {"name": check["name"], "route": "cuda", "source": SRC + src,
-            "replaces": PALLAS + replaces, "shape": check["shape"],
-            "max_abs_err": check["max_abs_err"], "ms": check["ms"],
-            "plain_ms": check["plain_ms"], "kernel_ms": check["kernel_ms"],
-            "bound_ms": check["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "old_pipeline_ms": check["old_pipeline_ms"]}
+    row = {"name": check["name"], "route": "cuda", "source": SRC + src,
+           "replaces": PALLAS + replaces, "shape": check["shape"],
+           "max_abs_err": check["max_abs_err"], "ms": check["ms"],
+           "plain_ms": check["plain_ms"], "kernel_ms": check["kernel_ms"],
+           "bound_ms": check["bound_ms"], "bound_by": "bytes",
+           "library_ms": None, "old_pipeline_ms": check["old_pipeline_ms"]}
+    if check.get("sequential_floor"):
+        row["sequential_floor"] = check["sequential_floor"]
+    return row
 
 
 #: Wrappers whose first call in a block is recorded (captured_args).
-CAPTURED = ((pbwt_kernels, ("chain_encode", "chain_decode")),
+CAPTURED = ((pbwt_kernels, ("chain_encode", "chain_decode", "rank_chain",
+                            "rank_chain_plain", "decode_scan_mixed")),
             (wah_kernels, ("wah_compress_bits", "wah_expand_bits",
                            "wah_expand_varw_bits")))
 
@@ -684,14 +817,25 @@ def captured_args():
         yield seen
 
 
-def no_plain_passes():
-    """wah_torch's pack_bits, unpack_bits and wah_word_offsets replaced by
-    functions that raise: no plain-torch pass may run on the card path."""
-    def refuse(name):
+def plain_pass_names(allow=()) -> list[str]:
+    return [f"{mod.__name__.rsplit('.', 1)[1]}.{n}"
+            for mod, names in PLAIN_PASSES for n in names if n not in allow]
+
+
+@contextlib.contextmanager
+def no_plain_passes(allow=()):
+    """The PLAIN_PASSES (but `allow`) replaced by functions that raise: no
+    plain pass may run on the card path."""
+    def refuse(mod, name):
         def call(*args, **kw):
-            raise AssertionError(f"wah_torch.{name} ran on the card path")
+            raise AssertionError(f"{mod.__name__}.{name} ran on the card "
+                                 f"path")
         return call
-    return swapped(wah_torch, {n: refuse(n) for n in PLAIN_PASSES})
+    with contextlib.ExitStack() as stack:
+        for mod, names in PLAIN_PASSES:
+            stack.enter_context(swapped(mod, {
+                n: refuse(mod, n) for n in names if n not in allow}))
+        yield
 
 
 def old_pipeline():
@@ -756,6 +900,58 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
             out.append(check)
         del want
     return out
+
+
+#: Each scan: the block whose own inputs fill the kernels line, its bytes,
+#: its sequential floor, calls of its plain version timed.
+SCANS = {"rank_chain": ("1KGP3", lambda a: rank_bytes(a[0]),
+                        lambda a: rank_floor(a[0]), 3),
+         "decode_scan_mixed": (MIXED_BLOCK,
+                               lambda a: mixed_bytes(a[0], a[2]),
+                               lambda a: mixed_floor(a[1], a[2]), 2)}
+
+
+def scan_block_checks(label: str, seen: dict, card: str) -> list[dict]:
+    """The PBWT device scans at the block's own inputs (the first call of
+    each its path made: the rank chain's totals, the mixed scan's lines),
+    bit-exact against their plain versions and timed, with their
+    sequential floor.  Returns the checks by route."""
+    out = {}
+    for name, (row_block, nbytes, floor, p_iters) in SCANS.items():
+        if name not in seen:
+            continue
+        args = seen[name]
+        kern = getattr(pbwt_kernels, name)
+        plain = getattr(pbwt_kernels, f"{name}_plain")
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = diff(got, want)
+        shape = " x ".join(str(tuple(a.shape)) for a in args
+                           if isinstance(a, torch.Tensor))
+        if name == "rank_chain":
+            shape += f" K={pbwt_kernels.rank_route(args[0].shape[1])}"
+        require(err == 0, f"{name} at {label} block shape {shape}: kernel "
+                          f"differs from its plain version (max abs err "
+                          f"{err})")
+        del got, want
+
+        def call(f=kern, a=args):
+            return f(*a)
+        c = timed_check(name, f"{label} block", shape, err,
+                        cuda_ms(call, iters=10, warmup=2),
+                        cuda_ms(lambda: plain(*args), iters=p_iters,
+                                warmup=1),
+                        nbytes(args), "", card, kernel_device_ms(name, call),
+                        host_ms(call), floor=floor(args))
+        c["default_route"] = label == row_block
+        out[name] = c
+    return out
+
+
+def plain_rank_chain(T, r0, r_bits=16):
+    """The rank chain's plain version in the wrapper's place: the encode as
+    it ran before the kernel, for comparison on the same card."""
+    return pbwt_kernels.rank_chain_plain(T, r0, r_bits)
 
 
 def wah_block_checks(label: str, seen: dict, card: str) -> list[dict]:
@@ -868,7 +1064,8 @@ def run_path(name: str, enc, decode, ref_payload: bytes, rows) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     # ---- the path, once, with every launch counter at 0 and the plain
     # ---- WAH passes made to raise -------------------------------------
-    with no_plain_passes():
+    allow = PLAIN_ROUTES.get(name, ())
+    with no_plain_passes(allow):
         reset_counts()
         payload = enc.serialize()
         recs = decode(payload)
@@ -876,8 +1073,9 @@ def run_path(name: str, enc, decode, ref_payload: bytes, rows) -> tuple:
         launches = read_counts()
     # --------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{name}] path launches: {launches}; ran with wah_torch."
-          f"{', '.join(PLAIN_PASSES)} made to raise")
+    print(f"[{name}] path launches: {launches}; ran with "
+          f"{', '.join(plain_pass_names(allow))} made to raise"
+          + (f" ({', '.join(allow)} is this path's route)" if allow else ""))
     require(payload == ref_payload,
             f"{name}: payload differs from GtBlockEncoder's ({len(payload)} "
             f"vs {len(ref_payload)} B)")
@@ -977,8 +1175,6 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
               t(prep["sparse_rows_p"], torch.int64), t(prep["negated_s"]))
     del prep, enc
     cap = max(mac, 1)
-    with captured_args() as seen:
-        encoder_torch.encode_block_core_compact(*staged, cap)
 
     def encode_core():
         return encoder_torch.encode_block_core_compact(*staged, cap)
@@ -988,7 +1184,31 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_core_peak = once_peak_gb(encode_core)
     enc_old_ms, enc_core_peak_old = old_wah(encode_core)
+    # the encode core with the plain rank chain in the kernel's place (as
+    # it ran before the kernel), then the path's own inputs of each kernel
+    # (captured after the peaks: the copies are not the path's memory) and
+    # the rank chain alone
+    enc_plain_chain_ms = enc_core_peak_plain_chain = None
+    if not scan:
+        with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
+            enc_plain_chain_ms = cuda_ms(encode_core, **dev_loop)
+            enc_core_peak_plain_chain = once_peak_gb(encode_core)
+    with captured_args() as seen:
+        encode_core()
+    scans = scan_block_checks(name, seen, card)
     parts = {}
+    if scan:
+        # above 65,535 haplotypes the path's rank chain is the plain one
+        T, r0, r_bits = seen["rank_chain_plain"]
+        parts["rank_chain_plain"] = alone(
+            lambda: pbwt_kernels.rank_chain_plain(T, r0, r_bits),
+            rank_bytes(T), "the rank chain (rank_chain_plain: this path's "
+            "route, the kernel's ranks being u16)")
+        del T, r0
+    # the rank chain's copied totals are done with: the decode's peaks
+    # below are measured without them
+    seen.pop("rank_chain", None)
+    seen.pop("rank_chain_plain", None)
     if scan:
         aw = staged[0].index_select(0, staged[2])
         at = staged[1].index_select(0, staged[2])
@@ -1043,6 +1263,17 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     def old(ms, unit=" ms"):
         return "" if ms is None else f" (old WAH pipeline {ms:.3f}{unit})"
 
+    chain = ""
+    if "rank_chain" in scans:
+        rc = scans["rank_chain"]
+        chain = (f", of which the rank chain {rc['ms']:.3f} ms (its plain "
+                 f"version {rc['plain_ms']:.3f} ms; the encode core with "
+                 f"the plain chain {enc_plain_chain_ms:.3f} ms, peak "
+                 f"{enc_core_peak_plain_chain:.3f} GB)")
+    elif scan:
+        chain = (f", of which the rank chain (plain: the wide path) "
+                 f"{parts['rank_chain_plain']['ms']:.3f} ms")
+
     print(f"[{name}] encode core: {enc_ms:.3f} ms/block = "
           f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
           f"| decode to gt codes (host parse + device): {dec_ms:.3f} "
@@ -1051,14 +1282,19 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
           f"assemble): {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
     print(f"[{name}] device alone: encode core {enc_ms:.3f} ms"
-          f"{old(enc_old_ms)}, peak {enc_core_peak:.3f} GB"
+          f"{old(enc_old_ms)}{chain}, peak {enc_core_peak:.3f} GB"
           f"{old(enc_core_peak_old, ' GB')} | decode {dec_dev_ms:.3f} ms"
           f"{old(dec_dev_old_ms)}, peak {dec_dev_peak:.3f} GB"
           f"{old(dec_dev_peak_old, ' GB')} ({card})")
     checks = (block_chain_checks(name, seen, card)
-              + wah_block_checks(name, seen, card))
+              + wah_block_checks(name, seen, card) + list(scans.values()))
     return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
             "encode_ms": enc_ms, "block_checks": checks,
+            "encode_plain_rank_chain_ms": enc_plain_chain_ms,
+            "rank_chain_ms": scans.get("rank_chain", {}).get("ms"),
+            "rank_chain_plain_ms": (
+                scans["rank_chain"]["plain_ms"] if "rank_chain" in scans
+                else parts["rank_chain_plain"]["ms"]),
             "encode_old_wah_ms": enc_old_ms,
             "decode_device_ms": dec_dev_ms,
             "decode_device_old_wah_ms": dec_dev_old_ms,
@@ -1071,6 +1307,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
                                "decode": dec_peak_gb,
                                "encode_core_once": enc_core_peak,
                                "encode_core_once_old_wah": enc_core_peak_old,
+                               "encode_core_once_plain_rank_chain":
+                                   enc_core_peak_plain_chain,
                                "decode_device_once": dec_dev_peak,
                                "decode_device_once_old_wah":
                                    dec_dev_peak_old}}
@@ -1166,11 +1404,21 @@ def track_block_phase(name: str, card: str) -> dict:
                      np.arange(len(rows)) >= nm)
     n_wah = prep["n_wah"]
     del prep, enc
+    def encode_core():
+        return encoder_torch.encode_block_core_compact_tracks(
+            *core, max(mac, 1), trk_cap)
+
     torch.cuda.reset_peak_memory_stats()
-    enc_ms = cuda_ms(lambda: encoder_torch.encode_block_core_compact_tracks(
-        *core, max(mac, 1), trk_cap), iters=10, warmup=2)
+    enc_ms = cuda_ms(encode_core, iters=10, warmup=2)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del core
+    with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
+        enc_plain_chain_ms = cuda_ms(encode_core, iters=5, warmup=1)
+        enc_peak_plain_chain = once_peak_gb(encode_core)
+    with captured_args() as seen:
+        encode_core()
+    scans = scan_block_checks(name, seen, card)
+    rc = scans["rank_chain"]
+    del core, seen
     ser_ms = wall_ms(lambda: ingest().serialize(), iters=3, warmup=1)
     rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
         payload, n_samples, H, np.uint16, [2] * L, device=DEVICE),
@@ -1184,7 +1432,11 @@ def track_block_phase(name: str, card: str) -> dict:
           f"bit-exact on all {L} lines (decode_block_records and the fused "
           f"decode); peak device memory of the run {peak_gb:.3f} GB")
     print(f"[{name}] encode core with tracks: {enc_ms:.3f} ms/block = "
-          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
+          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB), "
+          f"of which the rank chain {rc['ms']:.3f} ms (its plain version "
+          f"{rc['plain_ms']:.3f} ms; the encode core with the plain chain "
+          f"{enc_plain_chain_ms:.3f} ms, peak {enc_peak_plain_chain:.3f} "
+          f"GB) "
           f"| fused decode with overlays (host parse + device): "
           f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
           f"{dec_peak_gb:.3f} GB), of which the host's track walk "
@@ -1193,6 +1445,9 @@ def track_block_phase(name: str, card: str) -> dict:
           f"decode_block_records: {rec_ms:.1f} ms | compression "
           f"{ratio:.2f}x ({card})")
     return {"launches": launches, "H": H, "encode_ms": enc_ms,
+            "block_checks": list(scans.values()),
+            "encode_plain_rank_chain_ms": enc_plain_chain_ms,
+            "rank_chain_ms": rc["ms"], "rank_chain_plain_ms": rc["plain_ms"],
             "decode_ms": dec_ms, "decode_track_walk_ms": walk_ms,
             "decode_device_ms": dev_ms, "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
@@ -1201,6 +1456,8 @@ def track_block_phase(name: str, card: str) -> dict:
             "missing_carriers": n_carriers[0],
             "eov_carriers": n_carriers[1],
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
+                               "encode_core_once_plain_rank_chain":
+                                   enc_peak_plain_chain,
                                "decode": dec_peak_gb}}
 
 
@@ -1246,16 +1503,28 @@ def mixed_block_phase(card: str) -> dict:
     def encode_core():
         return encoder_torch.encode_block_core_mixed(*args, max(mac, 1))
 
-    with captured_args() as seen:
-        encode_core()
     torch.cuda.reset_peak_memory_stats()
     enc_ms = cuda_ms(encode_core, iters=5, warmup=1)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_core_peak = once_peak_gb(encode_core)
     aw, at = args[0].index_select(0, args[2]), args[1].index_select(0, args[2])
     ones = torch.ones(n_wah, dtype=torch.bool, device=DEVICE)
-    scan_ms = cuda_ms(lambda: pbwt_torch.pbwt_encode_scan_parity(aw, at, ones),
-                      iters=5, warmup=1)
+    def parity_scan():
+        return pbwt_torch.pbwt_encode_scan_parity(aw, at, ones)
+
+    scan_ms = cuda_ms(parity_scan, iters=5, warmup=1)
+    # the parity scan and the encode core with the plain rank chain in the
+    # kernel's place (as they ran before it)
+    with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
+        scan_plain_chain_ms = cuda_ms(parity_scan, iters=3, warmup=1)
+        enc_plain_chain_ms = cuda_ms(encode_core, iters=3, warmup=1)
+        enc_core_peak_plain = once_peak_gb(encode_core)
+    # the path's own inputs of each kernel (captured after the peaks: the
+    # copies are not the path's memory), checked before the decode's peaks
+    with captured_args() as seen:
+        encode_core()
+    pchain = scan_block_checks(name, seen, card)["rank_chain"]
+    seen.pop("rank_chain")
     del args, aw, at
     ser_ms = wall_ms(lambda: ingest().serialize(), iters=3, warmup=1)
 
@@ -1274,17 +1543,23 @@ def mixed_block_phase(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     dec_ms = wall_ms(decode_once, iters=3, warmup=1)
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    dec_dev_ms = cuda_ms(decode_device, iters=2, warmup=0)
+    dec_dev_ms = cuda_ms(decode_device, iters=10, warmup=2)
     dec_dev_peak = once_peak_gb(decode_device)
+    # the device decode with the plain scan in the kernel's place (one
+    # Python step per line, as it ran before the kernel)
+    with swapped(pbwt_kernels, {"decode_scan_mixed":
+                                pbwt_kernels.decode_scan_mixed_plain}):
+        dec_dev_plain_ms = cuda_ms(decode_device, iters=2, warmup=1)
+        dec_dev_peak_plain = once_peak_gb(decode_device)
+    with captured_args() as seen_dec:
+        decode_device()
+    seen.update(seen_dec)
     stream, group_off, sorts, hap_wd = dargs[:4]
     seen["wah_expand_varw_bits"] = (stream, group_off, w_max, h)
     exp_ms = cuda_ms(lambda: wah_kernels.wah_expand_varw_bits(
         stream, group_off, w_max, h))
-    ys = wah_kernels.wah_expand_varw_bits(stream, group_off, w_max, h)
-    dscan_ms = wall_ms(lambda: pbwt_torch.pbwt_decode_scan_mixed(
-        ys, sorts, hap_wd), iters=3, warmup=1)
-    del ys
-    checks = wah_block_checks(name, seen, card)
+    dscan = scan_block_checks(name, seen, card)["decode_scan_mixed"]
+    checks = wah_block_checks(name, seen, card) + [pchain, dscan]
     del dargs, seen
     rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
         payload, N, H, np.uint16, [2] * L, device=DEVICE), iters=1, warmup=0)
@@ -1297,26 +1572,44 @@ def mixed_block_phase(card: str) -> dict:
           f"run {peak_gb:.3f} GB")
     print(f"[{name}] encode core (mixed): {enc_ms:.3f} ms/block = "
           f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB), "
-          f"of which the parity scan {scan_ms:.3f} ms | decode (host parse "
-          f"+ device): {dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} "
-          f"GB/s (peak {dec_peak_gb:.3f} GB), of which wah_expand_varw_bits "
-          f"{exp_ms:.4f} ms and the mixed scan {dscan_ms:.1f} ms | "
+          f"of which the parity scan {scan_ms:.3f} ms, of which the rank "
+          f"chain {pchain['ms']:.3f} ms | decode (host parse + device): "
+          f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
+          f"{dec_peak_gb:.3f} GB), of which wah_expand_varw_bits "
+          f"{exp_ms:.4f} ms and the mixed scan {dscan['ms']:.3f} ms | "
           f"serialize: {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
+    print(f"[{name}] with the plain versions in the kernels' place: the "
+          f"rank chain {pchain['plain_ms']:.3f} ms, the parity scan "
+          f"{scan_plain_chain_ms:.3f} ms, the encode core "
+          f"{enc_plain_chain_ms:.3f} ms (peak {enc_core_peak_plain:.3f} GB); "
+          f"the mixed scan {dscan['plain_ms']:.3f} ms, the device decode "
+          f"{dec_dev_plain_ms:.3f} ms (peak {dec_dev_peak_plain:.3f} GB) "
+          f"({card})")
     print(f"[{name}] device alone: encode core peak {enc_core_peak:.3f} GB "
           f"| decode {dec_dev_ms:.3f} ms, peak {dec_dev_peak:.3f} GB "
           f"({card})")
     return {"launches": launches, "H": H, "encode_ms": enc_ms,
             "block_checks": checks, "decode_device_ms": dec_dev_ms,
-            "encode_parity_scan_ms": scan_ms, "decode_ms": dec_ms,
-            "decode_expand_ms": exp_ms, "decode_scan_ms": dscan_ms,
+            "decode_device_plain_scan_ms": dec_dev_plain_ms,
+            "encode_parity_scan_ms": scan_ms,
+            "encode_parity_scan_plain_chain_ms": scan_plain_chain_ms,
+            "encode_plain_rank_chain_ms": enc_plain_chain_ms,
+            "rank_chain_ms": pchain["ms"],
+            "rank_chain_plain_ms": pchain["plain_ms"], "decode_ms": dec_ms,
+            "decode_expand_ms": exp_ms, "decode_scan_ms": dscan["ms"],
+            "decode_scan_plain_ms": dscan["plain_ms"],
             "serialize_ms": ser_ms, "decode_records_ms": rec_ms,
             "compression_ratio": ratio, "payload_bytes": len(payload),
             "wah_lines": n_wah, "haploid_wah_lines": n_hap_wah,
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
                                "decode": dec_peak_gb,
                                "encode_core_once": enc_core_peak,
-                               "decode_device_once": dec_dev_peak}}
+                               "encode_core_once_plain_rank_chain":
+                                   enc_core_peak_plain,
+                               "decode_device_once": dec_dev_peak,
+                               "decode_device_once_plain_scan":
+                                   dec_dev_peak_plain}}
 
 
 def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
@@ -1664,7 +1957,7 @@ SCALING_ARGS = ("--records", "4096", "--samples", str(FILE_SAMPLES),
                 "--block-length", "1024", "--procs", "1,2")
 #: Seconds a rank, or the scaling tool, may take before it is killed.
 RANK_TIMEOUT, SCALING_TIMEOUT = 600, 900
-ENCODE_ROUTES = ("chain_encode", "wah_compress_bits")
+ENCODE_ROUTES = ("chain_encode", "wah_compress_bits", "rank_chain")
 DECODE_ROUTES = ("wah_expand_bits", "chain_decode")
 
 
@@ -2239,6 +2532,9 @@ def main() -> int:
                 rows[c["name"]] = kernel_row(c)   # the block's own shapes
     for r in rows.values():
         r["launches"] = sum(b["launches"][r["name"]] for b in blocks.values())
+        r["launches_by_block"] = {k: b["launches"][r["name"]]
+                                  for k, b in blocks.items()
+                                  if b["launches"][r["name"]]}
     print(json.dumps({"kernel_checks": checks, "card": card}))
     print(json.dumps({"blocks": {k: {x: v for x, v in b.items()
                                      if x != "launches"}

@@ -126,6 +126,103 @@ def test_chain_cluster_routes_match_plain(dev, n_ch, C, H, K_enc, K_dec,
     assert n1["chain_decode"] == n0["chain_decode"]
 
 
+def _totals(rng, n_ch, H, bits, kind="random"):
+    """Per-chunk history totals below 2^bits: each bit a sorting line of a
+    density drawn per line; "zeros" all 0, "sparse" every other chunk
+    without a sorting line."""
+    T = np.zeros((n_ch, H), np.int64)
+    if kind == "zeros":
+        return T
+    for k in range(bits):
+        p = rng.choice([0.001, 0.05, 0.5, 0.97], (n_ch, 1))
+        T |= (rng.random((n_ch, H)) < p).astype(np.int64) << k
+    if kind == "sparse":
+        T[::2] = 0
+    return T
+
+
+@pytest.mark.parametrize("n_ch,H,bits,kind", [
+    (301, 5008, 16, "random"),   # 1KGP3: 301 chunks of 16 lines
+    (40, 64976, 16, "random"),   # HRC width: a cluster of 8 CTAs
+    (255, 2466, 18, "random"),   # the chrX PAR block's parity scan
+    (7, 1, 30, "random"), (7, 2, 30, "random"), (5, 3, 29, "random"),
+    (9, 4096, 16, "random"),     # 4 ranks a thread, and above it 8
+    (9, 4097, 16, "random"),
+    (9, 8193, 16, "random"),     # 16 ranks a thread
+    (9, 16384, 16, "random"),    # the one-CTA bound, and above it:
+    (9, 16385, 16, "random"),    # 3 CTAs
+    (9, 24577, 16, "random"),    # 4 CTAs
+    (12, 41001, 16, "random"),   # 6 CTAs, H not divisible by K
+    (9, 57345, 16, "random"),    # 8 CTAs, the last one short
+    (3, 65535, 15, "random"),    # the 16-bit ranks' limit
+    (12, 5008, 16, "zeros"), (12, 5008, 16, "sparse"),
+    (12, 64976, 16, "sparse"), (0, 301, 16, "random"),
+    (12, 24577, 16, "sparse"),
+])
+def test_rank_chain_kernel_matches_plain(dev, n_ch, H, bits, kind):
+    rng = np.random.default_rng(H + bits)
+    T = torch.from_numpy(_totals(rng, n_ch, H, bits, kind))
+    r0 = torch.from_numpy(rng.permutation(H))     # any starting ranks
+    want = pbwt_kernels.rank_chain_plain(T, r0, max(16, (H - 1).bit_length()))
+    n0 = pbwt_kernels.launches["rank_chain"]
+    for t in (T, T.to(torch.int32)):
+        got = pbwt_kernels.rank_chain(t.to(dev), r0.to(dev))
+        assert all(_equal(g, w) for g, w in zip(got, want))
+    assert pbwt_kernels.launches["rank_chain"] == n0 + 2
+
+
+def test_rank_chain_kernel_refuses(dev):
+    T = torch.zeros((2, pbwt_kernels.MAX_H + 1), dtype=torch.int32,
+                    device=dev)
+    with pytest.raises(ValueError, match="16 bits"):
+        pbwt_kernels.rank_chain(T, torch.arange(T.shape[1], device=dev))
+    with pytest.raises(ValueError, match="int64"):
+        pbwt_kernels.rank_chain(T[:, :5].to(torch.int16),
+                                torch.arange(5, device=dev))
+
+
+def _mixed_lines(rng, L, H, hap_kind):
+    """Stored lines of a mixed scan: haploid lines hold H/2 front-packed
+    bits (zero past them), diploid ones H; hap_kind "alternating" (runs of
+    8), "haploid", "diploid"."""
+    if hap_kind == "alternating":
+        hap = np.repeat(rng.random(-(-L // 8)) < 0.5, 8)[:L]
+    else:
+        hap = np.full(L, hap_kind == "haploid")
+    p = rng.choice([0.001, 0.05, 0.5, 0.97], (L, 1))
+    ys = (rng.random((L, H)) < p).astype(np.uint8)
+    ys[hap, (H + 1) // 2:] = 0
+    sorts = rng.random(L) < 0.9
+    return (torch.from_numpy(ys), torch.from_numpy(sorts),
+            torch.from_numpy(hap))
+
+
+@pytest.mark.parametrize("L,H,hap_kind", [
+    (600, 2466, "alternating"),     # chrX PAR width (4573 lines on the card
+    (64, 64976, "alternating"),     # in chip_smoke.py); HRC width: the
+    (300, 2466, "haploid"),         # device-memory route
+    (300, 2466, "diploid"),
+    (40, 2, "alternating"), (40, 3, "alternating"), (9, 1, "diploid"),
+    (30, 17801, "alternating"), (30, 17802, "alternating"),
+    (0, 100, "alternating"),
+])
+def test_decode_scan_mixed_kernel_matches_plain(dev, L, H, hap_kind):
+    rng = np.random.default_rng(L + H)
+    ys, sorts, hap = _mixed_lines(rng, L, H, hap_kind)
+    want = pbwt_kernels.decode_scan_mixed_plain(ys, sorts, hap)
+    n0 = pbwt_kernels.launches["decode_scan_mixed"]
+    got = pbwt_kernels.decode_scan_mixed(ys.to(dev), sorts.to(dev),
+                                         hap.to(dev))
+    assert all(_equal(g, w) for g, w in zip(got, want))
+    assert pbwt_kernels.launches["decode_scan_mixed"] == n0 + 1
+    # no sorting line: the arrangement stays the identity
+    flat = torch.zeros_like(sorts)
+    got = pbwt_kernels.decode_scan_mixed(ys.to(dev), flat.to(dev),
+                                         hap.to(dev))
+    want = pbwt_kernels.decode_scan_mixed_plain(ys, flat, hap)
+    assert all(_equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
                                  (6, 64976), (3, 16383 * 15 + 60)])
 def test_wah_kernels_match_plain(dev, L, H):
@@ -351,7 +448,7 @@ def test_track_block_roundtrip_on_card(dev):
     assert payload == ref.serialize()
     np.testing.assert_array_equal(np.stack(out), gt)
     assert set(counts) == {"chain_encode", "chain_decode", "wah_expand_bits",
-                           "wah_compress_bits"}
+                           "wah_compress_bits", "rank_chain"}
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, 2 * n_samples,
                                           np.uint16, device=dev)
     *args, H, W, _ = dec.device_inputs()
@@ -387,7 +484,9 @@ def test_mixed_block_roundtrip_on_card(dev):
             pl, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev))
     assert payload == ref.serialize()
     assert all(np.array_equal(o, r) for o, r in zip(out, recs))
-    assert set(counts) == {"wah_compress_bits", "wah_expand_varw_bits"}
+    assert set(counts) == {"wah_compress_bits", "wah_expand_varw_bits",
+                           "rank_chain", "decode_scan_mixed"}
+    assert counts["rank_chain"] == counts["decode_scan_mixed"] == 1
 
 
 @pytest.mark.parametrize("n_samples,L,mac,route", [
@@ -415,6 +514,7 @@ def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
     np.testing.assert_array_equal(np.stack(out), gt)
     for k in ("chain_encode", "chain_decode"):
         assert pbwt_kernels.launches[k + route] == n0[k + route] + 1
+    assert pbwt_kernels.launches["rank_chain"] == n0["rank_chain"] + 1
 
 
 @pytest.mark.parametrize("missing", [False, True])
@@ -490,8 +590,8 @@ def test_dot_prod_on_card(dev, tmp_path, name):
     compressed: every variant's dot within relative 1e-6 of the host
     walk's, which equals the plain VCF walk's to 1e-12; wah_expand_bits
     and chain_decode launch once per device block (uniformly diploid or
-    haploid), wah_expand_varw_bits once per mixed block, and no encode
-    route launches."""
+    haploid), wah_expand_varw_bits and decode_scan_mixed once per mixed
+    block, and no encode route launches."""
     from xsqueezeit_tpu_torch.bench import tools
     write, block, (n_dev, n_mixed) = DOT_PROD_FILES[name]
     vcf = write(str(tmp_path / "in.vcf"))
@@ -514,7 +614,7 @@ def test_dot_prod_on_card(dev, tmp_path, name):
     if n_dev:
         want.update(wah_expand_bits=n_dev, chain_decode=n_dev)
     if n_mixed:
-        want["wah_expand_varw_bits"] = n_mixed
+        want.update(wah_expand_varw_bits=n_mixed, decode_scan_mixed=n_mixed)
     assert ran == want
 
 

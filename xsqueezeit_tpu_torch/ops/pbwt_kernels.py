@@ -1,7 +1,9 @@
-"""PBWT chunk chains: CUDA kernels (csrc/pbwt_chain.cu) and their plain
-versions.
+"""PBWT chunk chains and the PBWT device scans: CUDA kernels
+(csrc/pbwt_chain.cu, csrc/pbwt_scan.cu) and their plain versions.
 
-Port of xsqueezeit_tpu/ops/pbwt_pallas.py (chain_encode, chain_decode).
+Port of xsqueezeit_tpu/ops/pbwt_pallas.py (chain_encode, chain_decode)
+and of two XLA scans of xsqueezeit_tpu/ops/pbwt_jax.py (_rank_chain,
+pbwt_decode_scan_mixed): see rank_chain and decode_scan_mixed below.
 A chunk holds C <= 16 lines; its state is one value per haplotype slot in
 arrangement order, and every sorting line stably partitions the slots by
 the line's bit (zeros first, order kept).  Each wrapper launches a kernel
@@ -46,7 +48,8 @@ _STATE_BYTES = {"chain_encode": 2, "chain_decode": 4}
 
 #: Kernel launches since the last reset, by kernel route.
 launches = {"chain_encode": 0, "chain_decode": 0,
-            "chain_encode_cluster": 0, "chain_decode_cluster": 0}
+            "chain_encode_cluster": 0, "chain_decode_cluster": 0,
+            "rank_chain": 0, "decode_scan_mixed": 0}
 
 
 def chain_smem_bytes(name: str, H: int, K: int) -> int:
@@ -84,6 +87,12 @@ def cluster_size(name: str, H: int, cluster: int | None = None) -> int:
                          f"{chain_smem_bytes(name, H, K)} B of shared memory "
                          f"per CTA at H = {H}; {_SMEM_BYTES} B fit")
     return K
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """Inverse of each row permutation of the last axis."""
+    iota = torch.arange(perm.shape[-1], device=perm.device).expand_as(perm)
+    return torch.empty_like(perm).scatter_(-1, perm, iota)
 
 
 def _partition_dest(y: torch.Tensor, sorts: torch.Tensor) -> torch.Tensor:
@@ -200,3 +209,182 @@ def chain_decode(yc: torch.Tensor, ss: torch.Tensor,
     _launch("chain_decode", yc.device, K, yc.data_ptr(), flags.data_ptr(),
             out.data_ptr(), n_ch, H, C)
     return out.to(torch.int64) & 0xFFFFFFFF
+
+
+def rank_chain_plain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-start rank chain: r_{t+1} = rank of each haplotype by
+    (T_t, r_t).
+
+    T: int32/int64[n_ch, H] per-chunk history totals (latest sorting bit
+    highest), below 2^31; r0: int64[H] ranks below 2^r_bits, with T <<
+    r_bits inside int64.  Returns (r_final int64[H], r_starts int64[n_ch,
+    H]).  One chunk per step: the key (T_t << r_bits) | r_t is unique per
+    haplotype (ranks are), so one sort per chunk orders it.
+    """
+    n_ch, H = T.shape
+    r = r0
+    r_starts = torch.empty((n_ch, H), dtype=torch.int64, device=T.device)
+    for t in range(n_ch):
+        r_starts[t] = r
+        order = torch.argsort((T[t].to(torch.int64) << r_bits) | r)
+        r = _inverse(order)
+    return r, r_starts
+
+
+#: Bit planes of the rank chain: one per bit of T.
+RANK_PLANES = 32
+
+#: Widths the rank chain runs on one CTA; above, a cluster of about
+#: RANK_CTA_H haplotypes per CTA (at most MAX_CLUSTER CTAs).
+RANK_ONE_CTA_H = 16384
+RANK_CTA_H = 8192
+
+
+def rank_split(H: int, K: int) -> tuple[int, int, int]:
+    """The rank chain's split over K CTAs (csrc/pbwt_scan.cu RankSplit):
+    haplotypes per CTA, their plane words, and the mask words each CTA
+    owns."""
+    hc = -(-H // K)
+    return hc, -(-hc // 32), -(-(-(-H // 32)) // K)
+
+
+def rank_smem_bytes(H: int, K: int) -> int:
+    """Dynamic shared memory of a rank-chain CTA at width H on K CTAs
+    (mirrors csrc/pbwt_scan.cu rank_smem_bytes): the double-buffered digit
+    words of every rank (four u64 per 32 ranks) and the bit planes of its
+    haplotypes (one u32 per 32 haplotypes and bit)."""
+    lw = rank_split(H, K)[1]
+    return 2 * 4 * 8 * -(-H // 32) + 4 * RANK_PLANES * lw
+
+
+def rank_route(H: int) -> int:
+    """CTAs of the rank chain at width H: one up to RANK_ONE_CTA_H, else a
+    cluster of ceil(H / RANK_CTA_H) <= MAX_CLUSTER."""
+    if not 1 <= H <= MAX_H:
+        raise ValueError(f"rank_chain keeps ranks in 16 bits: 1 <= H <= "
+                         f"{MAX_H} (got {H})")
+    return 1 if H <= RANK_ONE_CTA_H else -(-H // RANK_CTA_H)
+
+
+def rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank chain (see rank_chain_plain for the contract) in one launch
+    of csrc/pbwt_scan.cu's rank_chain_kernel, on one CTA or a cluster (see
+    rank_route), for H <= MAX_H (its ranks are 16-bit); r0 must be a
+    permutation of 0..H-1 (the port passes the identity) and T below 2^31.
+    The kernel reads T as int32: an int64 T is narrowed here first."""
+    if T.dtype not in (torch.int32, torch.int64) or T.dim() != 2:
+        raise ValueError(f"rank_chain: expected 2-D int32 or int64 T, got "
+                         f"{T.dim()}-D {T.dtype}")
+    n_ch, H = T.shape
+    if r0.dtype != torch.int64 or tuple(r0.shape) != (H,) \
+            or r0.device != T.device:
+        raise ValueError(f"rank_chain: r0 must be int64[{H}] on {T.device}, "
+                         f"got {r0.dtype} {tuple(r0.shape)} on {r0.device}")
+    if T.device.type == "cpu":
+        return rank_chain_plain(T, r0, r_bits)
+    if T.device.type != "cuda":
+        raise ValueError(f"rank_chain: unsupported device {T.device}")
+    K = rank_route(H)
+    T32 = T.to(torch.int32).contiguous()
+    r0 = r0.contiguous()
+    r_starts = torch.empty((n_ch, H), dtype=torch.int64, device=T.device)
+    r_fin = torch.empty(H, dtype=torch.int64, device=T.device)
+    _build.launch(T.device, "xsi_rank_chain", T32.data_ptr(), r0.data_ptr(),
+                  r_starts.data_ptr(), r_fin.data_ptr(), n_ch, H, K)
+    _build.count(launches, "rank_chain")
+    return r_fin, r_starts
+
+
+def decode_scan_mixed_plain(ys: torch.Tensor, sorts: torch.Tensor,
+                            hap_line: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PBWT decode of a mixed-ploidy block, one step per line, block start
+    at the identity (pbwt_jax.pbwt_decode_scan_mixed; with no haploid line
+    it is pbwt_jax.pbwt_decode_scan).
+
+    ys: uint8[L, H] bits in arrangement order; a haploid line holds only
+    its N = H/2 even-parity bits, front-packed (the on-disk form).  Its
+    slot-duplicated bits are rebuilt first: position i holds sample
+    a[i] >> 1, whose even slot sits at position inv[a[i] & ~1], whose rank
+    among the even-parity positions indexes the stored bits.  Then the
+    bits land in natural order (vals[a[i]] = y[i]) and a sorting line
+    stably partitions the arrangement by them.  sorts, hap_line: bool[L].
+    Returns (vals uint8[L, H] natural-order bits, haploid lines
+    slot-duplicated; a_final int64[H]).
+    """
+    L, H = ys.shape
+    dev = ys.device
+    iota = torch.arange(H, device=dev)
+    a = iota.clone()
+    vals = torch.empty((L, H), dtype=torch.uint8, device=dev)
+    always = torch.ones(1, dtype=torch.bool, device=dev)
+    # the flags decide the host-side branches: one transfer, no syncs
+    for l, (sort, hap) in enumerate(zip(sorts.tolist(), hap_line.tolist())):
+        y = ys[l].to(torch.int64)
+        if hap:
+            even = 1 - (a & 1)
+            rank_even = torch.cumsum(even, 0) - even
+            inv = torch.empty_like(a).scatter_(0, a, iota)
+            y = y[rank_even[inv[a & ~1]]]
+        vals[l].scatter_(0, a, y.to(torch.uint8))
+        if sort:
+            dest = _partition_dest(y[None], always)[0]
+            a = torch.empty_like(a).scatter_(0, dest, a)
+    return vals, a
+
+
+def mixed_smem_bytes(H: int) -> int:
+    """Shared memory of the mixed scan's shared route at width H (mirrors
+    csrc/pbwt_scan.cu mixed_smem_bytes): the arrangement, its double
+    buffer and the even ranks as int32, the stored line, y and the line in
+    natural order as bytes."""
+    return 4 * (2 * H + (H + 1) // 2) + 3 * H
+
+
+def mixed_scratch_bytes(H: int) -> int:
+    """Device-memory scratch of the mixed scan's wide route: its int32
+    arrays and y (the line is read and written in place)."""
+    return 4 * (2 * H + (H + 1) // 2) + H
+
+
+def decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
+                      hap_line: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mixed-ploidy decode scan (see decode_scan_mixed_plain for the
+    contract) in one launch of csrc/pbwt_scan.cu's
+    decode_scan_mixed_kernel, one CTA over all lines, flags read on the
+    device (no host sync).  Its state lives in shared memory while
+    mixed_smem_bytes(H) fits one CTA, else in a device scratch allocated
+    here (any H)."""
+    if ys.dtype != torch.uint8 or ys.dim() != 2:
+        raise ValueError(f"decode_scan_mixed: expected 2-D uint8 ys, got "
+                         f"{ys.dim()}-D {ys.dtype}")
+    Lw, H = ys.shape
+    flags = []
+    for name, f in (("sorts", sorts), ("hap_line", hap_line)):
+        if f.dtype not in (torch.bool, torch.uint8) or f.dim() != 1 \
+                or f.shape[0] != Lw or f.device != ys.device:
+            raise ValueError(f"decode_scan_mixed: {name} must be bool[{Lw}] "
+                             f"on {ys.device}, got {f.dtype} "
+                             f"{tuple(f.shape)} on {f.device}")
+        flags.append(f.contiguous().view(torch.uint8))
+    if ys.device.type == "cpu":
+        return decode_scan_mixed_plain(ys, sorts, hap_line)
+    _check("decode_scan_mixed", ys, torch.uint8, 2)
+    if H < 1:
+        raise ValueError("decode_scan_mixed: H must be >= 1")
+    ys = ys.contiguous()
+    vals = torch.empty((Lw, H), dtype=torch.uint8, device=ys.device)
+    a_fin = torch.empty(H, dtype=torch.int64, device=ys.device)
+    scratch = None
+    if mixed_smem_bytes(H) > _SMEM_BYTES:
+        scratch = torch.empty(mixed_scratch_bytes(H), dtype=torch.uint8,
+                              device=ys.device)
+    _build.launch(ys.device, "xsi_decode_scan_mixed", ys.data_ptr(),
+                  flags[0].data_ptr(), flags[1].data_ptr(), vals.data_ptr(),
+                  a_fin.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), Lw, H)
+    _build.count(launches, "decode_scan_mixed")
+    return vals, a_fin

@@ -7,11 +7,13 @@ pbwt_encode_scan_parity, pbwt_decode_blocked, pbwt_decode_scan_mixed).
 Up to H = 65,535 lines group into chunks of C = 16; a 16-bit register per
 haplotype carries the chunk's bits through the partitions, which run in
 the chunk-chain kernels of ops/pbwt_kernels.py.  Cross-chunk state comes
-from a rank chain (encode) or from composing the chunks' arrangements
-(decode).  Wider blocks, whose slots do not fit the registers' 16-bit
-fields, encode with packed per-line keys and one batched row sort (the
-scan) and decode by the blocked three-phase form; mixed-ploidy blocks
-encode with the parity scan and decode one line at a time.
+from a rank chain (encode: the rank_chain kernel up to H = 65,535) or from
+composing the chunks' arrangements (decode).  Wider blocks, whose slots do
+not fit the registers' 16-bit fields, encode with packed per-line keys and
+one batched row sort (the scan; its rank chain the plain one above 65,535)
+and decode by the blocked three-phase form; mixed-ploidy blocks encode
+with the parity scan and decode with the decode_scan_mixed kernel, one
+launch over all lines.
 
 Where the JAX package applies permutations with packed row sorts (fast on a
 TPU), this module scatters and gathers.  The block-start arrangement is the
@@ -29,31 +31,18 @@ DECODE_CHUNK = 16
 SORT_SLICE_ELEMS = 1 << 26
 
 
-def _inverse(perm: torch.Tensor) -> torch.Tensor:
-    """Inverse of each row permutation of the last axis."""
-    iota = torch.arange(perm.shape[-1], device=perm.device).expand_as(perm)
-    return torch.empty_like(perm).scatter_(-1, perm, iota)
+_inverse = pbwt_kernels._inverse
 
 
 def _rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunk-start rank chain: r_{t+1} = rank of each haplotype by
-    (T_t, r_t).
-
-    T: int64[n_ch, H] per-chunk history totals (latest sorting bit
-    highest); r0: int64[H] ranks below 2^r_bits, with T << r_bits inside
-    int64.  Returns (r_final int64[H], r_starts int64[n_ch, H]).  One chunk
-    per step: the key (T_t << r_bits) | r_t is unique per haplotype (ranks
-    are), so one sort per chunk orders it.
-    """
-    n_ch, H = T.shape
-    r = r0
-    r_starts = torch.empty((n_ch, H), dtype=torch.int64, device=T.device)
-    for t in range(n_ch):
-        r_starts[t] = r
-        order = torch.argsort((T[t] << r_bits) | r)
-        r = _inverse(order)
-    return r, r_starts
+    """Chunk-start rank chain (pbwt_kernels.rank_chain_plain has the
+    contract): the kernel up to H = 65,535, the width of its 16-bit ranks;
+    above that (pbwt_encode_scan, the wide parity scan) the plain chain,
+    one sort per chunk, on any device."""
+    if T.shape[1] > pbwt_kernels.MAX_H:
+        return pbwt_kernels.rank_chain_plain(T, r0, r_bits)
+    return pbwt_kernels.rank_chain(T, r0, r_bits)
 
 
 def _hap_bits(h: int) -> int:
@@ -87,15 +76,16 @@ def pbwt_encode_keys(alleles: torch.Tensor, alts: torch.Tensor,
         sorts = torch.nn.functional.pad(sorts, (0, pad))
     n_ch = (L + pad) // C
     xc = x.reshape(n_ch, C, H)
-    ssi = sorts.reshape(n_ch, C).to(torch.int64)
-    sh = torch.cumsum(ssi, 1) - ssi
+    ssi = sorts.reshape(n_ch, C).to(torch.int32)
+    sh = torch.cumsum(ssi, 1, dtype=torch.int32) - ssi
     # history prefix P_j of each chunk line (exclusive of line j), built
-    # one line at a time so the temporaries stay [n_ch, H]
+    # one line at a time so the temporaries stay [n_ch, H]; C <= 30 bits,
+    # so the totals fit int32 (the rank chain kernel's input type)
     packed = torch.empty((n_ch, C, H), dtype=torch.int64, device=dev)
-    T = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
+    T = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
     for j in range(C):
         packed[:, j] = T
-        T |= (xc[:, j].to(torch.int64) << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
+        T |= (xc[:, j].to(torch.int32) << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
 
     r_fin, r_starts = _rank_chain(T, torch.arange(H, device=dev), b)
     low = r_starts << vb
@@ -183,12 +173,12 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
     # the temporaries stay [n_ch, H] (at HRC width a [n_ch, C, H] int64
     # grid would be over 2 GB).
     ss = sorts.reshape(n_ch, C)
-    ssi = ss.to(torch.int64)
-    sh = torch.cumsum(ssi, 1) - ssi
-    bhat = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
-    T = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
+    ssi = ss.to(torch.int32)
+    sh = torch.cumsum(ssi, 1, dtype=torch.int32) - ssi
+    bhat = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
+    T = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
     for j in range(C):
-        xj = xc[:, j].to(torch.int64)
+        xj = xc[:, j].to(torch.int32)
         bhat |= xj << j
         T |= (xj << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
 
@@ -197,7 +187,7 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
 
     # Register load: each haplotype's register lands at its chunk-start slot.
     q0 = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
-    q0.scatter_(1, r_starts, bhat.to(torch.int32))
+    q0.scatter_(1, r_starts, bhat)
     ys = pbwt_kernels.chain_encode(q0, ss)
     return ys.reshape(n_ch * C, H)[:L], _inverse(r_fin)
 
@@ -304,36 +294,8 @@ def pbwt_decode_blocked(ys: torch.Tensor, sorts: torch.Tensor,
 def pbwt_decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
                            hap_line: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """PBWT decode of a mixed-ploidy block, one step per line, block start
-    at the identity (pbwt_jax.pbwt_decode_scan_mixed; with no haploid line
-    it is pbwt_jax.pbwt_decode_scan).
-
-    ys: uint8[L, H] bits in arrangement order; a haploid line holds only
-    its N = H/2 even-parity bits, front-packed (the on-disk form).  Its
-    slot-duplicated bits are rebuilt first: position i holds sample
-    a[i] >> 1, whose even slot sits at position inv[a[i] & ~1], whose rank
-    among the even-parity positions indexes the stored bits.  Then the
-    bits land in natural order (vals[a[i]] = y[i]) and a sorting line
-    stably partitions the arrangement by them.  sorts, hap_line: bool[L].
-    Returns (vals uint8[L, H] natural-order bits, haploid lines
-    slot-duplicated; a_final int64[H]).
-    """
-    L, H = ys.shape
-    dev = ys.device
-    iota = torch.arange(H, device=dev)
-    a = iota.clone()
-    vals = torch.empty((L, H), dtype=torch.uint8, device=dev)
-    always = torch.ones(1, dtype=torch.bool, device=dev)
-    # the flags decide the host-side branches: one transfer, no syncs
-    for l, (sort, hap) in enumerate(zip(sorts.tolist(), hap_line.tolist())):
-        y = ys[l].to(torch.int64)
-        if hap:
-            even = 1 - (a & 1)
-            rank_even = torch.cumsum(even, 0) - even
-            inv = torch.empty_like(a).scatter_(0, a, iota)
-            y = y[rank_even[inv[a & ~1]]]
-        vals[l].scatter_(0, a, y.to(torch.uint8))
-        if sort:
-            dest = pbwt_kernels._partition_dest(y[None], always)[0]
-            a = torch.empty_like(a).scatter_(0, dest, a)
-    return vals, a
+    """PBWT decode of a mixed-ploidy block, block start at the identity
+    (pbwt_jax.pbwt_decode_scan_mixed; pbwt_kernels.decode_scan_mixed_plain
+    has the contract): the kernel on the card, one step per line on the
+    CPU."""
+    return pbwt_kernels.decode_scan_mixed(ys, sorts, hap_line)
