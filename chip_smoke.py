@@ -26,14 +26,17 @@ exactly:
    the chains and the WAH routes again at the block's own shapes,
    registers, sort flags, bit grids and streams (1KGP3: 301 chunks; HRC:
    325 chunks, on 8 CTAs and on the other cluster sizes); the PBWT device
-   scans (csrc/pbwt_scan.cu) against their plain versions: the rank chain
-   at 1KGP3 (301 chunks x 5008, 16-bit totals), HRC (325 x 64,976, a
-   cluster of 8 CTAs), the chrX PAR parity scan's (255 x 2466, 18-bit) and
-   H = 1 and 2, and the mixed decode scan at chrX PAR width (4573 lines in
-   runs of each ploidy, all haploid, all diploid) and at HRC width (512
-   lines, state in device memory); after each block the rank chain again
-   at the block's own totals, and after the chrX PAR block the mixed scan
-   at its own lines;
+   scans against their plain versions: the rank chain (csrc/rank_chain.cu,
+   also against its log-depth form rank_chain_levels_plain, timed as a
+   yardstick) at 1KGP3 (301 chunks x 5008, 16-bit totals), the chrX PAR
+   parity scan's (255 x 2466, 18-bit), H = 1, 2 and 16,384 (rows in
+   shared memory), and H = 16,385, HRC (325 x 64,976), 65,536 and TOPMed
+   (395 x 194,512, 13-bit; rows through device memory, 32-bit ranks above
+   65,535), and the mixed decode scan (csrc/pbwt_scan.cu) at chrX PAR
+   width (4573 lines in runs of each ploidy, all haploid, all diploid) and
+   at HRC width (512 lines, state in device memory); after each block the
+   rank chain again at the block's own totals, and after the chrX PAR
+   block the mixed scan at its own lines;
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
    threshold 10, the rare-heavy mix of bench.py), the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
@@ -47,8 +50,7 @@ exactly:
    just after, and each kernel route of that path must have launched
    (and no other); while it runs, wah_torch's plain pack_bits,
    unpack_bits and wah_word_offsets and pbwt_kernels' plain rank chain and
-   mixed scan raise (the TOPMed block's path runs the plain rank chain:
-   its 16-bit ranks do not reach 194,512 haplotypes).  Prints ms/block and
+   mixed scan raise (every block, TOPMed's included).  Prints ms/block and
    GB/s in bench.py's unit (L * H * 4 logical gt bytes), the compression
    ratio, the device part of the decode alone, and the peak device memory
    of encode and decode, each also with the old WAH pipeline;
@@ -108,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -157,8 +160,8 @@ PATH_KERNELS = {
     "HRC": ("chain_encode_cluster", "chain_decode_cluster",
             "wah_expand_bits", "wah_compress_bits", "rank_chain"),
     # the packed-key scan and the blocked decode (plain torch) in place of
-    # the chains, and the plain rank chain: no chain route may launch
-    "TOPMed": ("wah_expand_bits", "wah_compress_bits"),
+    # the chains: no chain route may launch
+    "TOPMed": ("wah_expand_bits", "wah_compress_bits", "rank_chain"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
     MIXED_BLOCK: ("wah_compress_bits", "wah_expand_varw_bits", "rank_chain",
@@ -169,9 +172,9 @@ PATH_KERNELS = {
 PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
                 (pbwt_kernels, ("rank_chain_plain",
                                 "decode_scan_mixed_plain")))
-#: The plain passes a block's path takes by design: above 65,535
-#: haplotypes the rank chain is the plain one (the kernel's ranks are u16).
-PLAIN_ROUTES = {"TOPMed": ("rank_chain_plain",)}
+#: The plain passes a block's path takes by design: none (the rank chain
+#: runs its kernels at every width).
+PLAIN_ROUTES: dict = {}
 #: Kernel-check shapes: 1KGP3 and HRC widths.
 KERNEL_SHAPES = dict(H=5008, C=16, n_ch=256, n_lines=4096)
 HRC_SHAPES = dict(H=HRC_H, C=16, n_ch=64, n_lines=4096)
@@ -200,7 +203,7 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     "wah_compress_bits": ("wah.cu", "wah_pallas.py:112"),
     "wah_expand_varw_bits": ("wah.cu", "wah_jax.py:227"),
     # XLA scans of the JAX package, Python-stepped loops before this port
-    "rank_chain": ("pbwt_scan.cu", "pbwt_jax.py:213"),
+    "rank_chain": ("rank_chain.cu", "pbwt_jax.py:213"),
     "decode_scan_mixed": ("pbwt_scan.cu", "pbwt_jax.py:564"),
 }
 
@@ -238,9 +241,17 @@ KERNEL_NAMES = {
                       "wah_compress_kernelILb0E"),),
     "wah_compress_bits": (("wah_compress_kernel<true>",
                            "wah_compress_kernelILb1E"),),
-    "rank_chain": (("rank_chain_kernel",),),
+    # the rank chain's kernels (csrc/rank_chain.cu): several launches a
+    # call, their count following the chunks and the route (MULTI_LAUNCH)
+    "rank_chain": (("rank_",),),
     "decode_scan_mixed": (("decode_scan_mixed_kernel",),),
 }
+
+
+#: Routes whose call launches its kernels several times (KERNEL_NAMES then
+#: names their common prefix): their device time is summed over a call and
+#: their launches per call printed.
+MULTI_LAUNCH = {"rank_chain"}
 
 
 def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
@@ -261,6 +272,18 @@ def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
         events = [e for e in averages if any(n in e.key for n in names)]
         count = sum(e.count for e in events)
         total_us = sum(e.device_time_total for e in events)
+        if route in MULTI_LAUNCH:
+            by_kernel = ", ".join(
+                f"{re.search(r'rank_\w+', e.key).group(0)} "
+                f"{e.device_time_total / iters / 1e3:.3f} ms "
+                f"({e.count / iters:g}x)"
+                for e in sorted(events, key=lambda e: -e.device_time_total))
+            print(f"{route}: {count / iters:g} kernel launches a call: "
+                  f"{by_kernel}")
+            if not count or total_us <= 0:
+                return None
+            parts.append(total_us / iters / 1e3)
+            continue
         if count != iters:
             print(f"{route}: the profiler recorded {count} of {iters} "
                   f"launches of {names[0]}")
@@ -310,15 +333,32 @@ def rank_bytes(T) -> int:
 
 
 def rank_floor(T) -> dict:
-    """The rank chain's sequential floor on these totals: its sorting
-    lines that move someone (bits that vary over a chunk's row), each one
-    stable partition of the whole row, and the kernel's block-wide passes
-    (two such lines a pass)."""
-    t = T.cpu().numpy().astype(np.int64)
-    vary = np.bitwise_or.reduce(t, axis=1) & ~np.bitwise_and.reduce(t, axis=1)
-    bits = np.array([bin(int(v)).count("1") for v in vary])
-    return {"chunks": int(t.shape[0]), "sorting_lines": int(bits.sum()),
-            "passes": int(((bits + 1) // 2).sum())}
+    """The rank chain's sequential floor on these totals: its levels, each
+    a set of independent row sorts (level 0, ceil(log2 n_ch) doubling
+    levels and the final one), and its route."""
+    n_ch, H = T.shape
+    route, rank_bytes_ = pbwt_kernels.rank_route(H)
+    return {"chunks": n_ch, "levels": max(n_ch - 1, 0).bit_length() + 2,
+            "route": route, "rank_bytes": rank_bytes_}
+
+
+def first_bad_level(got, want) -> str:
+    """Where a rank chain's output first differs from the plain one: the
+    first wrong row r_t and the level that completes its prefix rank P_t
+    (level 0 for t = 1, the doubling level of stride 2^(k-1) for t <=
+    2^k; row 0 is r0 itself), the final level being the last to touch
+    every row."""
+    rows = torch.cat([got[1], got[0][None]]).cpu()
+    ref = torch.cat([want[1], want[0][None]]).cpu()
+    bad = (rows != ref).any(1).nonzero()
+    if not len(bad):
+        return "none"
+    t = int(bad[0])
+    level = ("r0 copied" if t == 0 else "level 0" if t == 1 else
+             f"doubling level {(t - 1).bit_length()} (stride "
+             f"{1 << ((t - 1).bit_length() - 1)})")
+    return (f"row t = {t} (its prefix complete after {level}; or the "
+            f"final level)")
 
 
 def mixed_bytes(ys, hap) -> int:
@@ -659,25 +699,36 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         ]
         del words_cpu
 
-    # the PBWT device scans (their own generator): the rank chain at the
-    # main path's widths (HRC on a cluster), the chrX PAR parity scan's and
-    # the narrowest; the mixed scan at chrX PAR width and at HRC width
-    # (its state in device memory).  Their plain versions step from the
-    # host, one chunk or line at a time: timed over fewer calls.
+    # the PBWT device scans (their own generator): the rank chain on both
+    # routes at the main path's widths, the chrX PAR parity scan's, the
+    # narrowest, each side of the shared-memory route's bound and of the
+    # 16-bit ranks', and TOPMed's; the mixed scan at chrX PAR width and at
+    # HRC width (its state in device memory).  Their plain versions step
+    # from the host, one chunk or line at a time: timed over fewer calls.
     srng = np.random.default_rng(4)
     for label, n_ch, H, bits in (("1KGP3", 301, 5008, 16),
                                  ("HRC", 325, HRC_H, 16),
                                  ("chrX-PAR parity", 255, 2 * MALES, 18),
-                                 ("H=1", 64, 1, 30), ("H=2", 64, 2, 30)):
+                                 ("H=1", 64, 1, 30), ("H=2", 64, 2, 30),
+                                 ("H=16384", 301, 16384, 16),
+                                 ("H=16385", 301, 16385, 16),
+                                 ("H=65536", 40, 65536, 16),
+                                 ("TOPMed", 395, 2 * TOPMED_SAMPLES, 13)):
         T = torch.from_numpy(rank_totals(srng, n_ch, H, bits)).to(dev)
         r0 = torch.arange(H, device=dev)
-        K = pbwt_kernels.rank_route(H)
+        r_bits = max(16, (H - 1).bit_length())
+        route = pbwt_kernels.rank_route(H)[0]
         cases.append((
-            "rank_chain", label, f"n_ch={n_ch} H={H} {bits}-bit T K={K}",
+            "rank_chain", label, f"n_ch={n_ch} H={H} {bits}-bit T {route}",
             lambda T=T, r0=r0: pbwt_kernels.rank_chain(T, r0),
-            lambda T=T, r0=r0: pbwt_kernels.rank_chain_plain(T, r0, 16),
-            None, rank_bytes(T), None,
-            {"plain_iters": 3, "floor": rank_floor(T)}))
+            lambda T=T, r0=r0, b=r_bits: pbwt_kernels.rank_chain_plain(
+                T, r0, b),
+            ("its log-depth form", lambda got, T=T, r0=r0: diff(
+                got, pbwt_kernels.rank_chain_levels_plain(T, r0))),
+            rank_bytes(T), None,
+            {"plain_iters": 3, "floor": rank_floor(T),
+             "yardstick": lambda T=T, r0=r0:
+                 pbwt_kernels.rank_chain_levels_plain(T, r0)}))
     for label, n, H, kind in (("chrX-PAR", 4573, 2 * MALES, "runs"),
                               ("chrX-PAR haploid", 1024, 2 * MALES,
                                "haploid"),
@@ -700,7 +751,9 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         torch.cuda.synchronize()
         err = diff(got, want)
         require(err == 0, f"{name} at {shape}: kernel differs from its plain "
-                          f"version (max abs err {err})")
+                          f"version (max abs err {err})"
+                + (f"; first at {first_bad_level(got, want)}"
+                   if name == "rank_chain" else ""))
         note = ""
         if extra is not None:
             err2 = extra[1](got)
@@ -717,6 +770,12 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                             host_ms(kern),
                             old and cuda_ms(old, iters=iters),
                             meta.get("floor"))
+        if "yardstick" in meta:
+            check["levels_plain_ms"] = cuda_ms(meta["yardstick"],
+                                               iters=p_iters, warmup=1)
+            print(f"kernel {name} [{label}]: its log-depth form in torch "
+                  f"(rank_chain_levels_plain, a yardstick) "
+                  f"{check['levels_plain_ms']:.4f} ms ({card})")
         checks.append(check)
         # the kernels line holds each route at its own path's width: the
         # cluster chains at HRC, the per-line-width expand at chrX PAR
@@ -771,12 +830,14 @@ def kernel_row(check: dict) -> dict:
            "library_ms": None, "old_pipeline_ms": check["old_pipeline_ms"]}
     if check.get("sequential_floor"):
         row["sequential_floor"] = check["sequential_floor"]
+    if check.get("levels_plain_ms") is not None:
+        row["levels_plain_ms"] = check["levels_plain_ms"]
     return row
 
 
 #: Wrappers whose first call in a block is recorded (captured_args).
 CAPTURED = ((pbwt_kernels, ("chain_encode", "chain_decode", "rank_chain",
-                            "rank_chain_plain", "decode_scan_mixed")),
+                            "decode_scan_mixed")),
             (wah_kernels, ("wah_compress_bits", "wah_expand_bits",
                            "wah_expand_varw_bits")))
 
@@ -903,12 +964,17 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
 
 
 #: Each scan: the block whose own inputs fill the kernels line, its bytes,
-#: its sequential floor, calls of its plain version timed.
+#: its sequential floor, calls of its plain version timed.  The rank
+#: chain's device route also has rows of its own, at the HRC and TOPMed
+#: blocks' totals (WIDE_SCAN_ROWS).
 SCANS = {"rank_chain": ("1KGP3", lambda a: rank_bytes(a[0]),
                         lambda a: rank_floor(a[0]), 3),
          "decode_scan_mixed": (MIXED_BLOCK,
                                lambda a: mixed_bytes(a[0], a[2]),
                                lambda a: mixed_floor(a[1], a[2]), 2)}
+
+
+WIDE_SCAN_ROWS = {("rank_chain", "HRC"), ("rank_chain", "TOPMed")}
 
 
 def scan_block_checks(label: str, seen: dict, card: str) -> list[dict]:
@@ -928,11 +994,13 @@ def scan_block_checks(label: str, seen: dict, card: str) -> list[dict]:
         err = diff(got, want)
         shape = " x ".join(str(tuple(a.shape)) for a in args
                            if isinstance(a, torch.Tensor))
+        where = ""
         if name == "rank_chain":
-            shape += f" K={pbwt_kernels.rank_route(args[0].shape[1])}"
+            shape += f" {pbwt_kernels.rank_route(args[0].shape[1])[0]}"
+            where = f"; first at {first_bad_level(got, want)}"
         require(err == 0, f"{name} at {label} block shape {shape}: kernel "
                           f"differs from its plain version (max abs err "
-                          f"{err})")
+                          f"{err}){where}")
         del got, want
 
         def call(f=kern, a=args):
@@ -943,7 +1011,16 @@ def scan_block_checks(label: str, seen: dict, card: str) -> list[dict]:
                                 warmup=1),
                         nbytes(args), "", card, kernel_device_ms(name, call),
                         host_ms(call), floor=floor(args))
+        if name == "rank_chain":
+            c["levels_plain_ms"] = cuda_ms(
+                lambda: pbwt_kernels.rank_chain_levels_plain(*args[:2]),
+                iters=p_iters, warmup=1)
+            print(f"kernel rank_chain [{label} block]: its log-depth form in "
+                  f"torch (rank_chain_levels_plain, a yardstick) "
+                  f"{c['levels_plain_ms']:.4f} ms ({card})")
         c["default_route"] = label == row_block
+        if (name, label) in WIDE_SCAN_ROWS:
+            c["row"] = f"{name}@{label}"
         out[name] = c
     return out
 
@@ -1188,27 +1265,16 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     # it ran before the kernel), then the path's own inputs of each kernel
     # (captured after the peaks: the copies are not the path's memory) and
     # the rank chain alone
-    enc_plain_chain_ms = enc_core_peak_plain_chain = None
-    if not scan:
-        with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
-            enc_plain_chain_ms = cuda_ms(encode_core, **dev_loop)
-            enc_core_peak_plain_chain = once_peak_gb(encode_core)
+    with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
+        enc_plain_chain_ms = cuda_ms(encode_core, **dev_loop)
+        enc_core_peak_plain_chain = once_peak_gb(encode_core)
     with captured_args() as seen:
         encode_core()
     scans = scan_block_checks(name, seen, card)
     parts = {}
-    if scan:
-        # above 65,535 haplotypes the path's rank chain is the plain one
-        T, r0, r_bits = seen["rank_chain_plain"]
-        parts["rank_chain_plain"] = alone(
-            lambda: pbwt_kernels.rank_chain_plain(T, r0, r_bits),
-            rank_bytes(T), "the rank chain (rank_chain_plain: this path's "
-            "route, the kernel's ranks being u16)")
-        del T, r0
     # the rank chain's copied totals are done with: the decode's peaks
     # below are measured without them
     seen.pop("rank_chain", None)
-    seen.pop("rank_chain_plain", None)
     if scan:
         aw = staged[0].index_select(0, staged[2])
         at = staged[1].index_select(0, staged[2])
@@ -1263,16 +1329,11 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     def old(ms, unit=" ms"):
         return "" if ms is None else f" (old WAH pipeline {ms:.3f}{unit})"
 
-    chain = ""
-    if "rank_chain" in scans:
-        rc = scans["rank_chain"]
-        chain = (f", of which the rank chain {rc['ms']:.3f} ms (its plain "
-                 f"version {rc['plain_ms']:.3f} ms; the encode core with "
-                 f"the plain chain {enc_plain_chain_ms:.3f} ms, peak "
-                 f"{enc_core_peak_plain_chain:.3f} GB)")
-    elif scan:
-        chain = (f", of which the rank chain (plain: the wide path) "
-                 f"{parts['rank_chain_plain']['ms']:.3f} ms")
+    rc = scans["rank_chain"]
+    chain = (f", of which the rank chain {rc['ms']:.3f} ms (its plain "
+             f"version {rc['plain_ms']:.3f} ms; the encode core with "
+             f"the plain chain {enc_plain_chain_ms:.3f} ms, peak "
+             f"{enc_core_peak_plain_chain:.3f} GB)")
 
     print(f"[{name}] encode core: {enc_ms:.3f} ms/block = "
           f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
@@ -1291,10 +1352,7 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
             "encode_ms": enc_ms, "block_checks": checks,
             "encode_plain_rank_chain_ms": enc_plain_chain_ms,
-            "rank_chain_ms": scans.get("rank_chain", {}).get("ms"),
-            "rank_chain_plain_ms": (
-                scans["rank_chain"]["plain_ms"] if "rank_chain" in scans
-                else parts["rank_chain_plain"]["ms"]),
+            "rank_chain_ms": rc["ms"], "rank_chain_plain_ms": rc["plain_ms"],
             "encode_old_wah_ms": enc_old_ms,
             "decode_device_ms": dec_dev_ms,
             "decode_device_old_wah_ms": dec_dev_old_ms,
@@ -2530,6 +2588,8 @@ def main() -> int:
             checks.append(c)
             if c["default_route"]:
                 rows[c["name"]] = kernel_row(c)   # the block's own shapes
+            elif c.get("row"):
+                rows[c["row"]] = kernel_row(c)
     for r in rows.values():
         r["launches"] = sum(b["launches"][r["name"]] for b in blocks.values())
         r["launches_by_block"] = {k: b["launches"][r["name"]]

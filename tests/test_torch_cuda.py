@@ -143,38 +143,40 @@ def _totals(rng, n_ch, H, bits, kind="random"):
 
 @pytest.mark.parametrize("n_ch,H,bits,kind", [
     (301, 5008, 16, "random"),   # 1KGP3: 301 chunks of 16 lines
-    (40, 64976, 16, "random"),   # HRC width: a cluster of 8 CTAs
+    (325, 64976, 16, "random"),  # HRC width: rows through device memory
     (255, 2466, 18, "random"),   # the chrX PAR block's parity scan
     (7, 1, 30, "random"), (7, 2, 30, "random"), (5, 3, 29, "random"),
-    (9, 4096, 16, "random"),     # 4 ranks a thread, and above it 8
-    (9, 4097, 16, "random"),
-    (9, 8193, 16, "random"),     # 16 ranks a thread
-    (9, 16384, 16, "random"),    # the one-CTA bound, and above it:
-    (9, 16385, 16, "random"),    # 3 CTAs
-    (9, 24577, 16, "random"),    # 4 CTAs
-    (12, 41001, 16, "random"),   # 6 CTAs, H not divisible by K
-    (9, 57345, 16, "random"),    # 8 CTAs, the last one short
-    (3, 65535, 15, "random"),    # the 16-bit ranks' limit
+    (9, 4096, 16, "random"),
+    (40, 16384, 16, "random"),   # the shared-memory route's widest row
+    (40, 16385, 16, "random"),   # the device route's narrowest
+    (12, 41001, 16, "random"),   # a short last tile
+    (3, 65535, 15, "random"),    # the 16-bit dense ranks' limit
+    (9, 65536, 16, "random"),    # 32-bit ranks, u64 keys
+    (395, 194512, 13, "random"),  # TOPMed: C = 13 totals
     (12, 5008, 16, "zeros"), (12, 5008, 16, "sparse"),
     (12, 64976, 16, "sparse"), (0, 301, 16, "random"),
+    (0, 65536, 16, "random"), (1, 65536, 16, "random"),
     (12, 24577, 16, "sparse"),
 ])
 def test_rank_chain_kernel_matches_plain(dev, n_ch, H, bits, kind):
     rng = np.random.default_rng(H + bits)
     T = torch.from_numpy(_totals(rng, n_ch, H, bits, kind))
     r0 = torch.from_numpy(rng.permutation(H))     # any starting ranks
-    want = pbwt_kernels.rank_chain_plain(T, r0, max(16, (H - 1).bit_length()))
+    want = pbwt_kernels.rank_chain_plain(T.to(dev), r0.to(dev),
+                                         max(16, (H - 1).bit_length()))
     n0 = pbwt_kernels.launches["rank_chain"]
     for t in (T, T.to(torch.int32)):
         got = pbwt_kernels.rank_chain(t.to(dev), r0.to(dev))
         assert all(_equal(g, w) for g, w in zip(got, want))
     assert pbwt_kernels.launches["rank_chain"] == n0 + 2
+    lv = pbwt_kernels.rank_chain_levels_plain(T.to(dev), r0.to(dev))
+    assert all(_equal(g, w) for g, w in zip(lv, want))
 
 
 def test_rank_chain_kernel_refuses(dev):
-    T = torch.zeros((2, pbwt_kernels.MAX_H + 1), dtype=torch.int32,
+    T = torch.zeros((2, pbwt_kernels.MAX_RANK_H + 1), dtype=torch.int32,
                     device=dev)
-    with pytest.raises(ValueError, match="16 bits"):
+    with pytest.raises(ValueError, match="1 <= H <= 491505"):
         pbwt_kernels.rank_chain(T, torch.arange(T.shape[1], device=dev))
     with pytest.raises(ValueError, match="int64"):
         pbwt_kernels.rank_chain(T[:, :5].to(torch.int16),
@@ -520,8 +522,9 @@ def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
 @pytest.mark.parametrize("missing", [False, True])
 def test_wide_block_roundtrip_on_card(dev, missing):
     """32,800 samples (H = 65,600), above the chains' 16-bit slot field:
-    the scan and the blocked decode in plain torch around the WAH kernels,
-    32-bit sparse and track streams; no chain route launches."""
+    the scan and the blocked decode in plain torch around the WAH kernels
+    and the rank chain (its device route, 32-bit ranks), 32-bit sparse and
+    track streams; no chain route launches."""
     rng = np.random.default_rng(6 + missing)
     n_samples, L = 32800, 48
     p = rng.choice([0.0005, 0.005, 0.2, 0.6, 0.9995], (L, 1))
@@ -547,7 +550,8 @@ def test_wide_block_roundtrip_on_card(dev, missing):
         host.seek(i)
         np.testing.assert_array_equal(host.fill_genotype_array_advance(2),
                                       gt[i])
-    assert set(counts) == {"wah_compress_bits", "wah_expand_bits"}
+    assert set(counts) == {"wah_compress_bits", "wah_expand_bits",
+                           "rank_chain"}
 
 
 def _cli_compress(vcf, xsi, device, block):

@@ -18,7 +18,8 @@ from xsqueezeit_tpu.format.constants import WeirdnessStrategy as WS
 from xsqueezeit_tpu.ops import pbwt_jax, pbwt_np, wah_jax, wah_np
 from xsqueezeit_tpu_torch.codec import decoder_torch
 from xsqueezeit_tpu_torch.codec.encoder_torch import TorchBlockEncoder
-from xsqueezeit_tpu_torch.ops import pbwt_torch, wah_kernels, wah_torch
+from xsqueezeit_tpu_torch.ops import (pbwt_kernels, pbwt_torch, wah_kernels,
+                                      wah_torch)
 from tests.gt_synth import make_record
 from tests.test_decoder_jax import _mixed_weird_records
 from tests.test_encoder_mixed import mixed_records
@@ -91,15 +92,15 @@ def test_rank_chain_callers_bit_identical(H):
     C = 30 - b
     T = rng.integers(0, 1 << C, (6, H)).astype(np.int64)
     r0 = torch.arange(H)
-    got = pbwt_torch._rank_chain(torch.from_numpy(T), r0, b)
+    got = pbwt_kernels.rank_chain(torch.from_numpy(T), r0, b)
     want = pbwt_jax._rank_chain(jnp.asarray(T.astype(np.uint32)),
                                 jnp.arange(H, dtype=jnp.int32), b,
                                 total_bits=C)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     T16 = torch.from_numpy(T & 0xFFFF)
-    for g, w in zip(pbwt_torch._rank_chain(T16, r0),
-                    pbwt_torch._rank_chain(T16, r0, 16)):
+    for g, w in zip(pbwt_kernels.rank_chain(T16, r0),
+                    pbwt_kernels.rank_chain(T16, r0, 16)):
         assert torch.equal(g, w)
 
 

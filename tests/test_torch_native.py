@@ -32,6 +32,7 @@ from xsqueezeit_tpu.io.vcf import format_gt
 from xsqueezeit_tpu_torch.accessor import Accessor
 from xsqueezeit_tpu_torch.bench import tools
 from xsqueezeit_tpu_torch.bench.synth import synth_bcf
+from xsqueezeit_tpu_torch.cli import main as torch_cli
 from xsqueezeit_tpu_torch.codec.decompressor import (
     Decompressor,
     DecompressorOptions,
@@ -156,13 +157,6 @@ def test_native_accessor_refuses_a_bad_file(tmp_path):
     bad.write_bytes(b"\0" * 300)
     with pytest.raises(OSError, match="bad magic"):
         native.NativeAccessor(str(bad))
-
-
-def test_decodes_only_16_bit_containers():
-    """The native accessor reads 16-bit index streams only (a 32-bit one
-    need not be 4-byte aligned in its block): wider containers take the
-    Python decoder on every route."""
-    assert native.decodes(np.uint16) and not native.decodes(np.uint32)
 
 
 # --------------------------------------------------------- block encoder
@@ -668,6 +662,65 @@ def test_c_programs_agree_with_the_accessor(compressed, c_programs):
     out = subprocess.run([c_programs["c_xcf_test"], xsi + "_var.bcf", plain],
                          check=True, capture_output=True, text=True).stdout
     assert "lockstep-identical" in out
+
+
+# --------------------------------------- a block of zero-ALT records only
+@pytest.fixture
+def zero_alt_zstd(tmp_path):
+    """A zstd container with a block of zero-ALT records only: 3 samples,
+    4 records with ALTs A, ., ., C (the middle two 0|0), blocks of one
+    record.  Such a block has no binary line, so its line tracks sit at
+    the payload's end, which under zstd is the block's exact size."""
+    rows = [("A", ["0|1", "0|0", "1|1"]), (".", ["0|0"] * 3),
+            (".", ["0|0"] * 3), ("C", ["1|0", "0|0", "0|1"])]
+    vcf = fixtures.write_vcf(str(tmp_path / "in.vcf"), rows, n_samples=3)
+    xsi = str(tmp_path / "o.xsi")
+    assert jax_cli(["-c", "-f", vcf, "-o", xsi, "--zstd",
+                    "--variant-block-length", "1"]) == 0
+    return vcf, xsi
+
+
+def test_zero_alt_zstd_block_extracts_on_the_host_codec(zero_alt_zstd,
+                                                       tmp_path):
+    """-x --device numpy (the native accessor, record by record) writes
+    the JAX package's VCF, byte for byte, and the input's genotypes."""
+    vcf, xsi = zero_alt_zstd
+    got, want = str(tmp_path / "port.vcf"), str(tmp_path / "jax.vcf")
+    assert torch_cli(["-x", "-f", xsi, "-o", got, "--device", "numpy"]) == 0
+    assert jax_cli(["-x", "-f", xsi, "-o", want]) == 0
+    assert _read(got) == _read(want)
+    assert [r.gt.tolist() for r in GtInput(got)] == \
+        [r.gt.tolist() for r in GtInput(vcf)]
+
+
+def test_zero_alt_zstd_block_counts_natively(zero_alt_zstd):
+    """The Accessor's allele counts through the native engine equal the
+    genotypes' (6 REF on a zero-ALT record) and its genotypes the
+    input's."""
+    vcf, xsi = zero_alt_zstd
+    acc = Accessor(xsi)
+    assert acc._native() is not None
+    r = BcfReader(acc.variant_filename())
+    for rec, (gt, na) in zip(r, ((g.gt, g.n_alleles) for g in GtInput(vcf))):
+        assert rec.n_allele == na
+        np.testing.assert_array_equal(acc.get_genotypes(rec), gt)
+        alleles = (gt >> 1) - 1
+        np.testing.assert_array_equal(
+            acc.get_allele_counts(rec),
+            np.bincount(alleles[alleles >= 0], minlength=na))
+    r.close()
+    acc.close()
+
+
+def test_zero_alt_zstd_block_in_the_c_api(zero_alt_zstd, c_programs):
+    """c_api_test reads every record of the container (the port's C API
+    decodes through the same block decoder)."""
+    vcf, xsi = zero_alt_zstd
+    gts = [g.gt.astype(np.int64) for g in GtInput(vcf)]
+    out = subprocess.run([c_programs["c_api_test"], xsi], check=True,
+                         capture_output=True, text=True).stdout
+    assert f"records_read={len(gts)}" in out
+    assert f"gt_checksum={sum(int(g.sum()) for g in gts)}" in out
 
 
 def _next_line_returns(path):

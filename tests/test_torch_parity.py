@@ -174,21 +174,115 @@ def test_container_and_header_match(tmp_path, zstd):
 
 
 # ---------------------------------------------------------- the copies
-#: The two declared changes of the port's copies of native/: (removed,
-#: added) text of each hunk.  Every other file is byte-equal.
+#: The declared changes of the port's copies of native/: (removed, added)
+#: text of each hunk.  xsi_accessor.cpp: zstd only where zstd.h is found;
+#: a block with no binary lines may hold its line tracks at the payload's
+#: end (offset == its size, under zstd); sparse streams not aligned to
+#: their type in the block are read from aligned copies, each with its own
+#: end.  c_api.cpp: the gzip read error reported as an error.  Every other
+#: file is byte-equal.
 DECLARED = {
     "xsi_accessor.cpp": [
-        ("", "#ifdef XSI_HAVE_ZSTD\n"),
-        ("", "#endif\n"),
-        ("", '#ifndef XSI_HAVE_ZSTD\n      set_error("zstd-compressed '
-             'container, but this library was built "\n                '
-             '"without zstd (zstd.h not found)");\n      return nullptr;\n'
-             '#else\n'),
-        ("", "#endif\n"),
-        ("", '#ifndef XSI_HAVE_ZSTD\n  if (f->header.specific_bitset & 4) '
-             '{\n    set_error("zstd-compressed container, but this library '
-             'was built "\n              "without zstd (zstd.h not found)");'
-             '\n    return nullptr;\n  }\n#endif\n'),
+        ("",
+         '#ifdef XSI_HAVE_ZSTD\n'),
+        ("",
+         '#endif\n'),
+        ('    sparse0_ = ptr<A_T>(KEY_MATRIX_SPARSE);\n',
+         '    sparse0_ = stream(KEY_MATRIX_SPARSE, own_sparse_, &send_);\n'),
+        ('    miss_sp0_ = ptr<A_T>(KEY_MATRIX_MISSING_SPARSE);\n',
+         '    miss_sp0_ = stream(KEY_MATRIX_MISSING_SPARSE, own_miss_, '
+         '&miss_end_);\n'),
+        ('    eov_sp0_ = ptr<A_T>(KEY_MATRIX_END_OF_VECTORS_SPARSE);\n',
+         '    eov_sp0_ = stream(KEY_MATRIX_END_OF_VECTORS_SPARSE, '
+         'own_eov_, &eov_end_);\n'),
+        ('    send_ = reinterpret_cast<const A_T *>(\n        p_ + (len_ '
+         '& ~size_t(sizeof(A_T) - 1)));\n',
+         ""),
+        ("",
+         "\n  // The sparse streams point into the decoder's own aligned "
+         'copies.\n  GtBlockDecoder(const GtBlockDecoder &) = delete;\n  '
+         'GtBlockDecoder &operator=(const GtBlockDecoder &) = delete;\n'),
+        ('        if (!sp || sp >= send_) { set_error("missing track '
+         'truncated"); return -1; }\n',
+         '        if (!sp || sp >= miss_end_) { set_error("missing track '
+         'truncated"); return -1; }\n'),
+        ('        if (cnt > size_t(send_ - sp) || cnt > n) {\n',
+         '        if (cnt > size_t(miss_end_ - sp) || cnt > n) {\n'),
+        ('        if (!sp || sp >= send_) { set_error("EOV track '
+         'truncated"); return -1; }\n',
+         '        if (!sp || sp >= eov_end_) { set_error("EOV track '
+         'truncated"); return -1; }\n'),
+        ('        if (cnt > size_t(send_ - sp) || cnt > n) {\n',
+         '        if (cnt > size_t(eov_end_ - sp) || cnt > n) {\n'),
+        ('        if (!sp || sp >= send_) { set_error("missing track '
+         'truncated"); return -1; }\n',
+         '        if (!sp || sp >= miss_end_) { set_error("missing track '
+         'truncated"); return -1; }\n'),
+        ('        if (cnt > size_t(send_ - sp) || cnt > n) {\n',
+         '        if (cnt > size_t(miss_end_ - sp) || cnt > n) {\n'),
+        ('        if (!sp || sp >= send_) { set_error("EOV track '
+         'truncated"); return -1; }\n',
+         '        if (!sp || sp >= eov_end_) { set_error("EOV track '
+         'truncated"); return -1; }\n'),
+        ('        if (cnt > size_t(send_ - sp) || cnt > n) {\n',
+         '        if (cnt > size_t(eov_end_ - sp) || cnt > n) {\n'),
+        ('    if (it->second % 2 || it->second >= len_) {\n',
+         '    // a block with no binary lines holds its line tracks at '
+         "the payload's\n    // end: offset == len_ (the exact block size "
+         'under zstd)\n    if (it->second % 2 || it->second > len_ ||\n   '
+         '     (it->second == len_ && binary_lines_ != 0)) {\n'),
+        ('    if (it->second % alignof(T) || it->second >= len_) return '
+         'nullptr;\n',
+         "    // offset == len_: an empty stream at the payload's end\n   "
+         ' if (it->second % alignof(T) || it->second > len_) return '
+         'nullptr;\n'),
+        ("",
+         "  }\n\n  // A sparse stream, from its offset to the payload's "
+         'end (*end: past its\n  // last whole value).  The format does '
+         'not align a 32-bit stream to 4\n  // bytes in the block: one '
+         'that is not aligned is read from an aligned\n  // copy held in '
+         '`own`.\n  const A_T *stream(uint32_t key, std::vector<A_T> '
+         '&own, const A_T **end) {\n    auto it = dict_.find(key);\n    '
+         'if (it == dict_.end() || it->second == VAL_UNDEF || it->second '
+         '> len_)\n      return nullptr;\n    const uint8_t *s = p_ + '
+         'it->second;\n    const size_t n = (len_ - it->second) / '
+         'sizeof(A_T);\n    if (reinterpret_cast<uintptr_t>(s) % '
+         'alignof(A_T)) {\n      own.resize(n);\n      if (n) '
+         'memcpy(own.data(), s, n * sizeof(A_T));\n      s = '
+         'reinterpret_cast<const uint8_t *>(own.data());\n    }\n    *end '
+         '= reinterpret_cast<const A_T *>(s) + n;\n    return '
+         'reinterpret_cast<const A_T *>(s);\n'),
+        ('            if (!miss_sp_ || miss_sp_ >= send_) {\n',
+         '            if (!miss_sp_ || miss_sp_ >= miss_end_) {\n'),
+        ('            if (adv > size_t(send_ - miss_sp_)) { fail("missing '
+         'track truncated"); return; }\n',
+         '            if (adv > size_t(miss_end_ - miss_sp_)) { '
+         'fail("missing track truncated"); return; }\n'),
+        ('            if (!eov_sp_ || eov_sp_ >= send_) {\n',
+         '            if (!eov_sp_ || eov_sp_ >= eov_end_) {\n'),
+        ('            if (adv > size_t(send_ - eov_sp_)) { fail("EOV '
+         'track truncated"); return; }\n',
+         '            if (adv > size_t(eov_end_ - eov_sp_)) { fail("EOV '
+         'track truncated"); return; }\n'),
+        ('  const A_T *send_ = nullptr;        // payload end for sparse '
+         'streams\n',
+         '  const A_T *send_ = nullptr;        // end of the sparse '
+         "stream\n  // the track sparse streams' ends; the aligned copies "
+         'of the streams that\n  // need one (stream())\n  const A_T '
+         '*miss_end_ = nullptr, *eov_end_ = nullptr;\n  std::vector<A_T> '
+         'own_sparse_, own_miss_, own_eov_;\n'),
+        ("",
+         '#ifndef XSI_HAVE_ZSTD\n      set_error("zstd-compressed '
+         'container, but this library was built "\n                '
+         '"without zstd (zstd.h not found)");\n      return nullptr;\n'
+         '#else\n'),
+        ("",
+         '#endif\n'),
+        ("",
+         '#ifndef XSI_HAVE_ZSTD\n  if (f->header.specific_bitset & 4) {\n '
+         '   set_error("zstd-compressed container, but this library was '
+         'built "\n              "without zstd (zstd.h not found)");\n    '
+         'return nullptr;\n  }\n#endif\n'),
     ],
     "c_api.cpp": [
         ("", "  bool read_error = false;     // a gzip read error, not yet "
@@ -230,8 +324,11 @@ def _tree(root):
 def test_native_copies_equal_the_originals_but_the_declared_changes():
     """The port's copy of native/ (its C++ sources and headers, the htslib
     shim and the two C API test programs) is byte-equal to the JAX
-    package's but for the two declared changes: zstd only where zstd.h is
-    found, and the C API's gzip read error reported as an error.  Its
+    package's but for the declared changes (DECLARED): zstd only where
+    zstd.h is found, the line tracks of a block with no binary lines at
+    the payload's end, sparse streams read from aligned copies where the
+    block does not align them, and the C API's gzip read error reported
+    as an error.  Its
     comments name the xSqueezeIt reference's files without the directory
     the originals give for the reference tree."""
     orig_dir = os.path.join(REPO, "native")

@@ -80,7 +80,7 @@ def test_rank_chain_matches_jax():
     want_fin, want_starts = pbwt_jax._rank_chain(
         jnp.asarray(T), jnp.arange(H, dtype=jnp.int32), pbwt_jax._hap_bits(H),
         total_bits=16)
-    got_fin, got_starts = pbwt_torch._rank_chain(
+    got_fin, got_starts = pbwt_kernels.rank_chain(
         torch.from_numpy(T.astype(np.int64)), torch.arange(H))
     np.testing.assert_array_equal(got_starts.numpy(), np.asarray(want_starts))
     np.testing.assert_array_equal(got_fin.numpy(), np.asarray(want_fin))

@@ -234,15 +234,19 @@ def test_af_stats(compressed):
 def test_af_stats_on_every_fixture(micro, monkeypatch):
     """The port's native walk equals the JAX package's native walk (its
     route without XSI_DEVICE), and with XSI_NATIVE=0 its Python walk
-    equals the JAX package's Python walk."""
+    equals the genotypes' counts (the VCF's walk).  The JAX package's
+    Python walk is not the reference there: it miscounts a run of records
+    after a zero-ALT one (its count path gives such a record two counts,
+    and the flat walk reads every later record shifted by one)."""
     _, vcf, xsi = micro
     got = tools.af_stats(xsi)["stats"]
     monkeypatch.setenv("XSI_DEVICE", "auto")
     assert got == jax_tools.af_stats(xsi)["stats"]
     monkeypatch.setenv("XSI_DEVICE", "numpy")
     monkeypatch.setenv("XSI_NATIVE", "0")
-    assert tools.af_stats(xsi)["stats"] == jax_tools.af_stats(xsi)["stats"]
-    assert tools.af_stats(vcf)["stats"] == jax_tools.af_stats(vcf)["stats"]
+    want = tools.af_stats(vcf)["stats"]
+    assert tools.af_stats(xsi)["stats"] == want == got
+    assert want == jax_tools.af_stats(vcf)["stats"]
 
 
 def test_af_stats_annotate(compressed, tmp_path):

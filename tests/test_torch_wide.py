@@ -23,12 +23,16 @@ from xsqueezeit_tpu.codec.encoder_jax import sparse_idx_by_search
 from xsqueezeit_tpu.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu.codec.gt_block_decoder import GtBlockDecoder
 from xsqueezeit_tpu.ops import pbwt_jax, wah_jax
+from xsqueezeit_tpu_torch.accessor import Accessor
 from xsqueezeit_tpu_torch.cli import main as torch_cli
 from xsqueezeit_tpu_torch.codec import decoder_torch
 from xsqueezeit_tpu_torch.codec.encoder_torch import (
     TorchBlockEncoder,
     carrier_indices,
 )
+from xsqueezeit_tpu_torch.interop import native
+from xsqueezeit_tpu_torch.io.bcf import BcfReader
+from xsqueezeit_tpu_torch.io.unified import GtInput
 from xsqueezeit_tpu_torch.ops import pbwt_torch, wah_kernels, wah_torch
 from tests import fixtures
 from tests.gt_synth import make_record
@@ -259,3 +263,56 @@ def test_cli_recompress_matches_numpy_device(wide_vcf, tmp_path):
         outs.append((_read(out), _read(out + "_var.bcf")))
     assert outs[0] == outs[1]
     assert outs[0][0] == _read(xsi)
+
+
+def test_native_routes_read_32_bit_streams(wide_vcf, tmp_path, monkeypatch):
+    """The native accessor reads 32-bit sparse streams wherever they sit
+    in the block (the format does not align them to 4 bytes): -x
+    --device numpy through the native extract loop (BCF) and the native
+    accessor (VCF), and the Accessor's genotypes and allele counts
+    natively, equal to the Python decoder's (XSI_NATIVE=0) and the
+    input's."""
+    monkeypatch.setenv("XSI_EMIT_ZLIB", "1")    # the Python writer's bytes
+    xsi = str(tmp_path / "o.xsi")
+    assert torch_cli(["-c", "-f", wide_vcf, "-o", xsi,
+                      "--device", "numpy"]) == 0
+    extracts = []
+    real = native.native_extract
+    monkeypatch.setattr(native, "native_extract",
+                        lambda *a, **kw: (extracts.append(a[1]),
+                                          real(*a, **kw))[1])
+
+    def extract(route):
+        outs = []
+        for fmt in ("v", "b"):
+            out = str(tmp_path / f"{route}.{fmt}")
+            assert torch_cli(["-x", "-f", xsi, "-o", out, "-O", fmt,
+                              "--device", "numpy"]) == 0
+            outs.append(_read(out))
+        return outs
+
+    native_outs = extract("native")
+    assert extracts == [str(tmp_path / "native.b")]
+    orig = [(r.gt, r.n_alleles) for r in GtInput(wide_vcf)]
+    acc = Accessor(xsi)
+    assert acc._native() is not None
+    r = BcfReader(acc.variant_filename())
+    recs = list(r)
+    r.close()
+    assert len(recs) == len(orig)
+    counts = []
+    for rec, (gt, na) in zip(recs, orig):
+        np.testing.assert_array_equal(acc.get_genotypes(rec), gt)
+        alleles = (gt >> 1) - 1
+        c = acc.get_allele_counts(rec)
+        np.testing.assert_array_equal(
+            c, np.bincount(alleles[alleles >= 0], minlength=na))
+        counts.append(c)
+    acc.close()
+    monkeypatch.setenv("XSI_NATIVE", "0")
+    assert extract("python") == native_outs
+    assert extracts == [str(tmp_path / "native.b")]
+    py = Accessor(xsi)
+    assert py._native() is None
+    for rec, c in zip(recs, counts):
+        np.testing.assert_array_equal(py.get_allele_counts(rec), c)

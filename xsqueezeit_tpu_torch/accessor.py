@@ -112,11 +112,9 @@ class Accessor:
 
     def _native(self):
         """Native count-only engine (native/xsi_accessor.cpp), opened at
-        first use; None for a container it does not decode
-        (native.decodes) or with XSI_NATIVE=0.  A build or open failure
+        first use; None with XSI_NATIVE=0.  A build or open failure
         raises."""
-        if (self._nat_acc is None and native.decodes(self.xsi.aet_dtype)
-                and native.enabled()):
+        if self._nat_acc is None and native.enabled():
             self._nat_acc = native.NativeAccessor(self.path)
         return self._nat_acc
 

@@ -219,11 +219,10 @@ class Decompressor:
     def _native_accessor(self):
         """BM-keyed native decode (native/xsi_accessor.cpp), the host
         codec's per-record engine (device="numpy"): ~9x the per-record
-        NumPy decode.  None on a torch device, for a container it does
-        not decode (native.decodes) or with XSI_NATIVE=0; a build or open
-        failure raises."""
+        NumPy decode.  None on a torch device or with XSI_NATIVE=0; a
+        build or open failure raises."""
         if (self._nat_acc is None and self.torch_device is None
-                and native.decodes(self.xsi.aet_dtype) and native.enabled()):
+                and native.enabled()):
             self._nat_acc = native.NativeAccessor(self.xsi_path)
         return self._nat_acc
 
@@ -447,14 +446,12 @@ class Decompressor:
         full-sample-set BCF output to a plain path (header + EOF),
         unfiltered or region/target-restricted (the CSI chunk lookup
         stays in Python; the C loop seeks the chunk voffsets and applies
-        the same overlap rules), of a container it decodes
-        (native.decodes).  XSI_NATIVE=0 takes the Python loop."""
+        the same overlap rules).  XSI_NATIVE=0 takes the Python loop."""
         o = self.opts
         return (isinstance(output_path, str) and output_path != "-"
                 and self._select is None and o.block_range is None
                 and write_header and write_eof
-                and self.torch_device is None
-                and native.decodes(self.xsi.aet_dtype) and native.enabled())
+                and self.torch_device is None and native.enabled())
 
     def _decompress_to_bcf_native(self, output_path: str, level: int) -> dict:
         header = self.output_header()

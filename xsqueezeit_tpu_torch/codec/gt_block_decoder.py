@@ -410,8 +410,12 @@ class GtBlockDecoder:
 
     def fill_allele_counts_advance(self, n_alleles: int) -> np.ndarray:
         if n_alleles <= 1:
-            counts = np.zeros(2, np.int64)
-            counts[0] = self.n_haps
+            # a zero-ALT record owns no binary line: every slot REF.  One
+            # count per allele, as the native engine gives them: the
+            # flat walks (Accessor.fill_allele_counts_range) lay records'
+            # counts back to back, so a second entry here shifts them all
+            counts = np.array([self.n_haps], np.int64)
+            self.allele_counts = counts
             return counts
         start = self.pos
         n = self._current_n_haps(start)

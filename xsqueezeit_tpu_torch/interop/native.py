@@ -252,16 +252,6 @@ def load_library(zstd: bool | None = None,
     return lib
 
 
-def decodes(aet_dtype) -> bool:
-    """Whether the native accessor decodes a container of this index
-    width.  It takes 16-bit sparse streams only: its decoder reads a
-    32-bit stream (more than 65,535 haplotypes) in place and refuses one
-    that is not 4-byte aligned in the block, which the format does not
-    promise ("sparse stream truncated", xsi_accessor.cpp ptr<T>).  Such
-    containers take the Python decoder."""
-    return np.dtype(aet_dtype) == np.uint16
-
-
 def _lib() -> ctypes.CDLL:
     """The library every binding below calls."""
     return load_library()

@@ -376,17 +376,19 @@ class GtBlockDecoder {
       haploid_.assign(binary_lines_, 0);
 
     wah0_ = ptr<uint16_t>(KEY_MATRIX_WAH);
-    sparse0_ = ptr<A_T>(KEY_MATRIX_SPARSE);
+    sparse0_ = stream(KEY_MATRIX_SPARSE, own_sparse_, &send_);
     miss_wah0_ = ptr<uint16_t>(KEY_MATRIX_MISSING);
-    miss_sp0_ = ptr<A_T>(KEY_MATRIX_MISSING_SPARSE);
+    miss_sp0_ = stream(KEY_MATRIX_MISSING_SPARSE, own_miss_, &miss_end_);
     eov_wah0_ = ptr<uint16_t>(KEY_MATRIX_END_OF_VECTORS);
-    eov_sp0_ = ptr<A_T>(KEY_MATRIX_END_OF_VECTORS_SPARSE);
+    eov_sp0_ = stream(KEY_MATRIX_END_OF_VECTORS_SPARSE, own_eov_, &eov_end_);
     nup_wah0_ = ptr<uint16_t>(KEY_MATRIX_NON_UNIFORM_PHASING);
     wend_ = reinterpret_cast<const uint16_t *>(p_ + (len_ & ~size_t(1)));
-    send_ = reinterpret_cast<const A_T *>(
-        p_ + (len_ & ~size_t(sizeof(A_T) - 1)));
     reset();
   }
+
+  // The sparse streams point into the decoder's own aligned copies.
+  GtBlockDecoder(const GtBlockDecoder &) = delete;
+  GtBlockDecoder &operator=(const GtBlockDecoder &) = delete;
 
   bool ok() const { return ok_; }
 
@@ -537,9 +539,9 @@ class GtBlockDecoder {
     if (has_missing_ && line_missing_[start]) {
       if (ws_ == WS_SPARSE) {
         const A_T *sp = miss_sp_;
-        if (!sp || sp >= send_) { set_error("missing track truncated"); return -1; }
+        if (!sp || sp >= miss_end_) { set_error("missing track truncated"); return -1; }
         size_t cnt = *sp++ & ~msb();
-        if (cnt > size_t(send_ - sp) || cnt > n) {
+        if (cnt > size_t(miss_end_ - sp) || cnt > n) {
           set_error("missing track count exceeds stream");
           return -1;
         }
@@ -566,9 +568,9 @@ class GtBlockDecoder {
     if (has_eov_ && line_eov_[start]) {
       if (ws_ == WS_SPARSE) {
         const A_T *sp = eov_sp_;
-        if (!sp || sp >= send_) { set_error("EOV track truncated"); return -1; }
+        if (!sp || sp >= eov_end_) { set_error("EOV track truncated"); return -1; }
         size_t cnt = *sp++ & ~msb();
-        if (cnt > size_t(send_ - sp) || cnt > n) {
+        if (cnt > size_t(eov_end_ - sp) || cnt > n) {
           set_error("EOV track count exceeds stream");
           return -1;
         }
@@ -648,9 +650,9 @@ class GtBlockDecoder {
     if (has_missing_ && line_missing_[start]) {
       if (ws_ == WS_SPARSE) {
         const A_T *sp = miss_sp_;
-        if (!sp || sp >= send_) { set_error("missing track truncated"); return -1; }
+        if (!sp || sp >= miss_end_) { set_error("missing track truncated"); return -1; }
         size_t cnt = *sp++ & ~msb();
-        if (cnt > size_t(send_ - sp) || cnt > n) {
+        if (cnt > size_t(miss_end_ - sp) || cnt > n) {
           set_error("missing track count exceeds stream");
           return -1;
         }
@@ -664,9 +666,9 @@ class GtBlockDecoder {
     if (has_eov_ && line_eov_[start]) {
       if (ws_ == WS_SPARSE) {
         const A_T *sp = eov_sp_;
-        if (!sp || sp >= send_) { set_error("EOV track truncated"); return -1; }
+        if (!sp || sp >= eov_end_) { set_error("EOV track truncated"); return -1; }
         size_t cnt = *sp++ & ~msb();
-        if (cnt > size_t(send_ - sp) || cnt > n) {
+        if (cnt > size_t(eov_end_ - sp) || cnt > n) {
           set_error("EOV track count exceeds stream");
           return -1;
         }
@@ -705,7 +707,10 @@ class GtBlockDecoder {
   bool load_bool(uint32_t key, std::vector<uint8_t> &v) {
     auto it = dict_.find(key);
     if (it == dict_.end() || it->second == VAL_UNDEF) return false;
-    if (it->second % 2 || it->second >= len_) {
+    // a block with no binary lines holds its line tracks at the payload's
+    // end: offset == len_ (the exact block size under zstd)
+    if (it->second % 2 || it->second > len_ ||
+        (it->second == len_ && binary_lines_ != 0)) {
       fail("line-track offset out of payload range");
       return false;
     }
@@ -722,8 +727,28 @@ class GtBlockDecoder {
   const T *ptr(uint32_t key) const {
     auto it = dict_.find(key);
     if (it == dict_.end() || it->second == VAL_UNDEF) return nullptr;
-    if (it->second % alignof(T) || it->second >= len_) return nullptr;
+    // offset == len_: an empty stream at the payload's end
+    if (it->second % alignof(T) || it->second > len_) return nullptr;
     return reinterpret_cast<const T *>(p_ + it->second);
+  }
+
+  // A sparse stream, from its offset to the payload's end (*end: past its
+  // last whole value).  The format does not align a 32-bit stream to 4
+  // bytes in the block: one that is not aligned is read from an aligned
+  // copy held in `own`.
+  const A_T *stream(uint32_t key, std::vector<A_T> &own, const A_T **end) {
+    auto it = dict_.find(key);
+    if (it == dict_.end() || it->second == VAL_UNDEF || it->second > len_)
+      return nullptr;
+    const uint8_t *s = p_ + it->second;
+    const size_t n = (len_ - it->second) / sizeof(A_T);
+    if (reinterpret_cast<uintptr_t>(s) % alignof(A_T)) {
+      own.resize(n);
+      if (n) memcpy(own.data(), s, n * sizeof(A_T));
+      s = reinterpret_cast<const uint8_t *>(own.data());
+    }
+    *end = reinterpret_cast<const A_T *>(s) + n;
+    return reinterpret_cast<const A_T *>(s);
   }
 
   void advance_main(bool extract) {
@@ -787,23 +812,23 @@ class GtBlockDecoder {
         bool he = has_eov_ && line_eov_[p];
         if (ws_ == WS_SPARSE) {
           if (hm) {
-            if (!miss_sp_ || miss_sp_ >= send_) {
+            if (!miss_sp_ || miss_sp_ >= miss_end_) {
               fail("missing track truncated");
               return;
             }
             A_T h = *miss_sp_;
             size_t adv = 1 + (h & ~msb());
-            if (adv > size_t(send_ - miss_sp_)) { fail("missing track truncated"); return; }
+            if (adv > size_t(miss_end_ - miss_sp_)) { fail("missing track truncated"); return; }
             miss_sp_ += adv;
           }
           if (he) {
-            if (!eov_sp_ || eov_sp_ >= send_) {
+            if (!eov_sp_ || eov_sp_ >= eov_end_) {
               fail("EOV track truncated");
               return;
             }
             A_T h = *eov_sp_;
             size_t adv = 1 + (h & ~msb());
-            if (adv > size_t(send_ - eov_sp_)) { fail("EOV track truncated"); return; }
+            if (adv > size_t(eov_end_ - eov_sp_)) { fail("EOV track truncated"); return; }
             eov_sp_ += adv;
           }
         } else {
@@ -844,7 +869,11 @@ class GtBlockDecoder {
   size_t len_ = 0;
   bool ok_ = true;
   const uint16_t *wend_ = nullptr;   // payload end for 16-bit streams
-  const A_T *send_ = nullptr;        // payload end for sparse streams
+  const A_T *send_ = nullptr;        // end of the sparse stream
+  // the track sparse streams' ends; the aligned copies of the streams that
+  // need one (stream())
+  const A_T *miss_end_ = nullptr, *eov_end_ = nullptr;
+  std::vector<A_T> own_sparse_, own_miss_, own_eov_;
   size_t n_samples_, n_haps_;
   std::map<uint32_t, uint32_t> dict_;
   uint32_t bcf_lines_ = 0, binary_lines_ = 0;

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_S = ctypes.c_size_t
 #: C entry points: name -> argument types (each returns a cudaError_t).
 ENTRY_POINTS = {
     "xsi_chain_encode": (_P, _P, _P, _I, _I, _I, _P),
@@ -40,7 +41,7 @@ ENTRY_POINTS = {
     "xsi_chain_decode_cluster": (_P, _P, _P, _I, _I, _I, _I, _P),
     "xsi_wah_expand": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "xsi_wah_compress": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
-    "xsi_rank_chain": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "xsi_rank_chain": (_P, _P, _P, _P, _P, _S, _I, _I, _P),
     "xsi_decode_scan_mixed": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 

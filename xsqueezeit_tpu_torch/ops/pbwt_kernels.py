@@ -1,5 +1,6 @@
 """PBWT chunk chains and the PBWT device scans: CUDA kernels
-(csrc/pbwt_chain.cu, csrc/pbwt_scan.cu) and their plain versions.
+(csrc/pbwt_chain.cu, csrc/rank_chain.cu, csrc/pbwt_scan.cu) and their
+plain versions.
 
 Port of xsqueezeit_tpu/ops/pbwt_pallas.py (chain_encode, chain_decode)
 and of two XLA scans of xsqueezeit_tpu/ops/pbwt_jax.py (_rank_chain,
@@ -232,48 +233,91 @@ def rank_chain_plain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
     return r, r_starts
 
 
-#: Bit planes of the rank chain: one per bit of T.
-RANK_PLANES = 32
-
-#: Widths the rank chain runs on one CTA; above, a cluster of about
-#: RANK_CTA_H haplotypes per CTA (at most MAX_CLUSTER CTAs).
-RANK_ONE_CTA_H = 16384
-RANK_CTA_H = 8192
-
-
-def rank_split(H: int, K: int) -> tuple[int, int, int]:
-    """The rank chain's split over K CTAs (csrc/pbwt_scan.cu RankSplit):
-    haplotypes per CTA, their plane words, and the mask words each CTA
-    owns."""
-    hc = -(-H // K)
-    return hc, -(-hc // 32), -(-(-(-H // 32)) // K)
+def _dense_rank(keys: torch.Tensor) -> torch.Tensor:
+    """Dense rank of each row's keys (equal keys equal ranks, order kept):
+    one batched sort and one scan."""
+    s, order = torch.sort(keys, dim=1)
+    new = torch.zeros_like(s)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    return torch.empty_like(s).scatter_(1, order, torch.cumsum(new, 1))
 
 
-def rank_smem_bytes(H: int, K: int) -> int:
-    """Dynamic shared memory of a rank-chain CTA at width H on K CTAs
-    (mirrors csrc/pbwt_scan.cu rank_smem_bytes): the double-buffered digit
-    words of every rank (four u64 per 32 ranks) and the bit planes of its
-    haplotypes (one u32 per 32 haplotypes and bit)."""
-    lw = rank_split(H, K)[1]
-    return 2 * 4 * 8 * -(-H // 32) + 4 * RANK_PLANES * lw
+def rank_chain_levels_plain(T: torch.Tensor, r0: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank chain (rank_chain_plain's contract; r0 a permutation of
+    0..H-1) as csrc/rank_chain.cu computes it: a log-depth scan of dense
+    ranks.
+
+    P_t, the dense rank over h of the tuple (T_{t-1}[h], ..., T_0[h])
+    (P_0 = 0), gives r_t = the rank of h by (P_t[h], r0[h]): the radix
+    identity.  Level 0 sets W_t = the dense rank of T_{t-1} (t = 1..n_ch);
+    the level of stride d = 1, 2, 4, ... sets W_t = the dense rank of the
+    pair (W_t, W_{t-d}) for t > d (its window doubles; rows t <= d are
+    complete); once d >= n_ch, W_t = P_t, and a final level ranks (P_t,
+    r0).  Each level is one batched sort and one scan over the rows."""
+    n_ch, H = T.shape
+    b = max(int(H - 1).bit_length(), 1)
+    W = _dense_rank(T.to(torch.int64))           # row t - 1 holds W_t
+    d = 1
+    while d < n_ch:
+        pair = (W[d:] << b) | W[:-d]
+        W = torch.cat([W[:d], _dense_rank(pair)])
+        d <<= 1
+    P = torch.cat([torch.zeros((1, H), dtype=torch.int64, device=T.device),
+                   W])
+    r = _inverse(torch.argsort((P << b) | r0, dim=1))
+    return r[n_ch], r[:n_ch]
 
 
-def rank_route(H: int) -> int:
-    """CTAs of the rank chain at width H: one up to RANK_ONE_CTA_H, else a
-    cluster of ceil(H / RANK_CTA_H) <= MAX_CLUSTER."""
-    if not 1 <= H <= MAX_H:
-        raise ValueError(f"rank_chain keeps ranks in 16 bits: 1 <= H <= "
-                         f"{MAX_H} (got {H})")
-    return 1 if H <= RANK_ONE_CTA_H else -(-H // RANK_CTA_H)
+#: Widest row the rank chain sorts in one CTA's shared memory, and the
+#: format's widest panel (32,767 WAH words of 15 haplotypes a line); 16-bit
+#: dense ranks up to MAX_H, 32-bit above.
+RANK_SMEM_H = 16384
+MAX_RANK_H = 491505
+#: The device route's digit radix and keys per tile (csrc/rank_chain.cu).
+RANK_RADIX = 256
+RANK_TILE = 4096
+
+
+def rank_route(H: int) -> tuple[str, int]:
+    """The rank chain's route at width H: "shared" (a row a CTA in shared
+    memory) up to RANK_SMEM_H, else "device" (rows through device memory,
+    a CTA a tile); and the bytes of a dense rank (2 up to 65,535, else
+    4).  Raises ValueError outside 1 <= H <= MAX_RANK_H."""
+    if not 1 <= H <= MAX_RANK_H:
+        raise ValueError(f"rank_chain takes 1 <= H <= {MAX_RANK_H} "
+                         f"haplotypes (got {H})")
+    return ("shared" if H <= RANK_SMEM_H else "device",
+            2 if H <= MAX_H else 4)
+
+
+def rank_scratch_bytes(n_ch: int, H: int) -> int:
+    """Device scratch of the rank chain (mirrors csrc/rank_chain.cu
+    Scratch): the dense ranks, distinct counts and rows' modes, double
+    buffered; on the device route also the keys (twice the rank's bytes)
+    and payloads, double buffered, the rows' OR / AND and the digit and
+    flag counts.  Each array starts 256-byte aligned."""
+    route, rb = rank_route(H)
+
+    def a(n):
+        return -(-n // 256) * 256
+    nh = n_ch * H
+    n = 2 * a(nh * rb) + 4 * a(4 * n_ch)
+    if route == "device":
+        tiles = -(-H // RANK_TILE)
+        n += (a(2 * nh * 2 * rb) + a(2 * nh * rb) + 2 * a(8 * n_ch)
+              + a(4 * n_ch * RANK_RADIX * tiles) + a(4 * n_ch * tiles))
+    return n
 
 
 def rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The rank chain (see rank_chain_plain for the contract) in one launch
-    of csrc/pbwt_scan.cu's rank_chain_kernel, on one CTA or a cluster (see
-    rank_route), for H <= MAX_H (its ranks are 16-bit); r0 must be a
-    permutation of 0..H-1 (the port passes the identity) and T below 2^31.
-    The kernel reads T as int32: an int64 T is narrowed here first."""
+    """The rank chain (see rank_chain_plain for the contract) as
+    csrc/rank_chain.cu's log-depth scan of row sorts (rank_chain_levels_plain
+    states it), for every 1 <= H <= MAX_RANK_H, on the route rank_route(H)
+    picks; r0 must be a permutation of 0..H-1 and T below 2^31.  The
+    kernels read T as int32: an int64 T is narrowed here first.  CPU
+    tensors take rank_chain_plain."""
     if T.dtype not in (torch.int32, torch.int64) or T.dim() != 2:
         raise ValueError(f"rank_chain: expected 2-D int32 or int64 T, got "
                          f"{T.dim()}-D {T.dtype}")
@@ -286,13 +330,15 @@ def rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
         return rank_chain_plain(T, r0, r_bits)
     if T.device.type != "cuda":
         raise ValueError(f"rank_chain: unsupported device {T.device}")
-    K = rank_route(H)
+    scratch = torch.empty(rank_scratch_bytes(n_ch, H), dtype=torch.uint8,
+                          device=T.device)
     T32 = T.to(torch.int32).contiguous()
     r0 = r0.contiguous()
     r_starts = torch.empty((n_ch, H), dtype=torch.int64, device=T.device)
     r_fin = torch.empty(H, dtype=torch.int64, device=T.device)
     _build.launch(T.device, "xsi_rank_chain", T32.data_ptr(), r0.data_ptr(),
-                  r_starts.data_ptr(), r_fin.data_ptr(), n_ch, H, K)
+                  r_starts.data_ptr(), r_fin.data_ptr(), scratch.data_ptr(),
+                  scratch.numel(), n_ch, H)
     _build.count(launches, "rank_chain")
     return r_fin, r_starts
 

@@ -2,18 +2,18 @@
 their forms for any width, and the mixed-ploidy scans.
 
 Port of xsqueezeit_tpu/ops/pbwt_jax.py (pbwt_encode_chunked,
-pbwt_decode_chunked, _rank_chain, pbwt_encode_keys, pbwt_encode_scan,
-pbwt_encode_scan_parity, pbwt_decode_blocked, pbwt_decode_scan_mixed).
-Up to H = 65,535 lines group into chunks of C = 16; a 16-bit register per
-haplotype carries the chunk's bits through the partitions, which run in
-the chunk-chain kernels of ops/pbwt_kernels.py.  Cross-chunk state comes
-from a rank chain (encode: the rank_chain kernel up to H = 65,535) or from
-composing the chunks' arrangements (decode).  Wider blocks, whose slots do
-not fit the registers' 16-bit fields, encode with packed per-line keys and
-one batched row sort (the scan; its rank chain the plain one above 65,535)
-and decode by the blocked three-phase form; mixed-ploidy blocks encode
-with the parity scan and decode with the decode_scan_mixed kernel, one
-launch over all lines.
+pbwt_decode_chunked, pbwt_encode_keys, pbwt_encode_scan,
+pbwt_encode_scan_parity, pbwt_decode_blocked, pbwt_decode_scan_mixed;
+its _rank_chain is ops/pbwt_kernels.py rank_chain).  Up to H = 65,535
+lines group into chunks of C = 16; a 16-bit register per haplotype carries
+the chunk's bits through the partitions, which run in the chunk-chain
+kernels of ops/pbwt_kernels.py.  Cross-chunk state comes from a rank chain
+(encode: the rank_chain kernels, every width) or from composing the
+chunks' arrangements (decode).  Wider blocks, whose slots do not fit the
+registers' 16-bit fields, encode with packed per-line keys and one batched
+row sort (the scan) and decode by the blocked three-phase form;
+mixed-ploidy blocks encode with the parity scan and decode with the
+decode_scan_mixed kernel, one launch over all lines.
 
 Where the JAX package applies permutations with packed row sorts (fast on a
 TPU), this module scatters and gathers.  The block-start arrangement is the
@@ -32,17 +32,6 @@ SORT_SLICE_ELEMS = 1 << 26
 
 
 _inverse = pbwt_kernels._inverse
-
-
-def _rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunk-start rank chain (pbwt_kernels.rank_chain_plain has the
-    contract): the kernel up to H = 65,535, the width of its 16-bit ranks;
-    above that (pbwt_encode_scan, the wide parity scan) the plain chain,
-    one sort per chunk, on any device."""
-    if T.shape[1] > pbwt_kernels.MAX_H:
-        return pbwt_kernels.rank_chain_plain(T, r0, r_bits)
-    return pbwt_kernels.rank_chain(T, r0, r_bits)
 
 
 def _hap_bits(h: int) -> int:
@@ -87,7 +76,8 @@ def pbwt_encode_keys(alleles: torch.Tensor, alts: torch.Tensor,
         packed[:, j] = T
         T |= (xc[:, j].to(torch.int32) << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
 
-    r_fin, r_starts = _rank_chain(T, torch.arange(H, device=dev), b)
+    r_fin, r_starts = pbwt_kernels.rank_chain(T, torch.arange(H, device=dev),
+                                             b)
     low = r_starts << vb
     if carry_parity:
         low |= (torch.arange(H, device=dev) & 1) << 1
@@ -183,7 +173,7 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
         T |= (xj << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
 
     iota = torch.arange(H, device=dev)
-    r_fin, r_starts = _rank_chain(T, iota)
+    r_fin, r_starts = pbwt_kernels.rank_chain(T, iota)
 
     # Register load: each haplotype's register lands at its chunk-start slot.
     q0 = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)

@@ -827,13 +827,11 @@ def _native_segment_bytes(d, start_blk: int, end_blk: int,
                           pidx: int) -> tuple[bytes, int] | None:
     """This worker's BCF body segment through the native extract loop
     (xsi_extract_segment: decode + frame + BGZF deflate in C), or None
-    when the route is off (a torch device, a sample subset, filters, a
-    container it does not decode, XSI_NATIVE=0): the Python driver then
-    runs."""
+    when the route is off (a torch device, a sample subset, filters,
+    XSI_NATIVE=0): the Python driver then runs."""
     o = d.opts
     if (d.torch_device is not None or d._select is not None or o.regions
-            or o.targets or not native.decodes(d.xsi.aet_dtype)
-            or not native.enabled()):
+            or o.targets or not native.enabled()):
         return None
     header = d.output_header()
     gt_key = header.ensure_string(
