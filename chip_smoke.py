@@ -32,11 +32,19 @@ exactly:
    parity scan's (255 x 2466, 18-bit), H = 1, 2 and 16,384 (rows in
    shared memory), and H = 16,385, HRC (325 x 64,976), 65,536 and TOPMed
    (395 x 194,512, 13-bit; rows through device memory, 32-bit ranks above
-   65,535), and the mixed decode scan (csrc/pbwt_scan.cu) at chrX PAR
-   width (4573 lines in runs of each ploidy, all haploid, all diploid) and
-   at HRC width (512 lines, state in device memory); after each block the
-   rank chain again at the block's own totals, and after the chrX PAR
-   block the mixed scan at its own lines;
+   65,535), and the mixed decode scan (csrc/pbwt_scan.cu): its stepping
+   kernel from a permuted start arrangement, and its run route
+   (pbwt_torch.pbwt_decode_scan_mixed) against the stepping plain version
+   and timed beside the stepping kernel forced over the same lines, at
+   chrX PAR width (4573 lines in runs of 64 of each ploidy and in the PAR
+   layout, diploid lines then haploid ones; 1024 alternating, all
+   haploid, all diploid) and at HRC width (512 lines, the stepping state
+   in device memory), the run flush at the PAR layout's and HRC's runs,
+   and a sweep of run lengths with every run on the chains against the
+   stepping kernel (the crossover behind pbwt_torch.MIN_RUN_LINES); after
+   each block the rank chain again at the block's own totals, and after
+   the chrX PAR block the run route, the run flush and the stepping
+   kernel at its own lines;
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
    threshold 10, the rare-heavy mix of bench.py), the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
@@ -49,8 +57,9 @@ exactly:
    every launch counter is set to 0 just before each block's run and read
    just after, and each kernel route of that path must have launched
    (and no other); while it runs, wah_torch's plain pack_bits,
-   unpack_bits and wah_word_offsets and pbwt_kernels' plain rank chain and
-   mixed scan raise (every block, TOPMed's included).  Prints ms/block and
+   unpack_bits and wah_word_offsets and pbwt_kernels' plain rank chain,
+   stepping scan, chain decode and run flush raise (every block, TOPMed's
+   included).  Prints ms/block and
    GB/s in bench.py's unit (L * H * 4 logical gt bytes), the compression
    ratio, the device part of the decode alone, and the peak device memory
    of encode and decode, each also with the old WAH pipeline;
@@ -60,7 +69,8 @@ exactly:
    1KGP3-chrX (the 1233 male samples hold end-of-vector in their second
    slot on every record) and chrX-males-PAR (the 1233 males only, 4096
    diploid PAR lines then 4096 haploid ones: a mixed-ploidy block, decoded
-   without offsets).  The track blocks also hold the fused decode
+   without offsets; its two runs of WAH lines on the chains and the run
+   flush, no stepping launch).  The track blocks also hold the fused decode
    (_decode_block_full_gt_tracks) against the input;
 6. the file level: a synthetic 1KGP3-width BCF of two blocks through
    `cli -c --device cuda` and `--device numpy` (byte-identical .xsi) and
@@ -151,27 +161,34 @@ TRACK_BLOCKS = ("1KGP3-missing", "1KGP3-chrX")
 TRACK_PAYLOADS: dict = {}  # name -> (payload, samples): track_block_phase
 MIXED_BLOCK = "chrX-males-PAR"
 ONE_CTA = ("chain_encode", "chain_decode", "wah_expand_bits",
-           "wah_compress_bits", "rank_chain")
+           "wah_compress_bits", "rank_chain", "decode_run_flush")
 #: Kernel routes each block's path must launch (the others must not: the
 #: int32-group WAH routes are the TPU kernels' contract, held and timed
 #: against their plain versions, but the codec calls the bits routes).
 PATH_KERNELS = {
     "1KGP3": ONE_CTA,
     "HRC": ("chain_encode_cluster", "chain_decode_cluster",
-            "wah_expand_bits", "wah_compress_bits", "rank_chain"),
+            "wah_expand_bits", "wah_compress_bits", "rank_chain",
+            "decode_run_flush"),
     # the packed-key scan and the blocked decode (plain torch) in place of
-    # the chains: no chain route may launch
+    # the chains: no chain route (nor the run flush) may launch
     "TOPMed": ("wah_expand_bits", "wah_compress_bits", "rank_chain"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
+    # the mixed scan's run route: both runs on the chains and the run
+    # flush, no stepping launch (the decode keeps no final arrangement, so
+    # the haploid run's rank chain is skipped: the encode launches it)
     MIXED_BLOCK: ("wah_compress_bits", "wah_expand_varw_bits", "rank_chain",
-                  "decode_scan_mixed"),
+                  "chain_decode", "decode_run_flush"),
 }
 #: Plain passes that must not run on a block's card path (they are
-#: replaced by functions that raise while it runs), by module.
+#: replaced by functions that raise while it runs), by module: the mixed
+#: scan's run route on the CPU is its pieces' plain versions (the chains,
+#: the run flush, the rank chain, the stepping scan).
 PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
-                (pbwt_kernels, ("rank_chain_plain",
-                                "decode_scan_mixed_plain")))
+                (pbwt_kernels, ("rank_chain_plain", "decode_scan_mixed_plain",
+                                "chain_decode_plain",
+                                "decode_run_flush_plain")))
 #: The plain passes a block's path takes by design: none (the rank chain
 #: runs its kernels at every width).
 PLAIN_ROUTES: dict = {}
@@ -205,6 +222,9 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     # XLA scans of the JAX package, Python-stepped loops before this port
     "rank_chain": ("rank_chain.cu", "pbwt_jax.py:213"),
     "decode_scan_mixed": ("pbwt_scan.cu", "pbwt_jax.py:564"),
+    # the mixed scan's run route's own kernel (with chain_decode and the
+    # rank chain in the route)
+    "decode_run_flush": ("pbwt_scan.cu", "pbwt_jax.py:564"),
 }
 
 
@@ -245,13 +265,16 @@ KERNEL_NAMES = {
     # call, their count following the chunks and the route (MULTI_LAUNCH)
     "rank_chain": (("rank_",),),
     "decode_scan_mixed": (("decode_scan_mixed_kernel",),),
+    # the run flush's composition levels and the flush itself: several
+    # launches a call, their count following the chunks (MULTI_LAUNCH)
+    "decode_run_flush": (("compose_level_kernel", "decode_run_flush_kernel"),),
 }
 
 
 #: Routes whose call launches its kernels several times (KERNEL_NAMES then
 #: names their common prefix): their device time is summed over a call and
 #: their launches per call printed.
-MULTI_LAUNCH = {"rank_chain"}
+MULTI_LAUNCH = {"rank_chain", "decode_run_flush"}
 
 
 def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
@@ -274,7 +297,7 @@ def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
         total_us = sum(e.device_time_total for e in events)
         if route in MULTI_LAUNCH:
             by_kernel = ", ".join(
-                f"{re.search(r'rank_\w+', e.key).group(0)} "
+                f"{re.search(r'rank_\w+|\w+_kernel', e.key).group(0)} "
                 f"{e.device_time_total / iters / 1e3:.3f} ms "
                 f"({e.count / iters:g}x)"
                 for e in sorted(events, key=lambda e: -e.device_time_total))
@@ -389,21 +412,27 @@ def rank_totals(rng, n_ch: int, H: int, bits: int):
     return T
 
 
-def mixed_lines(rng, n_lines: int, H: int, kind: str, dev):
+def mixed_lines(rng, n_lines: int, H: int, kind, dev):
     """Stored lines of a mixed-ploidy block's WAH lines: haploid lines hold
     their H / 2 front-packed bits, zero past them; kind "runs" (each
-    ploidy in runs of 64 lines), "haploid" or "diploid".  Every line sorts
-    (as the codec's WAH lines do).  Returns (ys, sorts, hap) on dev."""
-    hap = {"runs": np.repeat(rng.random(-(-n_lines // 64)) < 0.5,
-                             64)[:n_lines],
-           "haploid": np.ones(n_lines, bool),
-           "diploid": np.zeros(n_lines, bool)}[kind]
+    ploidy in runs of 64 lines), "par" (diploid lines, then haploid ones:
+    the chrX PAR layout), "alternating" (single lines), "haploid",
+    "diploid", or the haploid flags themselves.  Every line sorts (as the
+    codec's WAH lines do).  Returns (ys, sorts, hap) on dev and hap on the
+    host (the run route cuts its runs from it)."""
+    hap = kind if isinstance(kind, np.ndarray) else {
+        "runs": np.repeat(rng.random(-(-n_lines // 64)) < 0.5,
+                          64)[:n_lines],
+        "par": np.arange(n_lines) >= n_lines // 2,
+        "alternating": np.arange(n_lines) % 2 == 1,
+        "haploid": np.ones(n_lines, bool),
+        "diploid": np.zeros(n_lines, bool)}[kind]
     dens = rng.choice([0.002, 0.05, 0.3, 0.7, 0.99], n_lines)
     ys = bernoulli_rows(rng, dens, H)
     ys[hap, H // 2:] = 0
     return (torch.from_numpy(ys).to(dev),
             torch.ones(n_lines, dtype=torch.bool, device=dev),
-            torch.from_numpy(hap).to(dev))
+            torch.from_numpy(hap).to(dev), hap)
 
 
 def make_block(rng, H: int):
@@ -729,19 +758,31 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             {"plain_iters": 3, "floor": rank_floor(T),
              "yardstick": lambda T=T, r0=r0:
                  pbwt_kernels.rank_chain_levels_plain(T, r0)}))
+    # the stepping kernel from an arrangement other than the identity (as
+    # the run route starts a stepping piece); the run route itself on the
+    # same lines after the loop
+    mixed = []
     for label, n, H, kind in (("chrX-PAR", 4573, 2 * MALES, "runs"),
+                              ("chrX-PAR layout", 4573, 2 * MALES, "par"),
+                              ("chrX-PAR alternating", 1024, 2 * MALES,
+                               "alternating"),
                               ("chrX-PAR haploid", 1024, 2 * MALES,
                                "haploid"),
                               ("chrX-PAR diploid", 1024, 2 * MALES,
                                "diploid"),
                               ("HRC", 512, HRC_H, "runs")):
-        ys, so, hp = mixed_lines(srng, n, H, kind, dev)
+        ys, so, hp, hnp = mixed_lines(srng, n, H, kind, dev)
+        a0 = torch.from_numpy(srng.permutation(H)).to(dev)
         cases.append((
-            "decode_scan_mixed", label, f"Lw={n} H={H} {kind}",
-            lambda a=(ys, so, hp): pbwt_kernels.decode_scan_mixed(*a),
-            lambda a=(ys, so, hp): pbwt_kernels.decode_scan_mixed_plain(*a),
+            "decode_scan_mixed", label, f"Lw={n} H={H} {kind}, a0 a "
+            f"permutation",
+            lambda a=(ys, so, hp), a0=a0: pbwt_kernels.decode_scan_mixed(
+                *a, a0=a0),
+            lambda a=(ys, so, hp), a0=a0:
+            pbwt_kernels.decode_scan_mixed_plain(*a, a0=a0),
             None, mixed_bytes(ys, hp), None,
             {"plain_iters": 1, "floor": mixed_floor(so, hp)}))
+        mixed.append((label, kind, ys, so, hp, hnp))
 
     rows, checks = {}, []
     wide_labels = {label for label, _ in WIDE_WAH}
@@ -786,7 +827,174 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             rows[f"{name}@{label}"] = kernel_row(check)
         elif name not in rows and ("cluster" in name) == (label == "HRC"):
             rows[name] = kernel_row(check)
+
+    # the mixed scan's run route on each case's lines beside the stepping
+    # kernel forced over them; the run flush at the chrX PAR layout's runs
+    # and at HRC width; then the crossover sweep behind MIN_RUN_LINES
+    for label, kind, ys, so, hp, hnp in mixed:
+        route, flushes = mixed_route_checks(
+            label, ys, so, hp, hnp, card,
+            flush=label in ("chrX-PAR layout", "HRC"))
+        checks.append(route)
+        for c in flushes:
+            checks.append(c)
+            rows.setdefault(c["name"], kernel_row(c))
+    del mixed
+    checks.extend(mixed_crossover(card))
     return rows, checks
+
+
+def flush_calls(fn) -> list:
+    """fn() with the run flush's calls recorded: [(args, kwargs)], the
+    tensors copied and the output buffer left out."""
+    calls = []
+    orig = pbwt_kernels.decode_run_flush
+
+    def call(*args, **kw):
+        calls.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args),
+                      {k: v for k, v in kw.items() if k != "out"}))
+        return orig(*args, **kw)
+    with swapped(pbwt_kernels, {"decode_run_flush": call}):
+        fn()
+    return calls
+
+
+def flush_bytes(args, kw) -> int:
+    """Bytes a run flush must move: p_fin read (the chains' u32 states, 4
+    B a slot), start and the sort flags read, the run's rows (and T) and
+    its end map (int64 a slot) written."""
+    p_fin, start, ss, H, n, _haploid = args
+    T = 4 * p_fin.shape[0] * H if kw.get("want_T") else 0
+    return p_fin.nbytes + 2 * start.nbytes + ss.nbytes + n * H + T
+
+
+def flush_check(label: str, args, kw, card: str) -> dict:
+    """The run flush at one call's arguments against its plain version
+    (rows, the end map, and T if written), timed."""
+    p_fin, _, _, H, n, haploid = args
+
+    def kern():
+        return pbwt_kernels.decode_run_flush(*args, **kw)
+
+    def plain():
+        return pbwt_kernels.decode_run_flush_plain(*args, **kw)
+    g, w = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(diff(g[0], w[0]), diff(g[2], w[2]),
+              diff(g[1], w[1]) if kw.get("want_T") else 0)
+    shape = (f"{'haploid' if haploid else 'diploid'} run of {n} lines, "
+             f"W={p_fin.shape[1]} H={H} n_ch={p_fin.shape[0]}"
+             + (", T written" if kw.get("want_T") else ""))
+    require(err == 0, f"decode_run_flush at {label} ({shape}): kernel "
+                      f"differs from its plain version (max abs err {err})")
+    del g, w
+    c = timed_check("decode_run_flush", label, shape, err, cuda_ms(kern),
+                    cuda_ms(plain, iters=3, warmup=1), flush_bytes(args, kw),
+                    "", card, kernel_device_ms("decode_run_flush", kern),
+                    host_ms(kern))
+    c["haploid"] = haploid
+    return c
+
+
+def mixed_route_checks(label: str, ys, so, hp, hnp, card: str,
+                       flush: bool = True) -> tuple[dict, list[dict]]:
+    """The mixed scan's run route (pbwt_torch.pbwt_decode_scan_mixed) on
+    these lines: bit-exact against the stepping kernel's plain version
+    (vals and a_final), timed as the codec calls it (no final
+    arrangement) and with the final arrangement, beside the stepping
+    kernel forced over the same lines (timed in turns: stepping, route,
+    route, stepping), with its launches a call.  With `flush`, the run
+    flush at each of the route's runs against its plain version, timed.
+    Returns (the route's record, the flush checks)."""
+    Lw, H = ys.shape
+
+    def route(keep=True):
+        return pbwt_torch.pbwt_decode_scan_mixed(ys, so, hp, hnp,
+                                                 keep_final=keep)
+
+    def step():
+        return pbwt_kernels.decode_scan_mixed(ys, so, hp)
+
+    got, want = route(), pbwt_kernels.decode_scan_mixed_plain(ys, so, hp)
+    torch.cuda.synchronize()
+    err = diff(got, want)
+    pieces = pbwt_torch.mixed_runs(hnp, H)
+    shape = (f"Lw={Lw} H={H}, pieces "
+             + " ".join(f"{r}:{b - a}" for a, b, r in pieces))
+    require(err == 0, f"the mixed run route at {label} ({shape}): differs "
+                      f"from the stepping plain version (max abs err {err})")
+    del got, want
+    n0 = read_counts()
+    route(False)
+    torch.cuda.synchronize()
+    ran = {k: v - n0[k] for k, v in read_counts().items() if v != n0[k]}
+    step_a = cuda_ms(step, iters=5, warmup=1)
+    route_ms = cuda_ms(lambda: route(False), iters=10)
+    final_ms = cuda_ms(route, iters=10)
+    step_ms = (step_a + cuda_ms(step, iters=5, warmup=1)) / 2
+    enqueue = host_ms(lambda: route(False))
+    b_ms = bound_ms(mixed_bytes(ys, hp))
+    print(f"mixed route [{label}: {shape}]: bit-exact vs plain (vals and "
+          f"a_final); {route_ms:.4f} ms as the codec calls it (no final "
+          f"arrangement), {final_ms:.4f} ms with it; the stepping kernel "
+          f"forced over the same lines {step_ms:.4f} ms (ratio "
+          f"{final_ms / step_ms:.3f} with the final arrangement, "
+          f"{route_ms / step_ms:.3f} without); bound {b_ms:.5f} ms; "
+          f"launches a call {ran}; host enqueue {enqueue:.4f} ms/call "
+          f"({card})")
+    record = {"name": "mixed_run_route", "width": label, "shape": shape,
+              "max_abs_err": err, "ms": route_ms, "ms_with_final": final_ms,
+              "stepping_ms": step_ms, "ratio": final_ms / step_ms,
+              "bound_ms": b_ms, "host_enqueue_ms": enqueue,
+              "launches_a_call": ran}
+    checks = [flush_check(label, args, kw, card)
+              for args, kw in (flush_calls(route) if flush else [])]
+    return record, checks
+
+
+#: The crossover sweep: (width, lines, run lengths); the lines alternate
+#: ploidy in runs of each length.  At chrX PAR width the stepping kernel
+#: keeps its state in shared memory, at HRC width in device memory.
+CROSSOVER = ((2 * MALES, 3072, (64, 128, 192, 256, 384, 512, 1024)),
+             (HRC_H, 256, (4, 8, 16, 64)))
+
+
+def mixed_crossover(card: str) -> list[dict]:
+    """Every run on the chains (MIN_RUN_LINES and MIN_RUN_LINES_WIDE set
+    to 1) against the stepping kernel over the same lines, by run length:
+    where the chains overtake, which the constants follow (PERF.md §6).
+    The two agree bit for bit (the stepping kernel is held against its
+    plain version above)."""
+    rng = np.random.default_rng(5)
+    dev = torch.device(DEVICE)
+    out = []
+    for H, n_lines, lengths in CROSSOVER:
+        for n in lengths:
+            hnp = np.arange(n_lines) // n % 2 == 1
+            ys, so, hp, _ = mixed_lines(rng, n_lines, H, hnp, dev)
+
+            def chains():
+                return pbwt_torch.pbwt_decode_scan_mixed(ys, so, hp, hnp)
+
+            def step():
+                return pbwt_kernels.decode_scan_mixed(ys, so, hp)
+            with swapped(pbwt_torch, {"MIN_RUN_LINES": 1,
+                                      "MIN_RUN_LINES_WIDE": 1}):
+                err = diff(chains(), step())
+                require(err == 0, f"crossover at H={H}, runs of {n}: the "
+                                  f"chains differ from the stepping kernel")
+                chains_ms = cuda_ms(chains, iters=5, warmup=1)
+            step_ms = cuda_ms(step, iters=3, warmup=1)
+            runs = n_lines // n
+            print(f"mixed crossover [H={H}, {n_lines} lines in runs of {n}]: "
+                  f"every run on the chains {chains_ms:.4f} ms, the stepping "
+                  f"kernel {step_ms:.4f} ms; a run {chains_ms / runs:.4f} vs "
+                  f"{step_ms / runs:.4f} ms ({card})")
+            out.append({"name": "mixed_crossover", "H": H, "lines": n_lines,
+                        "run_lines": n, "chains_ms": chains_ms,
+                        "stepping_ms": step_ms})
+    return out
 
 
 def timed_check(name, label, shape, err, ms, plain_ms, nbytes, note,
@@ -837,7 +1045,8 @@ def kernel_row(check: dict) -> dict:
 
 #: Wrappers whose first call in a block is recorded (captured_args).
 CAPTURED = ((pbwt_kernels, ("chain_encode", "chain_decode", "rank_chain",
-                            "decode_scan_mixed")),
+                             "decode_run_flush")),
+            (pbwt_torch, ("pbwt_decode_scan_mixed",)),
             (wah_kernels, ("wah_compress_bits", "wah_expand_bits",
                            "wah_expand_varw_bits")))
 
@@ -857,10 +1066,10 @@ def swapped(module, fns: dict):
 
 @contextlib.contextmanager
 def captured_args():
-    """Records (a copy of) the arguments of the first call of each chain
-    and bits WAH wrapper made inside the block, so the kernels can be held
-    and timed at the shapes, registers, sort flags and streams the block's
-    own path gives them."""
+    """Records (a copy of) the arguments of the first call of each chain,
+    rank chain, mixed scan and bits WAH wrapper made inside the block, so
+    the kernels can be held and timed at the shapes, registers, sort flags,
+    lines and streams the block's own path gives them."""
     seen = {}
 
     def recorder(name, fn):
@@ -910,6 +1119,36 @@ def old_pipeline():
             wk.wah_expand(s, n, w), h),
         "wah_expand_varw_bits": lambda s, g, w, h: wt.unpack_bits(
             wk.wah_expand_varw(s, g, w), h)})
+
+
+def torch_flush_decode(ys, sorts):
+    """pbwt_torch.pbwt_decode_chunked with its flush in torch, as the
+    uniform decode ran before the run flush kernel took its place:
+    chain_decode, then the composition, the scatter to natural order and
+    16 shifts as torch ops.  A yardstick, timed beside the path."""
+    L, H = ys.shape
+    C = pbwt_torch.DECODE_CHUNK
+    pad = (-L) % C
+    y = torch.nn.functional.pad(ys, (0, 0, 0, pad))
+    ss = torch.nn.functional.pad(sorts.to(torch.bool), (0, pad))
+    n_ch = (L + pad) // C
+    p_fin = pbwt_kernels.chain_decode(y.view(n_ch, C, H), ss.view(n_ch, C))
+    inc = pbwt_kernels._compose_prefix(p_fin >> 16)
+    X = torch.empty_like(p_fin).scatter_(1, inc, p_fin & 0xFFFF)
+    vals = torch.empty((n_ch, C, H), dtype=torch.uint8, device=ys.device)
+    for j in range(C):
+        vals[:, j] = (X >> j) & 1
+    return vals.reshape(n_ch * C, H)[:L], inc[-1]
+
+
+def torch_flush_ms(label: str, fn, want: np.ndarray, **loop) -> float:
+    """fn's time (CUDA events) with torch_flush_decode in the uniform
+    decode's place, after one call that must still give `want`."""
+    with swapped(pbwt_torch, {"pbwt_decode_chunked": torch_flush_decode}):
+        require(bool((fn().cpu().numpy() == want).all()),
+                f"{label}: the decode with the torch flush is not "
+                f"bit-exact")
+        return cuda_ms(fn, **loop)
 
 
 def once_peak_gb(fn) -> float:
@@ -1292,26 +1531,22 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, H, aet,
                                           device=dev)
     *dstaged, h, w, _ = dec.device_inputs()
-    with captured_args() as seen_dec:
-        gt_dev = decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
-    seen.update(seen_dec)
+    gt_dev = decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
     require(bool((gt_dev.cpu().numpy() == gt).all()),
             f"{name}: fused decode to gt codes is not bit-exact")
-    del gt_dev, gt
+    del gt_dev
 
     def decode_device():
         return decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
 
     dec_dev_ms = cuda_ms(decode_device, **dev_loop)
+    # the same decode with the flush in torch, as before the run flush
+    dec_dev_torch_flush_ms = (None if scan else
+                              torch_flush_ms(name, decode_device, gt,
+                                             **dev_loop))
+    del gt
     dec_dev_peak = once_peak_gb(decode_device)
     dec_dev_old_ms, dec_dev_peak_old = old_wah(decode_device)
-    if scan:
-        ys = wah_kernels.wah_expand_bits(*seen["wah_expand_bits"])
-        sorts = dstaged[1]
-        parts["pbwt_decode_blocked"] = alone(
-            lambda: pbwt_torch.pbwt_decode_blocked(ys, sorts),
-            2 * ys.numel() + sorts.nbytes + 8 * H, "pbwt_decode_blocked")
-        del ys, sorts
 
     def decode_once():
         dec.host_inputs()                 # the per-block host parse
@@ -1321,6 +1556,18 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     dec_ms = wall_ms(decode_once, **(dict(iters=1, warmup=1) if scan
                                      else dev_loop))
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the path's own inputs of each decode kernel (captured after the
+    # decode's peaks: the copies are not the path's memory)
+    with captured_args() as seen_dec:
+        decode_device()
+    seen.update(seen_dec)
+    if scan:
+        ys = wah_kernels.wah_expand_bits(*seen["wah_expand_bits"])
+        sorts = dstaged[1]
+        parts["pbwt_decode_blocked"] = alone(
+            lambda: pbwt_torch.pbwt_decode_blocked(ys, sorts),
+            2 * ys.numel() + sorts.nbytes + 8 * H, "pbwt_decode_blocked")
+        del ys, sorts
     del dstaged
     rec_ms = wall_ms(lambda: records(payload), **host_loop)
     gt_bytes = L * H * 4
@@ -1328,6 +1575,9 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
 
     def old(ms, unit=" ms"):
         return "" if ms is None else f" (old WAH pipeline {ms:.3f}{unit})"
+
+    def torch_flush(ms):
+        return "" if ms is None else f" (with the flush in torch {ms:.3f} ms)"
 
     rc = scans["rank_chain"]
     chain = (f", of which the rank chain {rc['ms']:.3f} ms (its plain "
@@ -1345,10 +1595,16 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     print(f"[{name}] device alone: encode core {enc_ms:.3f} ms"
           f"{old(enc_old_ms)}{chain}, peak {enc_core_peak:.3f} GB"
           f"{old(enc_core_peak_old, ' GB')} | decode {dec_dev_ms:.3f} ms"
-          f"{old(dec_dev_old_ms)}, peak {dec_dev_peak:.3f} GB"
+          f"{old(dec_dev_old_ms)}{torch_flush(dec_dev_torch_flush_ms)}, "
+          f"peak {dec_dev_peak:.3f} GB"
           f"{old(dec_dev_peak_old, ' GB')} ({card})")
     checks = (block_chain_checks(name, seen, card)
               + wah_block_checks(name, seen, card) + list(scans.values()))
+    if "decode_run_flush" in seen:      # the uniform decode's flush
+        fc = flush_check(f"{name} block", seen["decode_run_flush"], {}, card)
+        fc["default_route"] = False
+        fc["row"] = f"decode_run_flush@{name}"
+        checks.append(fc)
     return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
             "encode_ms": enc_ms, "block_checks": checks,
             "encode_plain_rank_chain_ms": enc_plain_chain_ms,
@@ -1356,6 +1612,7 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
             "encode_old_wah_ms": enc_old_ms,
             "decode_device_ms": dec_dev_ms,
             "decode_device_old_wah_ms": dec_dev_old_ms,
+            "decode_device_torch_flush_ms": dec_dev_torch_flush_ms,
             "wide_path_alone": parts,
             "decode_ms": dec_ms, "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
@@ -1446,8 +1703,14 @@ def track_block_phase(name: str, card: str) -> dict:
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # its parts: the host's walk of the track streams, and the device
     walk_ms = wall_ms(carrier_pairs, iters=3, warmup=1)
-    dev_ms = cuda_ms(lambda: decoder_torch._decode_block_full_gt_tracks(
-        *dstaged, 0, *pairs_dev, h, w), iters=10, warmup=2)
+    def decode_device():
+        return decoder_torch._decode_block_full_gt_tracks(
+            *dstaged, 0, *pairs_dev, h, w)
+
+    dev_ms = cuda_ms(decode_device, iters=10, warmup=2)
+    # the same decode with the flush in torch, as before the run flush
+    dev_torch_flush_ms = torch_flush_ms(name, decode_device, gt, iters=10,
+                                        warmup=2)
     del dstaged, pairs_dev
 
     prep = enc.prepare()
@@ -1498,7 +1761,8 @@ def track_block_phase(name: str, card: str) -> dict:
           f"| fused decode with overlays (host parse + device): "
           f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
           f"{dec_peak_gb:.3f} GB), of which the host's track walk "
-          f"{walk_ms:.1f} ms and the device {dev_ms:.3f} ms | serialize: "
+          f"{walk_ms:.1f} ms and the device {dev_ms:.3f} ms (with the "
+          f"flush in torch {dev_torch_flush_ms:.3f} ms) | serialize: "
           f"{ser_ms:.1f} ms | "
           f"decode_block_records: {rec_ms:.1f} ms | compression "
           f"{ratio:.2f}x ({card})")
@@ -1507,7 +1771,9 @@ def track_block_phase(name: str, card: str) -> dict:
             "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": rc["ms"], "rank_chain_plain_ms": rc["plain_ms"],
             "decode_ms": dec_ms, "decode_track_walk_ms": walk_ms,
-            "decode_device_ms": dev_ms, "serialize_ms": ser_ms,
+            "decode_device_ms": dev_ms,
+            "decode_device_torch_flush_ms": dev_torch_flush_ms,
+            "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
             "payload_bytes": len(payload), "wah_lines": n_wah,
             "track_rows": len(rows), "track_cap": trk_cap,
@@ -1590,25 +1856,31 @@ def mixed_block_phase(card: str) -> dict:
                                           device=DEVICE)
     *arrays, h, w_max, _ = dec.host_inputs_mixed()
     dargs = to_device(*arrays)
+    hap_host = arrays[3]
 
     def decode_once():
         dec.host_inputs_mixed()           # the per-block host parse
-        return decoder_torch._decode_block_mixed(*dargs, h, w_max)
+        return decoder_torch._decode_block_mixed(*dargs, hap_host, h, w_max)
 
     def decode_device():
-        return decoder_torch._decode_block_mixed(*dargs, h, w_max)
+        return decoder_torch._decode_block_mixed(*dargs, hap_host, h, w_max)
 
     torch.cuda.reset_peak_memory_stats()
     dec_ms = wall_ms(decode_once, iters=3, warmup=1)
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dec_dev_ms = cuda_ms(decode_device, iters=10, warmup=2)
     dec_dev_peak = once_peak_gb(decode_device)
-    # the device decode with the plain scan in the kernel's place (one
-    # Python step per line, as it ran before the kernel)
-    with swapped(pbwt_kernels, {"decode_scan_mixed":
-                                pbwt_kernels.decode_scan_mixed_plain}):
-        dec_dev_plain_ms = cuda_ms(decode_device, iters=2, warmup=1)
-        dec_dev_peak_plain = once_peak_gb(decode_device)
+    # the device decode with the stepping kernel forced over all the
+    # block's lines (the route before the run route), and with its plain
+    # version (one Python step per line, as it ran before the kernel)
+    def forced(fn):
+        return {"pbwt_decode_scan_mixed":
+                lambda ys, so, hp, _host, keep_final=True: fn(ys, so, hp)}
+    with swapped(pbwt_torch, forced(pbwt_kernels.decode_scan_mixed)):
+        dec_dev_step_ms = cuda_ms(decode_device, iters=10, warmup=2)
+        dec_dev_peak_step = once_peak_gb(decode_device)
+    with swapped(pbwt_torch, forced(pbwt_kernels.decode_scan_mixed_plain)):
+        dec_dev_plain_ms = cuda_ms(decode_device, iters=1, warmup=1)
     with captured_args() as seen_dec:
         decode_device()
     seen.update(seen_dec)
@@ -1616,9 +1888,22 @@ def mixed_block_phase(card: str) -> dict:
     seen["wah_expand_varw_bits"] = (stream, group_off, w_max, h)
     exp_ms = cuda_ms(lambda: wah_kernels.wah_expand_varw_bits(
         stream, group_off, w_max, h))
+    # the scan at the block's own lines: the run route (and the run flush
+    # at its runs), and the stepping kernel forced over the same lines
+    ys_b, so_b, hp_b, host_b = seen["pbwt_decode_scan_mixed"][:4]
+    droute, dflush = mixed_route_checks(name, ys_b, so_b, hp_b, host_b, card)
+    droute["width"] = f"{name} block"
+    for c in dflush:
+        c["width"] = f"{name} block"
+        c["default_route"] = not c["haploid"]
+        if c["haploid"]:
+            c["row"] = "decode_run_flush@haploid"
+    seen["decode_scan_mixed"] = (ys_b, so_b, hp_b)
     dscan = scan_block_checks(name, seen, card)["decode_scan_mixed"]
-    checks = wah_block_checks(name, seen, card) + [pchain, dscan]
-    del dargs, seen
+    checks = (wah_block_checks(name, seen, card) + [pchain, dscan] + dflush
+              + [droute])
+    droute["default_route"] = False
+    del dargs, seen, ys_b, so_b, hp_b
     rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
         payload, N, H, np.uint16, [2] * L, device=DEVICE), iters=1, warmup=0)
     gt_bytes = L * H * 4
@@ -1634,28 +1919,33 @@ def mixed_block_phase(card: str) -> dict:
           f"chain {pchain['ms']:.3f} ms | decode (host parse + device): "
           f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
           f"{dec_peak_gb:.3f} GB), of which wah_expand_varw_bits "
-          f"{exp_ms:.4f} ms and the mixed scan {dscan['ms']:.3f} ms | "
+          f"{exp_ms:.4f} ms and the mixed scan (run route, no final "
+          f"arrangement) {droute['ms']:.3f} ms | "
           f"serialize: {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
     print(f"[{name}] with the plain versions in the kernels' place: the "
           f"rank chain {pchain['plain_ms']:.3f} ms, the parity scan "
           f"{scan_plain_chain_ms:.3f} ms, the encode core "
           f"{enc_plain_chain_ms:.3f} ms (peak {enc_core_peak_plain:.3f} GB); "
-          f"the mixed scan {dscan['plain_ms']:.3f} ms, the device decode "
-          f"{dec_dev_plain_ms:.3f} ms (peak {dec_dev_peak_plain:.3f} GB) "
-          f"({card})")
+          f"the stepping scan {dscan['plain_ms']:.3f} ms, the device "
+          f"decode {dec_dev_plain_ms:.3f} ms ({card})")
     print(f"[{name}] device alone: encode core peak {enc_core_peak:.3f} GB "
-          f"| decode {dec_dev_ms:.3f} ms, peak {dec_dev_peak:.3f} GB "
-          f"({card})")
+          f"| decode {dec_dev_ms:.3f} ms, peak {dec_dev_peak:.3f} GB; with "
+          f"the stepping kernel forced over the block's lines: the scan "
+          f"{dscan['ms']:.3f} ms, the decode {dec_dev_step_ms:.3f} ms, peak "
+          f"{dec_dev_peak_step:.3f} GB ({card})")
     return {"launches": launches, "H": H, "encode_ms": enc_ms,
             "block_checks": checks, "decode_device_ms": dec_dev_ms,
+            "decode_device_stepping_ms": dec_dev_step_ms,
             "decode_device_plain_scan_ms": dec_dev_plain_ms,
             "encode_parity_scan_ms": scan_ms,
             "encode_parity_scan_plain_chain_ms": scan_plain_chain_ms,
             "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": pchain["ms"],
             "rank_chain_plain_ms": pchain["plain_ms"], "decode_ms": dec_ms,
-            "decode_expand_ms": exp_ms, "decode_scan_ms": dscan["ms"],
+            "decode_expand_ms": exp_ms, "decode_scan_ms": droute["ms"],
+            "decode_scan_with_final_ms": droute["ms_with_final"],
+            "decode_scan_stepping_ms": dscan["ms"],
             "decode_scan_plain_ms": dscan["plain_ms"],
             "serialize_ms": ser_ms, "decode_records_ms": rec_ms,
             "compression_ratio": ratio, "payload_bytes": len(payload),
@@ -1666,8 +1956,8 @@ def mixed_block_phase(card: str) -> dict:
                                "encode_core_once_plain_rank_chain":
                                    enc_core_peak_plain,
                                "decode_device_once": dec_dev_peak,
-                               "decode_device_once_plain_scan":
-                                   dec_dev_peak_plain}}
+                               "decode_device_once_stepping":
+                                   dec_dev_peak_step}}
 
 
 def file_phase(card: str, label: str = "file", missing_frac: float = 0.0,
@@ -1818,8 +2108,8 @@ def tools_phase(card: str) -> dict:
     host walks over the .xsi and the BCF agree per variant within HOST_RTOL
     and in the checksum to 1e-6 (one unit of its sixth decimal); every
     launch counter is set to 0 just before each dot_prod on the card and
-    read just after: wah_expand_bits and chain_decode once per block,
-    nothing else.  The counts are the tools' own: they stay out of the
+    read just after: wah_expand_bits, chain_decode and the run flush once
+    per block, nothing else.  The counts are the tools' own: they stay out of the
     kernels line, which reads the block paths."""
     from xsqueezeit_tpu_torch.accessor import Accessor
     from xsqueezeit_tpu_torch.bench import tools
@@ -1865,7 +2155,8 @@ def tools_phase(card: str) -> dict:
             torch.cuda.synchronize()
             launches = read_counts()
         ran = {k: v for k, v in launches.items() if v}
-        want = {"wah_expand_bits": n_blocks, "chain_decode": n_blocks}
+        want = {"wah_expand_bits": n_blocks, "chain_decode": n_blocks,
+                "decode_run_flush": n_blocks}
         require(ran == want, f"{label}: dot_prod --device {DEVICE} "
                              f"launched {ran}, want {want}")
         require(plain["variants"] == host["variants"] == card_res["variants"]
@@ -2016,7 +2307,7 @@ SCALING_ARGS = ("--records", "4096", "--samples", str(FILE_SAMPLES),
 #: Seconds a rank, or the scaling tool, may take before it is killed.
 RANK_TIMEOUT, SCALING_TIMEOUT = 600, 900
 ENCODE_ROUTES = ("chain_encode", "wah_compress_bits", "rank_chain")
-DECODE_ROUTES = ("wah_expand_bits", "chain_decode")
+DECODE_ROUTES = ("wah_expand_bits", "chain_decode", "decode_run_flush")
 
 
 def free_port() -> int:
@@ -2108,8 +2399,8 @@ def scale_phase(card: str) -> dict:
         (block 0 on the card, block 1 through the plain versions on the
         host): .xsi byte-equal, records equal; every launch counter is
         set to 0 just before each run and read just after (chain_encode
-        and wah_compress_bits, then wah_expand_bits and chain_decode,
-        must have launched);
+        and wah_compress_bits, then wah_expand_bits, chain_decode and
+        the run flush, must have launched);
     (b) SCALE_RANKS processes of `cli -c --distributed` (torch.distributed,
         gloo, both ranks on the card): .xsi byte-equal, _var.bcf records
         equal (its BGZF framing differs at the rank join);

@@ -16,7 +16,8 @@ from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
 from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu_torch.codec.gt_block_decoder import GtBlockDecoder
 from xsqueezeit_tpu_torch.format.constants import INT32_VECTOR_END
-from xsqueezeit_tpu_torch.ops import pbwt_kernels, wah_kernels, wah_torch
+from xsqueezeit_tpu_torch.ops import (pbwt_kernels, pbwt_torch, wah_kernels,
+                                      wah_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,9 +187,11 @@ def test_rank_chain_kernel_refuses(dev):
 def _mixed_lines(rng, L, H, hap_kind):
     """Stored lines of a mixed scan: haploid lines hold H/2 front-packed
     bits (zero past them), diploid ones H; hap_kind "alternating" (runs of
-    8), "haploid", "diploid"."""
+    8), "par" (diploid lines, then haploid ones), "haploid", "diploid"."""
     if hap_kind == "alternating":
         hap = np.repeat(rng.random(-(-L // 8)) < 0.5, 8)[:L]
+    elif hap_kind == "par":
+        hap = np.arange(L) >= L // 2
     else:
         hap = np.full(L, hap_kind == "haploid")
     p = rng.choice([0.001, 0.05, 0.5, 0.97], (L, 1))
@@ -223,6 +226,91 @@ def test_decode_scan_mixed_kernel_matches_plain(dev, L, H, hap_kind):
                                          hap.to(dev))
     want = pbwt_kernels.decode_scan_mixed_plain(ys, flat, hap)
     assert all(_equal(g, w) for g, w in zip(got, want))
+    # from an arrangement other than the identity (a piece of the run
+    # route starts where the previous one ended)
+    a0 = torch.from_numpy(rng.permutation(H))
+    got = pbwt_kernels.decode_scan_mixed(ys.to(dev), sorts.to(dev),
+                                         hap.to(dev), a0=a0.to(dev))
+    want = pbwt_kernels.decode_scan_mixed_plain(ys, sorts, hap, a0=a0)
+    assert all(_equal(g, w) for g, w in zip(got, want))
+
+
+#: The stepping kernel's shapes above, the chrX PAR layout (diploid lines
+#: then haploid ones) at its width, a narrow and an odd width, and the
+#: stepping kernel's device-memory widths.
+MIXED_ROUTE_CASES = [
+    (600, 2466, "alternating"), (64, 64976, "alternating"),
+    (300, 2466, "haploid"), (300, 2466, "diploid"),
+    (40, 2, "alternating"), (40, 3, "alternating"), (9, 1, "diploid"),
+    (30, 17801, "alternating"), (30, 17802, "alternating"),
+    (0, 100, "alternating"),
+    (4573, 2466, "par"), (1200, 301, "par"), (1200, 3, "par"),
+    (80, 17802, "par"), (64, 64976, "par"),
+]
+
+
+@pytest.mark.parametrize("min_run", [None, 1])
+@pytest.mark.parametrize("L,H,hap_kind", MIXED_ROUTE_CASES)
+def test_mixed_run_route_matches_plain(dev, L, H, hap_kind, min_run,
+                                       monkeypatch):
+    """The run route on the card against the stepping kernel's plain
+    version, vals and a_final, from the identity and from a permutation:
+    with the default threshold and with every run on the chains.  Each
+    piece launches its kernels: a run chain_decode and the run flush, a
+    stepping piece the stepping kernel once."""
+    if min_run is not None:
+        monkeypatch.setattr(pbwt_torch, "MIN_RUN_LINES", min_run)
+        monkeypatch.setattr(pbwt_torch, "MIN_RUN_LINES_WIDE", min_run)
+    rng = np.random.default_rng(L + H + 1)
+    ys, sorts, hap = _mixed_lines(rng, L, H, hap_kind)
+    pieces = [r for *_, r in pbwt_torch.mixed_runs(hap.numpy(), H)]
+    for a0 in (None, torch.from_numpy(rng.permutation(H))):
+        want = pbwt_kernels.decode_scan_mixed_plain(ys, sorts, hap, a0=a0)
+        n0 = dict(pbwt_kernels.launches)
+        got = pbwt_torch.pbwt_decode_scan_mixed(
+            ys.to(dev), sorts.to(dev), hap.to(dev), hap.numpy(),
+            None if a0 is None else a0.to(dev))
+        torch.cuda.synchronize()
+        assert all(_equal(g, w) for g, w in zip(got, want))
+        ran = {k: v - n0[k] for k, v in pbwt_kernels.launches.items()}
+        n_runs = sum(r != "step" for r in pieces)
+        assert ran["decode_scan_mixed"] == len(pieces) - n_runs
+        assert ran["decode_run_flush"] == n_runs
+        assert (ran["chain_decode"] + ran["chain_decode_cluster"]
+                == n_runs)
+        assert ran["rank_chain"] == pieces.count("haploid")
+
+
+@pytest.mark.parametrize("H,n,haploid", [
+    (1, 1, False), (1, 5, True), (2, 17, True), (3, 33, True),
+    (5, 70, False), (2466, 4096, False), (2466, 477, True),
+    (17801, 40, True), (64976, 40, False), (64976, 33, True),
+    (65535, 16, False), (131070, 20, True)])
+def test_run_flush_kernel_matches_plain(dev, H, n, haploid):
+    """decode_run_flush (the composition's levels, then the flush) against
+    its plain version: rows, T and the end map, the rows written into a
+    given output; 1 to 256 chunks, up to the widest slot row (65,535 slots
+    of 2 bytes in one CTA's shared memory)."""
+    rng = np.random.default_rng(H + n)
+    W = (H + 1) // 2 if haploid else H
+    n_ch = -(-n // 16)
+    slots = np.stack([rng.permutation(W) for _ in range(n_ch)])
+    p_fin = torch.from_numpy(((slots << 16)
+                              | rng.integers(0, 1 << 16, (n_ch, W)))
+                             .astype(np.uint32).view(np.int32))
+    start = torch.from_numpy(rng.permutation(W))
+    ss = torch.from_numpy(rng.random((n_ch, 16)) < 0.7)
+    want = pbwt_kernels.decode_run_flush_plain(p_fin, start, ss, H, n,
+                                               haploid, want_T=True)
+    n0 = pbwt_kernels.launches["decode_run_flush"]
+    out = torch.empty((n, H), dtype=torch.uint8, device=dev)
+    got = pbwt_kernels.decode_run_flush(p_fin.to(dev), start.to(dev),
+                                        ss.to(dev), H, n, haploid,
+                                        want_T=True, out=out)
+    torch.cuda.synchronize()
+    assert got[0] is out
+    assert all(_equal(g, w) for g, w in zip(got, want))
+    assert pbwt_kernels.launches["decode_run_flush"] == n0 + 1
 
 
 @pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
@@ -450,7 +538,8 @@ def test_track_block_roundtrip_on_card(dev):
     assert payload == ref.serialize()
     np.testing.assert_array_equal(np.stack(out), gt)
     assert set(counts) == {"chain_encode", "chain_decode", "wah_expand_bits",
-                           "wah_compress_bits", "rank_chain"}
+                           "wah_compress_bits", "rank_chain",
+                           "decode_run_flush"}
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, 2 * n_samples,
                                           np.uint16, device=dev)
     *args, H, W, _ = dec.device_inputs()
@@ -463,7 +552,10 @@ def test_track_block_roundtrip_on_card(dev):
     np.testing.assert_array_equal(fused.cpu().numpy(), gt)
 
 
-def test_mixed_block_roundtrip_on_card(dev):
+@pytest.mark.parametrize("min_run", [None, 16])
+def test_mixed_block_roundtrip_on_card(dev, min_run, monkeypatch):
+    if min_run is not None:     # the runs of this block on the chains
+        monkeypatch.setattr(pbwt_torch, "MIN_RUN_LINES", min_run)
     rng = np.random.default_rng(5)
     n_samples, L = 200, 300
     recs = []
@@ -486,9 +578,22 @@ def test_mixed_block_roundtrip_on_card(dev):
             pl, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev))
     assert payload == ref.serialize()
     assert all(np.array_equal(o, r) for o, r in zip(out, recs))
+    # the decode's pieces: a stepping launch each, or chain_decode and the
+    # run flush (a haploid run not the last also a rank chain); the
+    # encode's parity scan one rank chain
+    dec = decoder_torch.TorchBlockDecoder(payload, n_samples, 2 * n_samples,
+                                          np.uint16, device=dev)
+    runs = [r for *_, r in pbwt_torch.mixed_runs(dec.host_inputs_mixed()[3],
+                                                 2 * n_samples)]
+    n_step = runs.count("step")
+    n_runs = len(runs) - n_step
+    assert (n_runs > 0) == (min_run is not None)
+    want = {"rank_chain": 1 + runs[:-1].count("haploid"),
+            "decode_scan_mixed": n_step, "chain_decode": n_runs,
+            "decode_run_flush": n_runs}
     assert set(counts) == {"wah_compress_bits", "wah_expand_varw_bits",
-                           "rank_chain", "decode_scan_mixed"}
-    assert counts["rank_chain"] == counts["decode_scan_mixed"] == 1
+                           *(k for k, v in want.items() if v)}
+    assert all(counts.get(k, 0) == v for k, v in want.items())
 
 
 @pytest.mark.parametrize("n_samples,L,mac,route", [
@@ -516,7 +621,8 @@ def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
     np.testing.assert_array_equal(np.stack(out), gt)
     for k in ("chain_encode", "chain_decode"):
         assert pbwt_kernels.launches[k + route] == n0[k + route] + 1
-    assert pbwt_kernels.launches["rank_chain"] == n0["rank_chain"] + 1
+    for k in ("rank_chain", "decode_run_flush"):
+        assert pbwt_kernels.launches[k] == n0[k] + 1
 
 
 @pytest.mark.parametrize("missing", [False, True])
@@ -592,9 +698,9 @@ def _fixtures():
 def test_dot_prod_on_card(dev, tmp_path, name):
     """dot_prod on the card (its default device) of a file the card
     compressed: every variant's dot within relative 1e-6 of the host
-    walk's, which equals the plain VCF walk's to 1e-12; wah_expand_bits
-    and chain_decode launch once per device block (uniformly diploid or
-    haploid), wah_expand_varw_bits and decode_scan_mixed once per mixed
+    walk's, which equals the plain VCF walk's to 1e-12; wah_expand_bits,
+    chain_decode and the run flush launch once per device block
+    (uniformly diploid or haploid), wah_expand_varw_bits and decode_scan_mixed once per mixed
     block, and no encode route launches."""
     from xsqueezeit_tpu_torch.bench import tools
     write, block, (n_dev, n_mixed) = DOT_PROD_FILES[name]
@@ -616,7 +722,8 @@ def test_dot_prod_on_card(dev, tmp_path, name):
             got["host_blocks"]) == (n_dev, n_mixed, 0)
     want = {}
     if n_dev:
-        want.update(wah_expand_bits=n_dev, chain_decode=n_dev)
+        want.update(wah_expand_bits=n_dev, chain_decode=n_dev,
+                    decode_run_flush=n_dev)
     if n_mixed:
         want.update(wah_expand_varw_bits=n_mixed, decode_scan_mixed=n_mixed)
     assert ran == want
@@ -698,6 +805,7 @@ def test_pool_of_two_devices_on_card(dev, tmp_path, devices):
         output_type="b", device="cuda", devices=devices)).decompress(
             str(tmp_path / "p.bcf"))
     n2 = {**pbwt_kernels.launches, **wah_kernels.launches}
-    assert all(n2[k] > n1[k] for k in ("wah_expand_bits", "chain_decode"))
+    assert all(n2[k] > n1[k] for k in ("wah_expand_bits", "chain_decode",
+                                       "decode_run_flush"))
     assert records(str(tmp_path / "p.bcf")) == records(str(tmp_path / "h.bcf"))
     assert len(records(vcf)) == 700

@@ -11,11 +11,11 @@ Uniformly diploid and uniformly haploid blocks take this path (haploid
 ones at H = n_samples); above 65,535 haplotypes the blocked decode
 (pbwt_torch.pbwt_decode_blocked) takes the chains' place and the sparse
 and track streams are 32-bit.  A whole mixed-ploidy block expands at
-per-line widths (wah_expand_varw_bits) and runs the parity-reconstructing scan
-(_decode_block_mixed).  Anything else -- a record subset of a mixed
-block, or a LINE_SORT track that differs from LINE_SELECT -- decodes with
-the NumPy GtBlockDecoder, as the JAX decoder's random-access fallback
-does.  Missing/EOV tracks overlay on the host in decode_block_records;
+per-line widths (wah_expand_varw_bits) and runs the parity-reconstructing
+scan run by run of one ploidy (_decode_block_mixed).  Anything else -- a
+record subset of a mixed block, or a LINE_SORT track that differs from
+LINE_SELECT -- decodes with the NumPy GtBlockDecoder, as the JAX decoder's
+random-access fallback does.  Missing/EOV tracks overlay on the host in decode_block_records;
 _decode_block_full_gt_tracks is the same decode with the overlays fused on
 the device.
 """
@@ -118,21 +118,25 @@ def _decode_block_full_gt_tracks(stream, sorts, rank, is_wah, neg, car_line,
 
 
 def _decode_block_mixed(stream, group_off, sorts, hap_w, rank, is_wah, neg,
-                        car_line, car_idx, h: int,
+                        car_line, car_idx, hap_host, h: int,
                         w_max: int) -> torch.Tensor:
     """_decode_block_vals of a mixed-ploidy block
     (decoder_jax._decode_block_mixed): the WAH stream expands at per-line
-    widths (haploid lines span n_words_for(N) groups) and the arrangement
-    scan rebuilds each haploid line's slot-duplicated bits from its stored
-    even-parity bits.  group_off: int64[Lw + 1]; hap_w: bool[Lw].  Haploid
-    rows come back slot-duplicated in natural order; the carriers of
-    haploid sparse lines arrive mapped to even slots (host_inputs_mixed).
+    widths (haploid lines span n_words_for(N) groups) and the mixed scan
+    rebuilds each haploid line's slot-duplicated bits from its stored
+    even-parity bits, run by run (pbwt_torch.pbwt_decode_scan_mixed).
+    group_off: int64[Lw + 1]; hap_w: bool[Lw]; hap_host: hap_w on the host
+    (NumPy), which cuts the runs without a device sync.  Haploid rows come
+    back slot-duplicated in natural order; the carriers of haploid sparse
+    lines arrive mapped to even slots (host_inputs_mixed).  The scan's
+    final arrangement is not needed, so it is not computed.
     """
     L = is_wah.shape[0]
     vals = torch.zeros((L, h), dtype=torch.uint8, device=is_wah.device)
     if sorts.shape[0]:
         ys = wah_kernels.wah_expand_varw_bits(stream, group_off, w_max, h)
-        vals_w, _ = pbwt_torch.pbwt_decode_scan_mixed(ys, sorts, hap_w)
+        vals_w, _ = pbwt_torch.pbwt_decode_scan_mixed(
+            ys, sorts, hap_w, hap_host, keep_final=False)
         vals = torch.where(is_wah[:, None], vals_w.index_select(0, rank),
                            vals)
     vals[car_line, car_idx] = 1
@@ -275,7 +279,8 @@ class TorchBlockDecoder:
             *arrays, H, w_max, _L = self.host_inputs_mixed()
             neg = arrays[6]
             t = [torch.from_numpy(x).to(self.device) for x in arrays]
-            vals, route = _decode_block_mixed(*t, H, w_max), "mixed"
+            vals = _decode_block_mixed(*t, arrays[3], H, w_max)
+            route = "mixed"
         else:
             raise ValueError("the block takes no device route: decode it "
                              "record by record on the host")

@@ -1,31 +1,72 @@
-// The mixed-ploidy decode scan: one launch stepping through a whole block's
-// WAH lines on one CTA (the encode's rank chain is csrc/rank_chain.cu).
-//
-// MIXED DECODE SCAN replaces the XLA function pbwt_jax.py
+// The mixed-ploidy decode scan's two kernels (the encode's rank chain is
+// csrc/rank_chain.cu).  Both replace, with ops/pbwt_torch.py
+// pbwt_decode_scan_mixed around them, the XLA function pbwt_jax.py
 // pbwt_decode_scan_mixed (:563-604, a lax.scan over the WAH lines of a
 // mixed-ploidy block, called at codec/decoder_jax.py:150).
-//   What it computes, per line l (block start a = identity):
-//     a haploid line stores only its N even-parity bits, front-packed; the
-//     slot-duplicated line is y[i] = stored[e[a[i] >> 1]], where e[s] is
-//     the number of even-parity positions before the position that holds
-//     haplotype 2s; a diploid line is y = stored.  Then vals[l][a[i]] =
-//     y[i], and a sorting line stably partitions a by y.
+//   What the scan computes, per line l (block start a = a0, the identity in
+//   the codec): a haploid line stores only its N = ceil(H / 2) even-parity
+//   bits, front-packed; the slot-duplicated line is y[i] = stored[e[a[i] >>
+//   1]], where e[s] is the number of even-parity positions before the
+//   position that holds haplotype 2s; a diploid line is y = stored.  Then
+//   vals[l][a[i]] = y[i], and a sorting line stably partitions a by y.
 //   Outputs vals u8[Lw, H] and a_final int64[H].
 //   Bound: the bytes of the stored lines read once (a haploid line's
-//   ceil(H / 2), a diploid line's H) and of vals written once; what
-//   holds it above that is one pass over the row per line, with two
-//   rankings (the even ranks and the partition) and their barriers.
-//   Layout: one CTA (its threads follow from H) over the Lw lines
-//   in order; the sort and haploid flags are read on the device.  Warp w
-//   owns a contiguous segment of positions and walks it 32 at a time,
-//   lanes on consecutive positions: a ballot ranks the 32, a running count
-//   carries the segment, and one barrier publishes the warps' totals,
-//   which every warp sums itself (no block scan).  The arrangement, its
-//   double buffer, e, the staged line, y and the line in natural order
-//   live in shared memory while they fit (13 B per haplotype: H <= 17,801;
-//   the chrX PAR block is 2466), else in a device-memory scratch the
-//   wrapper allocates (any H), vals then being written in place.
+//   ceil(H / 2), a diploid line's H) and of vals written once.
+//
+// The route (pbwt_torch.pbwt_decode_scan_mixed) cuts the block into its
+// maximal runs of one ploidy.  A diploid line moves the arrangement by a
+// stable partition of positions that depends only on its stored bits; so
+// does a haploid line on the order of the even slots (the samples).  A
+// long run is therefore a uniform PBWT decode, of width H (diploid) or N
+// (haploid, from the samples' start order E = a[a even] >> 1): the chunk
+// chains (csrc/pbwt_chain.cu chain_decode) and the run flush below (the
+// chunks' composition, then their rows), spread over every SM.  A haploid
+// run's end arrangement is the rank chain (csrc/rank_chain.cu) of the
+// per-chunk histories the flush writes.  Short runs, and runs wider than
+// the chains' 16-bit slot field, take the stepping kernel.
+//
+// DECODE RUN FLUSH (xsi_decode_run_flush): a run's chunk-chain states back
+// to natural order, in place of a composition, scatter and 16 shifts in
+// torch; one call a run, and one a block of the uniform decode
+// (pbwt_torch.pbwt_decode_chunked, a diploid run from the identity).
+//   In: per chunk t and end slot j, p_fin[t][j] = (chunk-start slot << 16)
+//   | beta (chain_decode's u32 states, read as the chain kernel wrote
+//   them); start[p], the haplotype (diploid) or sample
+//   (haploid) at run-start position p; the chunks' sort flags.
+//   Out: rows l = 16 t + k < n of vals, rows[l][h] = bit k of beta of h's
+//   slot (a haploid sample's bit at both of its slots 2s, 2s + 1 < H); for
+//   a haploid run also T[t][h], the bits of h's sorting lines in chunk t,
+//   latest highest (the rank chain's histories, pbwt_encode_chunked's T);
+//   last[j], the haplotype (sample) at end slot j of the run.
+//   Layout: the composition inc[t] = inc[t - 1][p_fin[t] >> 16], the
+//   run-start position at each end slot, as a doubling scan of gathers
+//   (compose_level_kernel, one launch a level over all chunks and slots,
+//   int32, double-buffered; pbwt_torch._compose_prefix is its plain form):
+//   in torch it took five dispatched ops a level, and the route was bound
+//   by the host.  Then decode_run_flush_kernel<HAP>, a CTA a chunk: it
+//   scatters beta into natural order in shared memory (2 B a slot: W <=
+//   65,535 fits), then writes the chunk's rows with consecutive threads on
+//   consecutive haplotypes (coalesced), and T likewise.  Bound: p_fin read
+//   (4 B a slot), rows (and T) written; the levels' gathers stay in L2 at
+//   the chrX PAR block's width.
+//
+// STEPPING KERNEL (decode_scan_mixed_kernel<SH>): the scan line by line.
+//   Layout: one CTA (its threads follow from H) over the lines in order;
+//   the sort and haploid flags are read on the device.  Warp w owns a
+//   contiguous segment of positions and walks it 32 at a time, lanes on
+//   consecutive positions: a ballot ranks the 32, a running count carries
+//   the segment, and one barrier publishes the warps' totals, which every
+//   warp sums itself (no block scan).  The arrangement, its double buffer,
+//   e, the staged line, y and the line in natural order live in shared
+//   memory while they fit (13 B per haplotype: H <= 17,801; the chrX PAR
+//   block is 2466), else in a device-memory scratch the wrapper allocates
+//   (any H), vals then being written in place.  What holds it above its
+//   bound is one pass over the row per line, with two rankings (the even
+//   ranks and the partition) and their barriers: about 2.9 us a line at
+//   the chrX PAR block's width on an H100.
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "scan.cuh"
 
@@ -65,6 +106,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
                              const uint8_t* __restrict__ hap,
                              uint8_t* __restrict__ vals,
                              int64_t* __restrict__ a_final,
+                             const int64_t* __restrict__ a0,
                              int32_t* __restrict__ gscratch, int Lw, int H) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ int tot_even[32], tot_ones[32];
@@ -86,7 +128,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const int seg = ((H + nwarps - 1) / nwarps + 31) & ~31;
     const int s0 = min(w * seg, H), s1 = min(s0 + seg, H);
 
-    for (int i = tid; i < H; i += nthr) a[i] = i;
+    for (int i = tid; i < H; i += nthr)
+        a[i] = a0 == nullptr ? i : (int32_t)a0[i];
     __syncthreads();
     for (int l = 0; l < Lw; ++l) {
         const uint8_t* src = ys + (size_t)l * H;
@@ -166,12 +209,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
     for (int i = tid; i < H; i += nthr) a_final[i] = a[i];
 }
 
+// a0: the arrangement at the first line (int64[H]), null for the identity;
 // scratch: null for the shared-memory route, else a device buffer of
 // mixed_scratch_bytes(H) for the device-memory route.
 extern "C" int xsi_decode_scan_mixed(const void* ys, const void* sorts,
                                      const void* hap, void* vals,
-                                     void* a_final, void* scratch, int Lw,
-                                     int H, void* stream) {
+                                     void* a_final, const void* a0,
+                                     void* scratch, int Lw, int H,
+                                     void* stream) {
     if (H < 1 || Lw < 0) return (int)cudaErrorInvalidValue;
     const size_t smem = scratch == nullptr ? mixed_smem_bytes(H) : 0;
     if (smem > (size_t)DYN_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -186,6 +231,117 @@ extern "C" int xsi_decode_scan_mixed(const void* ys, const void* sorts,
                                                         : threads;
     kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)ys, (const uint8_t*)sorts, (const uint8_t*)hap,
-        (uint8_t*)vals, (int64_t*)a_final, (int32_t*)scratch, Lw, H);
+        (uint8_t*)vals, (int64_t*)a_final, (const int64_t*)a0,
+        (int32_t*)scratch, Lw, H);
+    return (int)cudaGetLastError();
+}
+
+constexpr int FLUSH_THREADS = 512;
+constexpr int COMPOSE_THREADS = 256;
+
+// One level of the composition scan (pbwt_torch._compose_prefix): dst[t][j]
+// = src[t - d][src[t][j]] for chunks t >= d, else src[t][j]; src null reads
+// the chunk-start slots p_fin >> 16 (the first level).
+__global__ void __launch_bounds__(COMPOSE_THREADS)
+    compose_level_kernel(const uint32_t* __restrict__ p_fin,
+                         const int32_t* __restrict__ src,
+                         int32_t* __restrict__ dst, int n_ch, int W, int d) {
+    const size_t total = (size_t)n_ch * W;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+         i += (size_t)gridDim.x * blockDim.x) {
+        int v = src != nullptr ? src[i] : (int)(p_fin[i] >> 16);
+        if (i >= (size_t)d * W) {  // row t - d, column v
+            const size_t prev = i - i % W - (size_t)d * W + v;
+            v = src != nullptr ? src[prev] : (int)(p_fin[prev] >> 16);
+        }
+        dst[i] = v;
+    }
+}
+
+template <bool HAP>
+__global__ void __launch_bounds__(FLUSH_THREADS)
+    decode_run_flush_kernel(const uint32_t* __restrict__ p_fin,
+                            const int32_t* __restrict__ inc,
+                            const int64_t* __restrict__ start,
+                            const uint8_t* __restrict__ ss,
+                            uint8_t* __restrict__ rows,
+                            int32_t* __restrict__ T,
+                            int64_t* __restrict__ last, int C, int W, int H,
+                            int n) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint16_t* X = reinterpret_cast<uint16_t*>(smem);  // [W] beta, natural
+    const int t = blockIdx.x;
+    const size_t base = (size_t)t * W;
+    const bool final_chunk = t == (int)gridDim.x - 1;
+    for (int j = threadIdx.x; j < W; j += blockDim.x) {
+        const uint32_t p = p_fin[base + j];
+        const int64_t s = start[inc != nullptr ? inc[base + j] : p >> 16];
+        X[s] = (uint16_t)(p & 0xFFFF);
+        if (final_chunk) last[j] = s;
+    }
+    __syncthreads();
+    const int l0 = t * C;
+    const int nl = min(C, n - l0);
+    for (int k = 0; k < nl; ++k) {
+        uint8_t* row = rows + (size_t)(l0 + k) * H;
+        for (int h = threadIdx.x; h < H; h += blockDim.x)
+            row[h] = (uint8_t)((X[HAP ? h >> 1 : h] >> k) & 1);
+    }
+    if (T == nullptr) return;
+    unsigned mask = 0;  // the chunk's sorting lines
+    for (int k = 0; k < C; ++k) mask |= (unsigned)(ss[l0 + k] != 0) << k;
+    int32_t* out = T + (size_t)t * H;
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+        const unsigned x = X[HAP ? h >> 1 : h];
+        unsigned v = 0;
+        int s = 0;
+        for (unsigned m = mask; m != 0; m &= m - 1, ++s)
+            v |= ((x >> (__ffs(m) - 1)) & 1u) << s;
+        out[h] = (int32_t)v;
+    }
+}
+
+// The composition (ceil(log2 n_ch) launches of compose_level_kernel through
+// `scratch`, two int32 [n_ch, W] buffers), then the flush, a CTA a chunk:
+// p_fin u32[n_ch, W]; start int64[W]; ss u8[n_ch, C]; rows u8[n, H] (the
+// run's rows of vals); T int32[n_ch, H] or null; last int64[W], the
+// haplotype (sample) at each of the run's end slots.  W = ceil(H / 2) for
+// a haploid run (hap != 0), else H; C <= 16 lines a chunk, n in all,
+// (n_ch - 1) C < n <= n_ch C.
+extern "C" int xsi_decode_run_flush(const void* p_fin, void* scratch,
+                                    const void* start, const void* ss,
+                                    void* rows, void* T, void* last,
+                                    int n_ch, int C, int W, int H, int n,
+                                    int hap, void* stream) {
+    if (n_ch < 1 || C < 1 || C > 16 || H < 1 || n <= (n_ch - 1) * C ||
+        n > n_ch * C || W != (hap ? (H + 1) / 2 : H) ||
+        (n_ch > 1 && scratch == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = 2 * (size_t)W;
+    if (smem > (size_t)DYN_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const size_t total = (size_t)n_ch * W;
+    int32_t* buf[2] = {(int32_t*)scratch, (int32_t*)scratch + total};
+    const int32_t* inc = nullptr;
+    int k = 0;
+    const int blocks =
+        (int)std::min<size_t>((total + COMPOSE_THREADS - 1) / COMPOSE_THREADS,
+                              4096);
+    for (int d = 1; d < n_ch; d <<= 1, k ^= 1) {
+        compose_level_kernel<<<blocks, COMPOSE_THREADS, 0, st>>>(
+            (const uint32_t*)p_fin, inc, buf[k], n_ch, W, d);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        inc = buf[k];
+    }
+    auto kernel = hap ? decode_run_flush_kernel<true>
+                      : decode_run_flush_kernel<false>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<n_ch, FLUSH_THREADS, smem, st>>>(
+        (const uint32_t*)p_fin, inc, (const int64_t*)start,
+        (const uint8_t*)ss, (uint8_t*)rows, (int32_t*)T, (int64_t*)last, C,
+        W, H, n);
     return (int)cudaGetLastError();
 }

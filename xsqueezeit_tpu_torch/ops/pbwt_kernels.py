@@ -4,7 +4,9 @@ plain versions.
 
 Port of xsqueezeit_tpu/ops/pbwt_pallas.py (chain_encode, chain_decode)
 and of two XLA scans of xsqueezeit_tpu/ops/pbwt_jax.py (_rank_chain,
-pbwt_decode_scan_mixed): see rank_chain and decode_scan_mixed below.
+pbwt_decode_scan_mixed): see rank_chain, and decode_scan_mixed and
+decode_run_flush below (the mixed scan's stepping kernel and its run
+flush; ops/pbwt_torch.py pbwt_decode_scan_mixed composes them).
 A chunk holds C <= 16 lines; its state is one value per haplotype slot in
 arrangement order, and every sorting line stably partitions the slots by
 the line's bit (zeros first, order kept).  Each wrapper launches a kernel
@@ -50,7 +52,7 @@ _STATE_BYTES = {"chain_encode": 2, "chain_decode": 4}
 #: Kernel launches since the last reset, by kernel route.
 launches = {"chain_encode": 0, "chain_decode": 0,
             "chain_encode_cluster": 0, "chain_decode_cluster": 0,
-            "rank_chain": 0, "decode_scan_mixed": 0}
+            "rank_chain": 0, "decode_scan_mixed": 0, "decode_run_flush": 0}
 
 
 def chain_smem_bytes(name: str, H: int, K: int) -> int:
@@ -94,6 +96,17 @@ def _inverse(perm: torch.Tensor) -> torch.Tensor:
     """Inverse of each row permutation of the last axis."""
     iota = torch.arange(perm.shape[-1], device=perm.device).expand_as(perm)
     return torch.empty_like(perm).scatter_(-1, perm, iota)
+
+
+def _compose_prefix(o_tot: torch.Tensor) -> torch.Tensor:
+    """Arrangement at the end of every chunk: inc[t] = inc[t-1][o_tot[t]]
+    (inc[-1] = identity), as a log-step doubling scan of gathers."""
+    inc = o_tot.clone()
+    d = 1
+    while d < inc.shape[0]:
+        inc[d:] = torch.gather(inc[:-d], 1, inc[d:])
+        d <<= 1
+    return inc
 
 
 def _partition_dest(y: torch.Tensor, sorts: torch.Tensor) -> torch.Tensor:
@@ -190,12 +203,21 @@ def chain_encode(q0: torch.Tensor, ss: torch.Tensor,
     return y
 
 
+def _u32_bits(p: torch.Tensor) -> torch.Tensor:
+    """int64 values below 2^32 as int32 holding the same 32 bits."""
+    return (p - ((p & 0x80000000) << 1)).to(torch.int32)
+
+
 def chain_decode(yc: torch.Tensor, ss: torch.Tensor,
-                 cluster: int | None = None) -> torch.Tensor:
+                 cluster: int | None = None, widen: bool = True
+                 ) -> torch.Tensor:
     """Decode chunk chains (see chain_decode_plain for the contract) on
-    `cluster` CTAs per chain (see cluster_size; None: chosen by H)."""
+    `cluster` CTAs per chain (see cluster_size; None: chosen by H).
+    widen=False returns the states as the kernel writes them: int32
+    holding each uint32 state's bits (what decode_run_flush reads)."""
     if yc.device.type == "cpu":
-        return chain_decode_plain(yc, ss)
+        p = chain_decode_plain(yc, ss)
+        return p if widen else _u32_bits(p)
     _check("chain_decode", yc, torch.uint8, 3)
     n_ch, C, H = yc.shape
     K = cluster_size("chain_decode", H, cluster)
@@ -205,11 +227,11 @@ def chain_decode(yc: torch.Tensor, ss: torch.Tensor,
                          f"{C} lines per chunk")
     yc = yc.contiguous()
     # the kernel writes uint32 states; torch's uint32 lacks shifts, so the
-    # bits land in an int32 buffer and widen to int64 here
+    # bits land in an int32 buffer and widen to int64 here if asked
     out = torch.empty((n_ch, H), dtype=torch.int32, device=yc.device)
     _launch("chain_decode", yc.device, K, yc.data_ptr(), flags.data_ptr(),
             out.data_ptr(), n_ch, H, C)
-    return out.to(torch.int64) & 0xFFFFFFFF
+    return out.to(torch.int64) & 0xFFFFFFFF if widen else out
 
 
 def rank_chain_plain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
@@ -344,27 +366,31 @@ def rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
 
 
 def decode_scan_mixed_plain(ys: torch.Tensor, sorts: torch.Tensor,
-                            hap_line: torch.Tensor
+                            hap_line: torch.Tensor,
+                            a0: torch.Tensor | None = None,
+                            out: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """PBWT decode of a mixed-ploidy block, one step per line, block start
-    at the identity (pbwt_jax.pbwt_decode_scan_mixed; with no haploid line
-    it is pbwt_jax.pbwt_decode_scan).
+    """PBWT decode of a mixed-ploidy block, one step per line, from the
+    arrangement a0 (int64[H]; None: the identity, the block start)
+    (pbwt_jax.pbwt_decode_scan_mixed; with no haploid line it is
+    pbwt_jax.pbwt_decode_scan).
 
     ys: uint8[L, H] bits in arrangement order; a haploid line holds only
-    its N = H/2 even-parity bits, front-packed (the on-disk form).  Its
-    slot-duplicated bits are rebuilt first: position i holds sample
+    its N = ceil(H / 2) even-parity bits, front-packed (the on-disk form).
+    Its slot-duplicated bits are rebuilt first: position i holds sample
     a[i] >> 1, whose even slot sits at position inv[a[i] & ~1], whose rank
     among the even-parity positions indexes the stored bits.  Then the
     bits land in natural order (vals[a[i]] = y[i]) and a sorting line
     stably partitions the arrangement by them.  sorts, hap_line: bool[L].
     Returns (vals uint8[L, H] natural-order bits, haploid lines
-    slot-duplicated; a_final int64[H]).
+    slot-duplicated, written into `out` if given; a_final int64[H]).
     """
     L, H = ys.shape
     dev = ys.device
     iota = torch.arange(H, device=dev)
-    a = iota.clone()
-    vals = torch.empty((L, H), dtype=torch.uint8, device=dev)
+    a = iota.clone() if a0 is None else a0.clone()
+    vals = (torch.empty((L, H), dtype=torch.uint8, device=dev)
+            if out is None else out)
     always = torch.ones(1, dtype=torch.bool, device=dev)
     # the flags decide the host-side branches: one transfer, no syncs
     for l, (sort, hap) in enumerate(zip(sorts.tolist(), hap_line.tolist())):
@@ -395,11 +421,24 @@ def mixed_scratch_bytes(H: int) -> int:
     return 4 * (2 * H + (H + 1) // 2) + H
 
 
+def _check_out(name: str, out: torch.Tensor | None, shape: tuple,
+               device: torch.device) -> None:
+    if out is not None and (out.dtype != torch.uint8
+                            or tuple(out.shape) != shape
+                            or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous uint8{list(shape)}"
+                         f" on {device}, got {out.dtype} {tuple(out.shape)} "
+                         f"on {out.device}")
+
+
 def decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
-                      hap_line: torch.Tensor
+                      hap_line: torch.Tensor,
+                      a0: torch.Tensor | None = None,
+                      out: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The mixed-ploidy decode scan (see decode_scan_mixed_plain for the
-    contract) in one launch of csrc/pbwt_scan.cu's
+    """The mixed-ploidy decode scan line by line (see decode_scan_mixed_plain
+    for the contract) in one launch of csrc/pbwt_scan.cu's stepping kernel
     decode_scan_mixed_kernel, one CTA over all lines, flags read on the
     device (no host sync).  Its state lives in shared memory while
     mixed_smem_bytes(H) fits one CTA, else in a device scratch allocated
@@ -416,21 +455,129 @@ def decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
                              f"on {ys.device}, got {f.dtype} "
                              f"{tuple(f.shape)} on {f.device}")
         flags.append(f.contiguous().view(torch.uint8))
+    if a0 is not None and (a0.dtype != torch.int64 or tuple(a0.shape) != (H,)
+                           or a0.device != ys.device):
+        raise ValueError(f"decode_scan_mixed: a0 must be int64[{H}] on "
+                         f"{ys.device}, got {a0.dtype} {tuple(a0.shape)} on "
+                         f"{a0.device}")
+    _check_out("decode_scan_mixed", out, (Lw, H), ys.device)
     if ys.device.type == "cpu":
-        return decode_scan_mixed_plain(ys, sorts, hap_line)
+        return decode_scan_mixed_plain(ys, sorts, hap_line, a0, out)
     _check("decode_scan_mixed", ys, torch.uint8, 2)
     if H < 1:
         raise ValueError("decode_scan_mixed: H must be >= 1")
     ys = ys.contiguous()
-    vals = torch.empty((Lw, H), dtype=torch.uint8, device=ys.device)
+    vals = (torch.empty((Lw, H), dtype=torch.uint8, device=ys.device)
+            if out is None else out)
     a_fin = torch.empty(H, dtype=torch.int64, device=ys.device)
+    if a0 is not None:
+        a0 = a0.contiguous()
     scratch = None
     if mixed_smem_bytes(H) > _SMEM_BYTES:
         scratch = torch.empty(mixed_scratch_bytes(H), dtype=torch.uint8,
                               device=ys.device)
     _build.launch(ys.device, "xsi_decode_scan_mixed", ys.data_ptr(),
                   flags[0].data_ptr(), flags[1].data_ptr(), vals.data_ptr(),
-                  a_fin.data_ptr(),
+                  a_fin.data_ptr(), None if a0 is None else a0.data_ptr(),
                   None if scratch is None else scratch.data_ptr(), Lw, H)
     _build.count(launches, "decode_scan_mixed")
     return vals, a_fin
+
+
+def decode_run_flush_plain(p_fin: torch.Tensor, start: torch.Tensor,
+                           ss: torch.Tensor, H: int, n: int, haploid: bool,
+                           want_T: bool = False,
+                           out: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor | None,
+                                      torch.Tensor]:
+    """The run flush of the mixed scan's run route: a run's chunk-chain
+    states back to natural-order rows.
+
+    p_fin: int32[n_ch, W] per end-of-chunk slot the uint32 state's bits,
+    (chunk-start slot << 16) | beta (chain_decode with widen=False); start: int64[W] the haplotype (diploid run, W =
+    H) or the sample (haploid run, W = ceil(H / 2)) at each run-start
+    position; ss: bool[n_ch, C] the sort flags; n: the run's lines,
+    (n_ch - 1) C < n <= n_ch C.  The chunks compose (_compose_prefix) into
+    the run-start position at each end slot.  Returns (rows uint8[n, H],
+    written into `out` if given: row C t + k holds bit k of beta at each
+    haplotype, a haploid sample's bit at both of its slots; T int32[n_ch,
+    H] if want_T, else None: each haplotype's bits on its chunk's sorting
+    lines, latest highest, the rank chain's histories; last int64[W]: the
+    haplotype (sample) at each end slot of the run, a diploid run's end
+    arrangement)."""
+    n_ch, W = p_fin.shape
+    C = ss.shape[1]
+    dev = p_fin.device
+    p = p_fin.to(torch.int64) & 0xFFFFFFFF
+    at = start[_compose_prefix(p >> 16)]       # haplotype per end slot
+    # beta in natural order: sample (haploid) or haplotype per column
+    X = torch.empty_like(p).scatter_(1, at, p & 0xFFFF)
+    if haploid:
+        X = X.repeat_interleave(2, dim=1)[:, :H]
+    full = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
+    for k in range(C):       # one line at a time: temporaries [n_ch, H]
+        full[:, k] = (X >> k) & 1
+    rows = torch.empty((n, H), dtype=torch.uint8, device=dev) \
+        if out is None else out
+    rows.copy_(full.reshape(n_ch * C, H)[:n])
+    T = None
+    if want_T:
+        ssi = ss.to(torch.int64)
+        sh = torch.cumsum(ssi, 1) - ssi
+        T = torch.zeros((n_ch, H), dtype=torch.int64, device=dev)
+        for k in range(C):
+            T |= (((X >> k) & 1) << sh[:, k:k + 1]) * ssi[:, k:k + 1]
+        T = T.to(torch.int32)
+    return rows, T, at[-1]
+
+
+def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
+                     ss: torch.Tensor, H: int, n: int, haploid: bool,
+                     want_T: bool = False, out: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor | None,
+                                torch.Tensor]:
+    """The run flush (see decode_run_flush_plain for the contract) in one
+    call of csrc/pbwt_scan.cu's xsi_decode_run_flush: the composition, one
+    launch a level over all chunks (through a scratch of two int32 [n_ch,
+    W] buffers allocated here), then decode_run_flush_kernel, a CTA a
+    chunk, beta scattered to natural order in shared memory (W <=
+    65,535)."""
+    name = "decode_run_flush"
+    if p_fin.dim() != 2 or p_fin.dtype != torch.int32:
+        raise ValueError(f"{name}: p_fin must be int32[n_ch, W], got "
+                         f"{p_fin.dtype} {tuple(p_fin.shape)}")
+    n_ch, W = p_fin.shape
+    if W != ((H + 1) // 2 if haploid else H) or not 1 <= W <= MAX_H:
+        raise ValueError(f"{name}: W = {W} slots for a "
+                         f"{'haploid' if haploid else 'diploid'} run of "
+                         f"H = {H} (at most {MAX_H})")
+    if start.dtype != torch.int64 or tuple(start.shape) != (W,) \
+            or start.device != p_fin.device:
+        raise ValueError(f"{name}: start must be int64[{W}] on "
+                         f"{p_fin.device}, got {start.dtype} "
+                         f"{tuple(start.shape)} on {start.device}")
+    flags = _flags(name, ss, n_ch, p_fin.device)
+    C = flags.shape[1]
+    if not (n_ch - 1) * C < n <= n_ch * C:
+        raise ValueError(f"{name}: {n} lines in {n_ch} chunks of {C}")
+    _check_out(name, out, (n, H), p_fin.device)
+    if p_fin.device.type == "cpu":
+        return decode_run_flush_plain(p_fin, start, ss, H, n, haploid,
+                                      want_T, out)
+    _check(name, p_fin, torch.int32, 2)
+    dev = p_fin.device
+    p_fin, start = p_fin.contiguous(), start.contiguous()
+    rows = (torch.empty((n, H), dtype=torch.uint8, device=dev)
+            if out is None else out)
+    T = (torch.empty((n_ch, H), dtype=torch.int32, device=dev)
+         if want_T else None)
+    last = torch.empty(W, dtype=torch.int64, device=dev)
+    scratch = (torch.empty(2 * n_ch * W, dtype=torch.int32, device=dev)
+               if n_ch > 1 else None)
+    _build.launch(dev, "xsi_decode_run_flush", p_fin.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  start.data_ptr(), flags.data_ptr(), rows.data_ptr(),
+                  None if T is None else T.data_ptr(), last.data_ptr(),
+                  n_ch, C, W, H, n, int(haploid))
+    _build.count(launches, name)
+    return rows, T, last

@@ -9,11 +9,14 @@ lines group into chunks of C = 16; a 16-bit register per haplotype carries
 the chunk's bits through the partitions, which run in the chunk-chain
 kernels of ops/pbwt_kernels.py.  Cross-chunk state comes from a rank chain
 (encode: the rank_chain kernels, every width) or from composing the
-chunks' arrangements (decode).  Wider blocks, whose slots do not fit the
+chunks' arrangements (decode: the run flush kernel composes them and
+writes the rows).  Wider blocks, whose slots do not fit the
 registers' 16-bit fields, encode with packed per-line keys and one batched
-row sort (the scan) and decode by the blocked three-phase form;
-mixed-ploidy blocks encode with the parity scan and decode with the
-decode_scan_mixed kernel, one launch over all lines.
+row sort (the scan) and decode by the blocked three-phase form.
+Mixed-ploidy blocks encode with the parity scan and decode run by run
+(pbwt_decode_scan_mixed): a long run of one ploidy is a uniform chunked
+decode (at width ceil(H / 2) for a haploid run, over the samples) with
+the run flush kernel, and short runs take the stepping kernel.
 
 Where the JAX package applies permutations with packed row sorts (fast on a
 TPU), this module scatters and gathers.  The block-start arrangement is the
@@ -21,17 +24,31 @@ identity (header iota_ppa).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import pbwt_kernels
 
 DECODE_CHUNK = 16
+#: Runs of one ploidy shorter than this many WAH lines take the mixed
+#: scan's stepping kernel, longer ones the chunk chains.  On an H100 the
+#: stepping kernel took about 3 us a line while its state fits shared
+#: memory (H <= 17,801); a run on the chains took 0.2-0.6 ms whatever its
+#: length, almost all of it the host's launches, so the crossover follows
+#: the host's speed.  At chrX PAR width runs of 256 lines won in every
+#: sweep of the final route, by at least 1.4x; runs of 128 won in some
+#: sweeps and lost in others.  Where the stepping state lives in device
+#: memory (about 120 us a line) the chains won from runs of 8 lines
+#: (MIN_RUN_LINES_WIDE).  PERF.md §6 has every sweep (chip_smoke.py).
+MIN_RUN_LINES = 256
+MIN_RUN_LINES_WIDE = 16
 #: Keys per row-sort call of pbwt_encode_scan_parity (about 1 GB of int64
 #: values and indices).
 SORT_SLICE_ELEMS = 1 << 26
 
 
 _inverse = pbwt_kernels._inverse
+_compose_prefix = pbwt_kernels._compose_prefix
 
 
 def _hap_bits(h: int) -> int:
@@ -182,49 +199,23 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
     return ys.reshape(n_ch * C, H)[:L], _inverse(r_fin)
 
 
-def _compose_prefix(o_tot: torch.Tensor) -> torch.Tensor:
-    """Arrangement at the end of every chunk: inc[t] = inc[t-1][o_tot[t]]
-    (inc[-1] = identity), as a log-step doubling scan of gathers."""
-    inc = o_tot.clone()
-    d = 1
-    while d < inc.shape[0]:
-        inc[d:] = torch.gather(inc[:-d], 1, inc[d:])
-        d <<= 1
-    return inc
-
-
-def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor,
-                        chunk: int = DECODE_CHUNK
+def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked PBWT decode (H <= 65535): bits back to natural order.
+    """Chunked PBWT decode (H <= 65535): bits back to natural order, block
+    start at the identity.  A diploid run of the mixed scan's run route
+    from the identity (_decode_run): the chunk chains, then the run flush.
 
-    ys: uint8[L, H] bits in arrangement order; sorts: bool[L] (all-zero
-    padding rows may pass True).  Returns (vals uint8[L, H] natural-order
-    bits, a_final int64[H]).
+    ys: uint8[L, H] bits in arrangement order; sorts: bool[L].  Returns
+    (vals uint8[L, H] natural-order bits, a_final int64[H]).
     """
     L, H = ys.shape
     if H > 65535:
         raise ValueError("pbwt_decode_chunked requires H <= 65535")
-    dev = ys.device
-    C = chunk
-    pad = (-L) % C
-    sorts = sorts.to(torch.bool)
-    y = ys.to(torch.uint8)
-    if pad:
-        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
-        sorts = torch.nn.functional.pad(sorts, (0, pad))
-    n_ch = (L + pad) // C
-    p_fin = pbwt_kernels.chain_decode(y.reshape(n_ch, C, H),
-                                      sorts.reshape(n_ch, C))
-    o_tot = p_fin >> 16                     # chunk-start slot per end slot
-    beta = p_fin & 0xFFFF
-    inc = _compose_prefix(o_tot)            # haplotype per end slot
-    X = torch.empty_like(beta).scatter_(1, inc, beta)   # natural order
-    # one line at a time: temporaries stay [n_ch, H]
-    vals = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
-    for j in range(C):
-        vals[:, j] = (X >> j) & 1
-    return vals.reshape(n_ch * C, H)[:L], inc[-1]
+    vals = torch.empty((L, H), dtype=torch.uint8, device=ys.device)
+    a_fin = _decode_run(ys.to(torch.uint8), sorts,
+                        torch.arange(H, device=ys.device), False, vals,
+                        end=True)
+    return vals, a_fin
 
 
 def pbwt_decode_blocked(ys: torch.Tensor, sorts: torch.Tensor,
@@ -281,11 +272,107 @@ def pbwt_decode_blocked(ys: torch.Tensor, sorts: torch.Tensor,
     return vals.reshape(n_ch * C, H)[:L], inc[-1]
 
 
+def mixed_runs(hap: np.ndarray, H: int) -> list[tuple[int, int, str]]:
+    """The pieces the mixed scan decodes a block's WAH lines in, from the
+    host's haploid flags: [(first line, end line, route)], route "diploid"
+    or "haploid" for a maximal run of one ploidy of at least MIN_RUN_LINES
+    lines (MIN_RUN_LINES_WIDE where the stepping kernel's state does not
+    fit shared memory) whose width (H, or ceil(H / 2) samples) fits the
+    chains' 16-bit slot field, else "step" (the stepping kernel),
+    consecutive such runs in one piece."""
+    hap = np.asarray(hap, dtype=bool)
+    cuts = np.flatnonzero(hap[1:] != hap[:-1]) + 1
+    short = (MIN_RUN_LINES_WIDE if pbwt_kernels.mixed_smem_bytes(H)
+             > pbwt_kernels._SMEM_BYTES else MIN_RUN_LINES)
+    pieces: list[tuple[int, int, str]] = []
+    for a, b in zip([0, *cuts.tolist()], [*cuts.tolist(), hap.shape[0]]):
+        if b <= a:
+            continue
+        width = (H + 1) // 2 if hap[a] else H
+        route = ("step" if b - a < short or width > pbwt_kernels.MAX_H
+                 else "haploid" if hap[a] else "diploid")
+        if route == "step" and pieces and pieces[-1][2] == "step":
+            pieces[-1] = (pieces[-1][0], b, route)
+        else:
+            pieces.append((a, b, route))
+    return pieces
+
+
+def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
+                haploid: bool, out: torch.Tensor, end: bool
+                ) -> torch.Tensor | None:
+    """One run of a ploidy as a uniform chunked decode from the
+    arrangement a: its rows into `out`; returns the arrangement after it
+    (None where `end` is false).  A haploid run decodes over the samples,
+    from their order E = a[a even] >> 1 (a line stably partitions the even
+    slots by its stored bits), and its end arrangement is the rank chain of
+    the histories the flush writes, from the ranks inverse(a)."""
+    n, H = ys.shape
+    dev = ys.device
+    C = DECODE_CHUNK
+    n_ch = -(-n // C)
+    W = (H + 1) // 2 if haploid else H
+    pad = n_ch * C - n
+    y = ys[:, :W]
+    if pad:                      # whole chunks of zero rows
+        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+    ss = torch.nn.functional.pad(sorts.to(torch.bool), (0, pad)).view(n_ch, C)
+    p_fin = pbwt_kernels.chain_decode(y.view(n_ch, C, W), ss, widen=False)
+    # the samples' start order: a stable parity sort, no host sync
+    start = (a[torch.argsort(a & 1, stable=True)[:W]] >> 1 if haploid
+             else a)
+    _, T, last = pbwt_kernels.decode_run_flush(
+        p_fin, start, ss, H, n, haploid, want_T=haploid and end, out=out)
+    if not end:
+        return None
+    if not haploid:
+        return last
+    r_fin, _ = pbwt_kernels.rank_chain(T, _inverse(a),
+                                       max(16, _hap_bits(H)))
+    return _inverse(r_fin)
+
+
 def pbwt_decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
-                           hap_line: torch.Tensor
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """PBWT decode of a mixed-ploidy block, block start at the identity
-    (pbwt_jax.pbwt_decode_scan_mixed; pbwt_kernels.decode_scan_mixed_plain
-    has the contract): the kernel on the card, one step per line on the
-    CPU."""
-    return pbwt_kernels.decode_scan_mixed(ys, sorts, hap_line)
+                           hap_line: torch.Tensor,
+                           hap_host: np.ndarray | None = None,
+                           a0: torch.Tensor | None = None,
+                           keep_final: bool = True
+                           ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """PBWT decode of a mixed-ploidy block from the arrangement a0 (None:
+    the identity, the block start) (pbwt_jax.pbwt_decode_scan_mixed;
+    pbwt_kernels.decode_scan_mixed_plain has the contract), piece by piece
+    as mixed_runs cuts it: a long run of one ploidy by _decode_run (the
+    chunk chains, the run flush with their composition, and for a haploid
+    run the rank chain), the rest by the stepping kernel from the
+    arrangement the previous piece left.  The same route runs on the CPU with every
+    kernel's plain version.
+
+    hap_host: hap_line as a NumPy array, which sets the pieces without a
+    device sync (required for CUDA tensors).  keep_final=False leaves out
+    the end arrangement of a last piece that is a run (for a haploid run a
+    rank chain) and returns None in its place.  Returns (vals uint8[Lw,
+    H], a_final int64[H] or None)."""
+    Lw, H = ys.shape
+    dev = ys.device
+    if hap_host is None:
+        if dev.type != "cpu":
+            raise ValueError("pbwt_decode_scan_mixed: pass the haploid flags "
+                             "on the host (hap_host): reading them back "
+                             "from the device would sync")
+        hap_host = hap_line.numpy()
+    if len(hap_host) != Lw:
+        raise ValueError(f"pbwt_decode_scan_mixed: {len(hap_host)} host "
+                         f"flags for {Lw} lines")
+    a = torch.arange(H, device=dev) if a0 is None else a0
+    vals = torch.empty((Lw, H), dtype=torch.uint8, device=dev)
+    pieces = mixed_runs(hap_host, H)
+    for i, (l0, l1, route) in enumerate(pieces):
+        if route == "step":
+            _, a = pbwt_kernels.decode_scan_mixed(
+                ys[l0:l1], sorts[l0:l1], hap_line[l0:l1], a0=a,
+                out=vals[l0:l1])
+        else:
+            a = _decode_run(ys[l0:l1], sorts[l0:l1], a, route == "haploid",
+                            vals[l0:l1],
+                            end=keep_final or i < len(pieces) - 1)
+    return vals, a
