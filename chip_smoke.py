@@ -12,8 +12,12 @@ exactly:
 3. each kernel route against its plain PyTorch version on the card,
    bit-exact, with both times and the bound (the bytes each must move
    over the card's memory rate): the one-CTA chains and the WAH kernels at
-   1KGP3 shapes, the cluster chains at HRC width (H = 64,976) and forced
-   at H = 5008 (also against the one-CTA route), the WAH kernels at HRC
+   1KGP3 shapes, the cluster chains at HRC width (H = 64,976; the encode
+   in shared memory, the decode with its rows in device memory) and
+   forced at H = 5008 (also against the one-CTA route), both chains on 16
+   CTAs at the format's widest panel (491,505 haplotypes; the decode with
+   its wide state (slot << 13) | beta), the decode at one CTA's widest
+   row (28,928) on one CTA and on 16, the WAH kernels at HRC
    width (w = 4332), the per-line-width expand at the widths of a chrX
    PAR block (w = 165 and 83, lines alternating in runs), the WAH routes
    above the chains' 16-bit slot field, a CTA per line, at TOPMed width
@@ -25,7 +29,7 @@ exactly:
    with a CTA per line; after the 1KGP3, HRC and chrX PAR blocks below,
    the chains and the WAH routes again at the block's own shapes,
    registers, sort flags, bit grids and streams (1KGP3: 301 chunks; HRC:
-   325 chunks, on 8 CTAs and on the other cluster sizes); the PBWT device
+   325 chunks, on the default and the other cluster sizes); the PBWT device
    scans against their plain versions: the rank chain (csrc/rank_chain.cu,
    also against its log-depth form rank_chain_levels_plain, timed as a
    yardstick) at 1KGP3 (301 chunks x 5008, 16-bit totals), the chrX PAR
@@ -38,8 +42,11 @@ exactly:
    and timed beside the stepping kernel forced over the same lines, at
    chrX PAR width (4573 lines in runs of 64 of each ploidy and in the PAR
    layout, diploid lines then haploid ones; 1024 alternating, all
-   haploid, all diploid) and at HRC width (512 lines, the stepping state
-   in device memory), the run flush at the PAR layout's and HRC's runs,
+   haploid, all diploid), at HRC width (512 lines, the stepping state
+   in device memory) and at TOPMed width (512 lines in runs, both
+   ploidies above 65,535 slots: the wide state and the run flush on a
+   cluster a chunk), the run flush at the PAR layout's, HRC's and
+   TOPMed's runs,
    and a sweep of run lengths with every run on the chains against the
    stepping kernel (the crossover behind pbwt_torch.MIN_RUN_LINES); after
    each block the rank chain again at the block's own totals, and after
@@ -50,16 +57,22 @@ exactly:
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
    mix) and the TOPMed block (97,256 samples = 194,512 haplotypes, MAF
    threshold 194, the same mix; 32-bit sparse and track streams, the
-   packed-key scan and the blocked decode in place of the chains, each
-   also timed alone): TorchBlockEncoder's payload must be byte-equal to
+   encode chain on 8 CTAs, the decode chain on 16 with its rows in device
+   memory, its state (slot << 14) | beta in chunks of 14 lines, the run
+   flush on a cluster of 8 CTAs a chunk; each PBWT
+   route also timed alone, and the encode core and device decode timed
+   again with the old torch forms, the packed-key scan and the blocked
+   decode, in their place): TorchBlockEncoder's payload must be byte-equal
+   to
    the host GtBlockEncoder's and decode_block_records bit-exact on every
    line;
    every launch counter is set to 0 just before each block's run and read
    just after, and each kernel route of that path must have launched
    (and no other); while it runs, wah_torch's plain pack_bits,
-   unpack_bits and wah_word_offsets and pbwt_kernels' plain rank chain,
-   stepping scan, chain decode and run flush raise (every block, TOPMed's
-   included).  Prints ms/block and
+   unpack_bits and wah_word_offsets, pbwt_kernels' plain rank chain,
+   stepping scan, chain decode and run flush, and pbwt_torch's packed-key
+   scan and blocked decode raise (every block, TOPMed's included).
+   Prints ms/block and
    GB/s in bench.py's unit (L * H * 4 logical gt bytes), the compression
    ratio, the device part of the decode alone, and the peak device memory
    of encode and decode, each also with the old WAH pipeline;
@@ -167,12 +180,16 @@ ONE_CTA = ("chain_encode", "chain_decode", "wah_expand_bits",
 #: against their plain versions, but the codec calls the bits routes).
 PATH_KERNELS = {
     "1KGP3": ONE_CTA,
-    "HRC": ("chain_encode_cluster", "chain_decode_cluster",
+    # the encode on 8 CTAs' shared memory, the decode on 16 CTAs with its
+    # rows in device memory
+    "HRC": ("chain_encode_cluster", "chain_decode_rows",
             "wah_expand_bits", "wah_compress_bits", "rank_chain",
             "decode_run_flush"),
-    # the packed-key scan and the blocked decode (plain torch) in place of
-    # the chains: no chain route (nor the run flush) may launch
-    "TOPMed": ("wah_expand_bits", "wah_compress_bits", "rank_chain"),
+    # above 65,535 haplotypes: the same chains, the decode's wide state,
+    # the run flush on a cluster a chunk
+    "TOPMed": ("chain_encode_cluster", "chain_decode_rows",
+               "decode_run_flush_cluster", "wah_expand_bits",
+               "wah_compress_bits", "rank_chain"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
     # the mixed scan's run route: both runs on the chains and the run
@@ -184,17 +201,34 @@ PATH_KERNELS = {
 #: Plain passes that must not run on a block's card path (they are
 #: replaced by functions that raise while it runs), by module: the mixed
 #: scan's run route on the CPU is its pieces' plain versions (the chains,
-#: the run flush, the rank chain, the stepping scan).
+#: the run flush, the rank chain, the stepping scan); the packed-key scan
+#: (its batched row sort) and the blocked decode are the wide path's
+#: plain forms.
 PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
                 (pbwt_kernels, ("rank_chain_plain", "decode_scan_mixed_plain",
                                 "chain_decode_plain",
-                                "decode_run_flush_plain")))
+                                "decode_run_flush_plain")),
+                (pbwt_torch, ("pbwt_encode_scan", "pbwt_decode_blocked")))
 #: The plain passes a block's path takes by design: none (the rank chain
-#: runs its kernels at every width).
+#: and the chains run their kernels at every width).
 PLAIN_ROUTES: dict = {}
 #: Kernel-check shapes: 1KGP3 and HRC widths.
 KERNEL_SHAPES = dict(H=5008, C=16, n_ch=256, n_lines=4096)
 HRC_SHAPES = dict(H=HRC_H, C=16, n_ch=64, n_lines=4096)
+#: Chain checks at the edges of the routes: (kernel, width, chunks, lines
+#: a chunk, CTAs or None for the default): both chains on 16 CTAs at the
+#: format's widest panel (the decode with its wide state's shift), and the
+#: decode at one CTA's widest row on one CTA and on its cluster route
+#: (rows in device memory), the two routes side by side where one hands
+#: over to the other.
+WIDE_CHAINS = (("chain_encode", pbwt_kernels.MAX_RANK_H, 32, 16, None),
+               ("chain_decode", pbwt_kernels.MAX_RANK_H, 32,
+                pbwt_kernels.decode_chunk(pbwt_kernels.MAX_RANK_H), None),
+               ("chain_decode", pbwt_kernels.MAX_H_DECODE, 64, 16, None),
+               ("chain_decode", pbwt_kernels.MAX_H_DECODE, 64, 16,
+                pbwt_kernels.MAX_CLUSTER))
+#: The chain routes the HRC-width kernel checks hold (the rest at 1KGP3).
+CLUSTER_ROUTES = ("chain_encode_cluster", "chain_decode_rows")
 #: WAH kernel checks above the 16-bit slot field, where only a CTA per line
 #: fits: TOPMed width (w = 12,968) and the format's widest line (w =
 #: 32,767 groups).
@@ -212,7 +246,7 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     "wah_expand": ("wah.cu", "wah_pallas.py:51"),
     "wah_compress": ("wah.cu", "wah_pallas.py:112"),
     "chain_encode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:133"),
-    "chain_decode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:76"),
+    "chain_decode_rows": ("pbwt_chain.cu", "pbwt_pallas.py:76"),
     # an XLA function in the JAX package (no Pallas kernel there)
     "wah_expand_varw": ("wah.cu", "wah_jax.py:227"),
     # the same kernels with unpack_bits / pack_bits fused in
@@ -225,6 +259,9 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     # the mixed scan's run route's own kernel (with chain_decode and the
     # rank chain in the route)
     "decode_run_flush": ("pbwt_scan.cu", "pbwt_jax.py:564"),
+    # the same above 65,535 slots, a cluster a chunk: the uniform decode's
+    # flush there takes the blocked decode's place (pbwt_jax.py:456)
+    "decode_run_flush_cluster": ("pbwt_scan.cu", "pbwt_jax.py:456"),
 }
 
 
@@ -251,8 +288,8 @@ KERNEL_NAMES = {
     "chain_decode": (("chain_kernel<true, false>", "chain_kernelILb1ELb0"),),
     "chain_encode_cluster": (("chain_kernel<false, true>",
                               "chain_kernelILb0ELb1"),),
-    "chain_decode_cluster": (("chain_kernel<true, true>",
-                              "chain_kernelILb1ELb1"),),
+    "chain_decode_rows": (("chain_kernel<true, true>",
+                           "chain_kernelILb1ELb1"),),
     "wah_expand": _expand_kernels(False, False),
     "wah_expand_varw": _expand_kernels(True, False),
     "wah_expand_bits": _expand_kernels(False, True),
@@ -268,13 +305,15 @@ KERNEL_NAMES = {
     # the run flush's composition levels and the flush itself: several
     # launches a call, their count following the chunks (MULTI_LAUNCH)
     "decode_run_flush": (("compose_level_kernel", "decode_run_flush_kernel"),),
+    "decode_run_flush_cluster": (("compose_level_kernel",
+                                  "decode_run_flush_cluster_kernel"),),
 }
 
 
 #: Routes whose call launches its kernels several times (KERNEL_NAMES then
 #: names their common prefix): their device time is summed over a call and
 #: their launches per call printed.
-MULTI_LAUNCH = {"rank_chain", "decode_run_flush"}
+MULTI_LAUNCH = {"rank_chain", "decode_run_flush", "decode_run_flush_cluster"}
 
 
 def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
@@ -613,14 +652,15 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         h = s["H"]
         shape = f"H={s['H']} C={s['C']} n_ch={s['n_ch']}"
         wshape = f"n_lines={s['n_lines']} w={w}"
-        sfx = "" if label == "1KGP3" else "_cluster"
         n = s["n_lines"]
+        enc, dec = (pbwt_kernels.chain_route(k, pbwt_kernels.cluster_size(
+            k, h)) for k in ("chain_encode", "chain_decode"))
         cases += [
-            (f"chain_encode{sfx}", label, shape,
+            (enc, label, shape,
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode(q0, ss),
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode_plain(q0, ss),
              None, chain_bytes("chain_encode", (q0, ss)), None),
-            (f"chain_decode{sfx}", label, shape,
+            (dec, label, shape,
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode(yc, ss),
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode_plain(yc, ss),
              None, chain_bytes("chain_decode", (yc, ss)), None),
@@ -665,7 +705,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                 kern = getattr(pbwt_kernels, name)
                 plain = getattr(pbwt_kernels, f"{name}_plain")
                 cases.append((
-                    f"{name}_cluster", "1KGP3 forced", f"{shape} K={K}",
+                    pbwt_kernels.chain_route(name, K), "1KGP3 forced",
+                    f"{shape} K={K}",
                     lambda f=kern, a=args, K=K: f(*a, cluster=K),
                     lambda f=plain, a=args: f(*a),
                     ("the one-CTA route", lambda got, f=kern, a=args:
@@ -728,6 +769,29 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         ]
         del words_cpu
 
+    # the chains at the edges of their routes (their own generator):
+    # encode registers of 16 lines, decode lines of the wide state's chunk,
+    # against the plain versions
+    crng = np.random.default_rng(6)
+    for name, H, n_ch, C, K in WIDE_CHAINS:
+        shape = f"H={H} C={C} n_ch={n_ch}"
+        ss = torch.from_numpy(crng.random((n_ch, C)) < 0.9).to(dev)
+        if name == "chain_encode":
+            q0 = crng.integers(0, 1 << 16, (n_ch, H), dtype=np.int32)
+            args = (torch.from_numpy(q0).to(dev), ss)
+        else:
+            p = crng.choice([0.002, 0.05, 0.3, 0.7, 0.99], n_ch * C)
+            yc = bernoulli_rows(crng, p, H, slice_lines=64)
+            args = (torch.from_numpy(yc.reshape(n_ch, C, H)).to(dev), ss)
+        K = pbwt_kernels.cluster_size(name, H, K)
+        route = pbwt_kernels.chain_route(name, K)
+        cases.append((
+            route, f"H={H}", f"{shape} K={K}",
+            lambda f=getattr(pbwt_kernels, name), a=args, K=K: f(
+                *a, cluster=K),
+            lambda f=getattr(pbwt_kernels, f"{name}_plain"), a=args: f(*a),
+            None, chain_bytes(name, args), None))
+
     # the PBWT device scans (their own generator): the rank chain on both
     # routes at the main path's widths, the chrX PAR parity scan's, the
     # narrowest, each side of the shared-memory route's bound and of the
@@ -770,7 +834,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                                "haploid"),
                               ("chrX-PAR diploid", 1024, 2 * MALES,
                                "diploid"),
-                              ("HRC", 512, HRC_H, "runs")):
+                              ("HRC", 512, HRC_H, "runs"),
+                              ("TOPMed", 512, 2 * TOPMED_SAMPLES, "runs")):
         ys, so, hp, hnp = mixed_lines(srng, n, H, kind, dev)
         a0 = torch.from_numpy(srng.permutation(H)).to(dev)
         cases.append((
@@ -785,7 +850,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         mixed.append((label, kind, ys, so, hp, hnp))
 
     rows, checks = {}, []
-    wide_labels = {label for label, _ in WIDE_WAH}
+    wide_labels = ({label for label, _ in WIDE_WAH}
+                   | {f"H={H}" for _, H, *_ in WIDE_CHAINS})
     for name, label, shape, kern, plain, extra, nbytes, old, *meta in cases:
         meta = meta[0] if meta else {}
         got, want = kern(), plain()
@@ -822,10 +888,11 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         # cluster chains at HRC, the per-line-width expand at chrX PAR
         # widths, the rest at 1KGP3 (the chains are replaced by their
         # blocks' own shapes once the blocks have run), plus the WAH routes
-        # at TOPMed width and at the widest line, rows of their own
+        # at TOPMed width and at the widest line and the chains on 16 CTAs,
+        # rows of their own
         if label in wide_labels:
             rows[f"{name}@{label}"] = kernel_row(check)
-        elif name not in rows and ("cluster" in name) == (label == "HRC"):
+        elif name not in rows and (name in CLUSTER_ROUTES) == (label == "HRC"):
             rows[name] = kernel_row(check)
 
     # the mixed scan's run route on each case's lines beside the stepping
@@ -834,11 +901,12 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
     for label, kind, ys, so, hp, hnp in mixed:
         route, flushes = mixed_route_checks(
             label, ys, so, hp, hnp, card,
-            flush=label in ("chrX-PAR layout", "HRC"))
+            flush=label in ("chrX-PAR layout", "HRC", "TOPMed"))
         checks.append(route)
         for c in flushes:
             checks.append(c)
-            rows.setdefault(c["name"], kernel_row(c))
+            rows.setdefault(c["name"] if label != "TOPMed"
+                            else f"{c['name']}@TOPMed mixed", kernel_row(c))
     del mixed
     checks.extend(mixed_crossover(card))
     return rows, checks
@@ -873,6 +941,9 @@ def flush_check(label: str, args, kw, card: str) -> dict:
     """The run flush at one call's arguments against its plain version
     (rows, the end map, and T if written), timed."""
     p_fin, _, _, H, n, haploid = args
+    W = p_fin.shape[1]
+    route = ("decode_run_flush" if pbwt_kernels.flush_cluster(W) == 1
+             else "decode_run_flush_cluster")
 
     def kern():
         return pbwt_kernels.decode_run_flush(*args, **kw)
@@ -884,15 +955,14 @@ def flush_check(label: str, args, kw, card: str) -> dict:
     err = max(diff(g[0], w[0]), diff(g[2], w[2]),
               diff(g[1], w[1]) if kw.get("want_T") else 0)
     shape = (f"{'haploid' if haploid else 'diploid'} run of {n} lines, "
-             f"W={p_fin.shape[1]} H={H} n_ch={p_fin.shape[0]}"
+             f"W={W} H={H} n_ch={p_fin.shape[0]} C={args[2].shape[1]}"
              + (", T written" if kw.get("want_T") else ""))
-    require(err == 0, f"decode_run_flush at {label} ({shape}): kernel "
+    require(err == 0, f"{route} at {label} ({shape}): kernel "
                       f"differs from its plain version (max abs err {err})")
     del g, w
-    c = timed_check("decode_run_flush", label, shape, err, cuda_ms(kern),
+    c = timed_check(route, label, shape, err, cuda_ms(kern),
                     cuda_ms(plain, iters=3, warmup=1), flush_bytes(args, kw),
-                    "", card, kernel_device_ms("decode_run_flush", kern),
-                    host_ms(kern))
+                    "", card, kernel_device_ms(route, kern), host_ms(kern))
     c["haploid"] = haploid
     return c
 
@@ -1163,8 +1233,11 @@ def once_peak_gb(fn) -> float:
 
 def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
     """Each chain kernel at its block's own shapes, bit-exact against its
-    plain version and timed; at HRC width also on the other cluster sizes
-    (encode K = 2, 4 and 8, decode K = 3, 4 and 8)."""
+    plain version and timed (the decode's states widened, as chain_decode
+    returns them by default); at HRC width also on the other cluster sizes
+    (encode K = 2, 4 and 8 in shared memory, decode K = 3, 4 and 8 with
+    its rows in device memory), above 65,535 haplotypes on 8 and 16 CTAs.
+    A wide block's checks fill rows of their own (route@block)."""
     out = []
     for name, args in seen.items():
         if not name.startswith("chain"):
@@ -1176,15 +1249,17 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
         K0 = pbwt_kernels.cluster_size(name, H)
         sizes = [K0]
         if K0 > 1:
-            sizes += [k for k in ((2, 4, 8) if name == "chain_encode"
-                                  else (3, 4, 8)) if k != K0]
+            others = ((8, 16) if H > pbwt_kernels.SLOT16_H
+                      else (2, 4, 8) if name == "chain_encode"
+                      else (3, 4, 8))
+            sizes += [k for k in others if k != K0]
         want = plain(*args)
         plain_ms = cuda_ms(lambda: plain(*args), iters=10, warmup=2)
         for K in sizes:
             got = kern(*args, cluster=K)
             torch.cuda.synchronize()
             err = diff(got, want)
-            route = name if K == 1 else f"{name}_cluster"
+            route = pbwt_kernels.chain_route(name, K)
             shape = f"H={H} C={C} n_ch={n_ch} K={K}"
             require(err == 0, f"{route} at {label} block shape {shape}: "
                               f"kernel differs from its plain version "
@@ -1196,7 +1271,9 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
             check = timed_check(route, f"{label} block", shape, err, ms,
                                 plain_ms, chain_bytes(name, args), "", card,
                                 kernel_device_ms(route, call), host_ms(call))
-            check["default_route"] = K == K0
+            check["default_route"] = K == K0 and H <= pbwt_kernels.SLOT16_H
+            if K == K0 and H > pbwt_kernels.SLOT16_H:
+                check["row"] = f"{route}@{label}"
             out.append(check)
         del want
     return out
@@ -1379,7 +1456,7 @@ def run_path(name: str, enc, decode, ref_payload: bytes, rows) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the path, once, with every launch counter at 0 and the plain
-    # ---- WAH passes made to raise -------------------------------------
+    # ---- passes made to raise -----------------------------------------
     allow = PLAIN_ROUTES.get(name, ())
     with no_plain_passes(allow):
         reset_counts()
@@ -1417,13 +1494,16 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     """One block through the main path's entry points, checked exactly;
     returns the launch counts of that one run and the timings.  The wide
     blocks' host loops (serialize, decode_block_records) run once, the
-    path's own run being their warm-up.  Above the chains' 16-bit slot
-    field (TOPMed) the path takes the packed-key scan and the blocked
-    decode, timed alone too, and the old WAH pipeline is not timed."""
+    path's own run being their warm-up.  Above 65,535 haplotypes (TOPMed)
+    the chains take the decode's wide state and the run flush a cluster a
+    chunk; each PBWT route is timed alone, the encode core and device
+    decode again with the old torch forms (the packed-key scan, the
+    blocked decode) in their place, with their peaks; the old WAH pipeline
+    and the flush in torch are not timed there."""
     H = 2 * n_samples
     mac = int(H * 0.001)
     aet = aet_dtype_for(H)
-    scan = H > pbwt_kernels.MAX_H
+    slots32 = H > pbwt_kernels.SLOT16_H
     t0 = time.perf_counter()
     alleles = make_block(np.random.default_rng(seed), H)
     gt = (alleles.astype(np.int32) + 1) << 1          # unphased biallelic
@@ -1468,10 +1548,18 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     def old_wah(fn):
         """fn's time and peak with the old WAH pipeline (None above the
         slot field, where that comparison is not repeated)."""
-        if scan:
+        if slots32:
             return None, None
         with old_pipeline():
             return cuda_ms(fn, **dev_loop), once_peak_gb(fn)
+
+    def old_torch(fn, route: str, old: str):
+        """fn's time and peak with pbwt_torch's `route` replaced by its old
+        torch form `old` (the wide blocks' comparison, same run)."""
+        if not slots32:
+            return None, None
+        with swapped(pbwt_torch, {route: getattr(pbwt_torch, old)}):
+            return cuda_ms(fn, iters=3, warmup=1), once_peak_gb(fn)
 
     def alone(fn, nbytes, label):
         """A wide-path function timed alone (CUDA events), with its byte
@@ -1500,6 +1588,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_core_peak = once_peak_gb(encode_core)
     enc_old_ms, enc_core_peak_old = old_wah(encode_core)
+    enc_scan_ms, enc_core_peak_scan = old_torch(
+        encode_core, "pbwt_encode_chunked", "pbwt_encode_scan")
     # the encode core with the plain rank chain in the kernel's place (as
     # it ran before the kernel), then the path's own inputs of each kernel
     # (captured after the peaks: the copies are not the path's memory) and
@@ -1514,16 +1604,16 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     # the rank chain's copied totals are done with: the decode's peaks
     # below are measured without them
     seen.pop("rank_chain", None)
-    if scan:
+    if slots32:
         aw = staged[0].index_select(0, staged[2])
         at = staged[1].index_select(0, staged[2])
         sw = staged[3]
         # reads the WAH lines' alleles and flags, writes their bits and
-        # the final arrangement
-        parts["pbwt_encode_scan"] = alone(
-            lambda: pbwt_torch.pbwt_encode_scan(aw, at, sw),
-            2 * aw.numel() + at.nbytes + sw.nbytes + 8 * H,
-            "pbwt_encode_scan")
+        # the final arrangement: the chains' route, then the old scan
+        for route in ("pbwt_encode_chunked", "pbwt_encode_scan"):
+            parts[route] = alone(
+                lambda f=getattr(pbwt_torch, route): f(aw, at, sw),
+                2 * aw.numel() + at.nbytes + sw.nbytes + 8 * H, route)
         del aw, at, sw
     del staged
     ser_ms = wall_ms(lambda: ingest().serialize(), **host_loop)
@@ -1541,19 +1631,27 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
 
     dec_dev_ms = cuda_ms(decode_device, **dev_loop)
     # the same decode with the flush in torch, as before the run flush
-    dec_dev_torch_flush_ms = (None if scan else
+    dec_dev_torch_flush_ms = (None if slots32 else
                               torch_flush_ms(name, decode_device, gt,
                                              **dev_loop))
+    if slots32:        # the old torch form must still give the block's gt
+        with swapped(pbwt_torch, {"pbwt_decode_chunked":
+                                  pbwt_torch.pbwt_decode_blocked}):
+            require(bool((decode_device().cpu().numpy() == gt).all()),
+                    f"{name}: the decode with the blocked decode is not "
+                    f"bit-exact")
     del gt
     dec_dev_peak = once_peak_gb(decode_device)
     dec_dev_old_ms, dec_dev_peak_old = old_wah(decode_device)
+    dec_dev_blocked_ms, dec_dev_peak_blocked = old_torch(
+        decode_device, "pbwt_decode_chunked", "pbwt_decode_blocked")
 
     def decode_once():
         dec.host_inputs()                 # the per-block host parse
         return decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
 
     torch.cuda.reset_peak_memory_stats()
-    dec_ms = wall_ms(decode_once, **(dict(iters=1, warmup=1) if scan
+    dec_ms = wall_ms(decode_once, **(dict(iters=1, warmup=1) if slots32
                                      else dev_loop))
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the path's own inputs of each decode kernel (captured after the
@@ -1561,12 +1659,13 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     with captured_args() as seen_dec:
         decode_device()
     seen.update(seen_dec)
-    if scan:
+    if slots32:
         ys = wah_kernels.wah_expand_bits(*seen["wah_expand_bits"])
         sorts = dstaged[1]
-        parts["pbwt_decode_blocked"] = alone(
-            lambda: pbwt_torch.pbwt_decode_blocked(ys, sorts),
-            2 * ys.numel() + sorts.nbytes + 8 * H, "pbwt_decode_blocked")
+        for route in ("pbwt_decode_chunked", "pbwt_decode_blocked"):
+            parts[route] = alone(
+                lambda f=getattr(pbwt_torch, route): f(ys, sorts),
+                2 * ys.numel() + sorts.nbytes + 8 * H, route)
         del ys, sorts
     del dstaged
     rec_ms = wall_ms(lambda: records(payload), **host_loop)
@@ -1578,6 +1677,13 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
 
     def torch_flush(ms):
         return "" if ms is None else f" (with the flush in torch {ms:.3f} ms)"
+
+    def old_form(ms, peak, form):
+        return ("" if ms is None else
+                f" (with {form} {ms:.3f} ms, peak {peak:.3f} GB)")
+    enc_scan = old_form(enc_scan_ms, enc_core_peak_scan, "the packed-key scan")
+    dec_blocked = old_form(dec_dev_blocked_ms, dec_dev_peak_blocked,
+                           "the blocked decode")
 
     rc = scans["rank_chain"]
     chain = (f", of which the rank chain {rc['ms']:.3f} ms (its plain "
@@ -1594,16 +1700,17 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
           f"ms | compression {ratio:.2f}x ({card})")
     print(f"[{name}] device alone: encode core {enc_ms:.3f} ms"
           f"{old(enc_old_ms)}{chain}, peak {enc_core_peak:.3f} GB"
-          f"{old(enc_core_peak_old, ' GB')} | decode {dec_dev_ms:.3f} ms"
+          f"{old(enc_core_peak_old, ' GB')}{enc_scan}"
+          f" | decode {dec_dev_ms:.3f} ms"
           f"{old(dec_dev_old_ms)}{torch_flush(dec_dev_torch_flush_ms)}, "
           f"peak {dec_dev_peak:.3f} GB"
-          f"{old(dec_dev_peak_old, ' GB')} ({card})")
+          f"{old(dec_dev_peak_old, ' GB')}{dec_blocked} ({card})")
     checks = (block_chain_checks(name, seen, card)
               + wah_block_checks(name, seen, card) + list(scans.values()))
     if "decode_run_flush" in seen:      # the uniform decode's flush
         fc = flush_check(f"{name} block", seen["decode_run_flush"], {}, card)
         fc["default_route"] = False
-        fc["row"] = f"decode_run_flush@{name}"
+        fc["row"] = f"{fc['name']}@{name}"
         checks.append(fc)
     return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
             "encode_ms": enc_ms, "block_checks": checks,
@@ -1613,6 +1720,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
             "decode_device_ms": dec_dev_ms,
             "decode_device_old_wah_ms": dec_dev_old_ms,
             "decode_device_torch_flush_ms": dec_dev_torch_flush_ms,
+            "encode_packed_key_scan_ms": enc_scan_ms,
+            "decode_device_blocked_ms": dec_dev_blocked_ms,
             "wide_path_alone": parts,
             "decode_ms": dec_ms, "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
@@ -1626,7 +1735,11 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
                                    enc_core_peak_plain_chain,
                                "decode_device_once": dec_dev_peak,
                                "decode_device_once_old_wah":
-                                   dec_dev_peak_old}}
+                                   dec_dev_peak_old,
+                               "encode_core_once_packed_key_scan":
+                                   enc_core_peak_scan,
+                               "decode_device_once_blocked":
+                                   dec_dev_peak_blocked}}
 
 
 def to_device(*arrays):

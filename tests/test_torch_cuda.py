@@ -75,29 +75,90 @@ def test_chain_kernels_match_plain(dev, n_ch, C, H, lines):
     assert _equal(pbwt_kernels.chain_decode(yc.to(dev), ss.to(dev)),
                   pbwt_kernels.chain_decode_plain(yc, ss))
     for name in ("chain_encode", "chain_decode"):
-        route = name + ("" if pbwt_kernels.cluster_size(name, H) == 1
-                        else "_cluster")
+        route = pbwt_kernels.chain_route(name,
+                                         pbwt_kernels.cluster_size(name, H))
         assert pbwt_kernels.launches[route] == n0[route] + 1
 
 
 def test_chain_kernels_refuse_above_the_bound(dev):
     # the one-CTA route refuses a row its shared memory cannot hold; the
-    # default route takes a cluster there, and nothing takes H > 65,535
+    # default route takes a cluster there; above 65,536 slots a chunk
+    # holds fewer than 16 lines (decode_chunk); a CTA of the decode's
+    # cluster owns at most 65,536 slots of the rows in device memory, and
+    # nothing takes a row wider than the format's widest panel
     H = pbwt_kernels.MAX_H_DECODE + 1
     yc = torch.zeros((1, 16, H), dtype=torch.uint8, device=dev)
     ss = torch.ones((1, 16), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         pbwt_kernels.chain_decode(yc, ss, cluster=1)
-    wide = torch.zeros((1, 16, pbwt_kernels.MAX_H + 1), dtype=torch.uint8,
+    wide = torch.zeros((1, 16, pbwt_kernels.SLOT16_H + 2), dtype=torch.uint8,
                        device=dev)
-    with pytest.raises(ValueError, match="16 bits"):
+    with pytest.raises(ValueError, match="at most 15 lines"):
         pbwt_kernels.chain_decode(wide, ss)
+    widest = torch.zeros((1, 14, pbwt_kernels.chain_max_h("chain_decode", 2)
+                          + 1), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="device memory"):
+        pbwt_kernels.chain_decode(widest, ss[:, :14], cluster=2)
+    over = torch.zeros((1, 13, pbwt_kernels.MAX_RANK_H + 1),
+                       dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="491505"):
+        pbwt_kernels.chain_decode(over, ss[:, :13])
+
+
+@pytest.mark.parametrize("n_ch,H,K_enc,K_dec,shift", [
+    (3, 65536, None, None, 16),   # the narrow state's widest row
+    (3, 65600, None, None, 15),   # the wide state: top bit set
+    (2, 70001, None, None, 15),   # odd H
+    (2, 194512, None, None, 14),  # TOPMed: encode 8 CTAs, decode 16
+    (1, 214016, None, None, 14),
+    (1, 214017, None, None, 14),
+    (1, 428032, None, None, 13),  # the encode's widest on 8
+    (1, 428033, None, None, 13),  # encode 16 CTAs
+    (2, 491505, None, None, 13),  # the format's widest
+    (2, 65600, 16, 16, 15),       # 16 CTAs forced
+    (3, 1001, 3, 2, 13),          # the wide state at a narrow width
+    (3, 1001, 1, 1, 13),
+    (3, 65600, None, 8, 15),      # the decode on 8 CTAs
+    (2, 70001, None, 5, 15),      # ... on 5 CTAs
+    (3, 1001, None, 2, 13),
+])
+def test_wide_chain_routes_match_plain(dev, n_ch, H, K_enc, K_dec, shift,
+                                       monkeypatch):
+    """The chains above 65,535 haplotypes: encode (16-bit registers, C =
+    16) on 8 or 16 CTAs, decode with the state (slot << shift) | beta and
+    chunks of `shift` lines on a cluster with both rows in device memory
+    (16 CTAs, or as forced), against their plain versions; the int32
+    states (widen=False) hold the uint32 bits.  At 1001 the wide state's
+    shift is forced (decode_chunk patched)."""
+    if shift != pbwt_kernels.decode_chunk(H):
+        monkeypatch.setattr(pbwt_kernels, "decode_chunk", lambda W: shift)
+    rng = np.random.default_rng(H + shift)
+    ss, q0, _ = _chain_inputs(rng, n_ch, 16, H)
+    n0 = dict(pbwt_kernels.launches)
+    assert _equal(pbwt_kernels.chain_encode(q0.to(dev), ss.to(dev),
+                                            cluster=K_enc),
+                  pbwt_kernels.chain_encode_plain(q0, ss))
+    K = pbwt_kernels.cluster_size("chain_encode", H, K_enc)
+    route = pbwt_kernels.chain_route("chain_encode", K)
+    assert pbwt_kernels.launches[route] == n0[route] + 1
+    kw = dict(cluster=K_dec)
+    ssd, _, yc = _chain_inputs(rng, n_ch, shift, H)
+    want = pbwt_kernels.chain_decode_plain(yc, ssd)
+    n0 = dict(pbwt_kernels.launches)
+    got = pbwt_kernels.chain_decode(yc.to(dev), ssd.to(dev), **kw)
+    assert _equal(got, want)
+    got32 = pbwt_kernels.chain_decode(yc.to(dev), ssd.to(dev), widen=False,
+                                      **kw)
+    assert _equal(got32, pbwt_kernels._u32_bits(want))
+    route = pbwt_kernels.chain_route(
+        "chain_decode", pbwt_kernels.cluster_size("chain_decode", H, K_dec))
+    assert pbwt_kernels.launches[route] == n0[route] + 2
 
 
 @pytest.mark.parametrize("n_ch,C,H,K_enc,K_dec,lines", [
     (4, 16, 5008, 2, 4, "random"),        # forced cluster at 1KGP3 width
     (2, 16, 57857, None, None, "random"),  # just above the encode bound
-    (3, 16, 64976, None, None, "random"),  # HRC: K = 8 (both chains)
+    (3, 16, 64976, None, None, "random"),  # HRC: encode 8 CTAs, decode 16
     (3, 16, 64976, 2, 3, "random"),
     (3, 16, 64976, 4, 4, "random"),
     (2, 16, 65535, None, None, "random"),  # the 16-bit slot field's limit
@@ -122,7 +183,7 @@ def test_chain_cluster_routes_match_plain(dev, n_ch, C, H, K_enc, K_dec,
                   pbwt_kernels.chain_decode_plain(yc, ss))
     n1 = pbwt_kernels.launches
     assert n1["chain_encode_cluster"] == n0["chain_encode_cluster"] + 1
-    assert n1["chain_decode_cluster"] == n0["chain_decode_cluster"] + 1
+    assert n1["chain_decode_rows"] == n0["chain_decode_rows"] + 1
     assert n1["chain_encode"] == n0["chain_encode"]
     assert n1["chain_decode"] == n0["chain_decode"]
 
@@ -246,6 +307,7 @@ MIXED_ROUTE_CASES = [
     (0, 100, "alternating"),
     (4573, 2466, "par"), (1200, 301, "par"), (1200, 3, "par"),
     (80, 17802, "par"), (64, 64976, "par"),
+    (48, 65600, "par"), (40, 70001, "alternating"),
 ]
 
 
@@ -275,9 +337,9 @@ def test_mixed_run_route_matches_plain(dev, L, H, hap_kind, min_run,
         ran = {k: v - n0[k] for k, v in pbwt_kernels.launches.items()}
         n_runs = sum(r != "step" for r in pieces)
         assert ran["decode_scan_mixed"] == len(pieces) - n_runs
-        assert ran["decode_run_flush"] == n_runs
-        assert (ran["chain_decode"] + ran["chain_decode_cluster"]
+        assert (ran["decode_run_flush"] + ran["decode_run_flush_cluster"]
                 == n_runs)
+        assert ran["chain_decode"] + ran["chain_decode_rows"] == n_runs
         assert ran["rank_chain"] == pieces.count("haploid")
 
 
@@ -311,6 +373,40 @@ def test_run_flush_kernel_matches_plain(dev, H, n, haploid):
     assert got[0] is out
     assert all(_equal(g, w) for g, w in zip(got, want))
     assert pbwt_kernels.launches["decode_run_flush"] == n0 + 1
+
+
+@pytest.mark.parametrize("H,n,haploid,shift", [
+    (65536, 33, False, 16), (65537, 30, False, 15), (131070, 20, False, 15),
+    (131072, 31, True, 16), (131074, 31, True, 15), (70001, 17, False, 15),
+    (194512, 45, False, 14), (194512, 29, True, 15), (428032, 13, False, 13),
+    (491505, 26, True, 14), (1001, 40, True, 13)])
+def test_wide_run_flush_matches_plain(dev, H, n, haploid, shift,
+                                      monkeypatch):
+    """The run flush on a cluster of 8 CTAs a chunk above 65,535 slots
+    (decode_run_flush_cluster), the states (slot << shift) | beta in
+    chunks of `shift` lines, against its plain version: rows, T and the
+    end map; and at a narrow width with a narrow shift forced (one CTA)."""
+    rng = np.random.default_rng(H + n)
+    W = (H + 1) // 2 if haploid else H
+    if shift != pbwt_kernels.decode_chunk(W):
+        monkeypatch.setattr(pbwt_kernels, "decode_chunk", lambda W: shift)
+    n_ch = -(-n // shift)
+    slots = np.stack([rng.permutation(W) for _ in range(n_ch)])
+    p_fin = torch.from_numpy(((slots.astype(np.int64) << shift)
+                              | rng.integers(0, 1 << shift, (n_ch, W)))
+                             .astype(np.uint32).view(np.int32))
+    start = torch.from_numpy(rng.permutation(W))
+    ss = torch.from_numpy(rng.random((n_ch, shift)) < 0.7)
+    want = pbwt_kernels.decode_run_flush_plain(p_fin, start, ss, H, n,
+                                               haploid, want_T=True)
+    route = "decode_run_flush" + ("_cluster" if W > 65535 else "")
+    n0 = pbwt_kernels.launches[route]
+    got = pbwt_kernels.decode_run_flush(p_fin.to(dev), start.to(dev),
+                                        ss.to(dev), H, n, haploid,
+                                        want_T=True)
+    torch.cuda.synchronize()
+    assert all(_equal(g, w) for g, w in zip(got, want))
+    assert pbwt_kernels.launches[route] == n0 + 1
 
 
 @pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
@@ -602,6 +698,9 @@ def test_mixed_block_roundtrip_on_card(dev, min_run, monkeypatch):
     (32488, 64, 64, "_cluster"),   # HRC width: the chains' cluster routes
 ])
 def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
+    """A uniform block through the codec on the card; `route` "" for the
+    one-CTA chains, "_cluster" for the cluster routes (the encode's in
+    shared memory, the decode's with its rows in device memory)."""
     rng = np.random.default_rng(3)
     p = rng.choice([0.0005, 0.005, 0.2, 0.6, 0.9995], (L, 1))
     alleles = (rng.random((L, 2 * n_samples)) < p).astype(np.int32)
@@ -619,18 +718,22 @@ def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
     out = decoder_torch.decode_block_records(
         payload, n_samples, 2 * n_samples, np.uint16, [2] * L, device=dev)
     np.testing.assert_array_equal(np.stack(out), gt)
+    K = 1 if route == "" else 2
     for k in ("chain_encode", "chain_decode"):
-        assert pbwt_kernels.launches[k + route] == n0[k + route] + 1
+        key = pbwt_kernels.chain_route(k, K)
+        assert pbwt_kernels.launches[key] == n0[key] + 1
     for k in ("rank_chain", "decode_run_flush"):
         assert pbwt_kernels.launches[k] == n0[k] + 1
 
 
 @pytest.mark.parametrize("missing", [False, True])
 def test_wide_block_roundtrip_on_card(dev, missing):
-    """32,800 samples (H = 65,600), above the chains' 16-bit slot field:
-    the scan and the blocked decode in plain torch around the WAH kernels
-    and the rank chain (its device route, 32-bit ranks), 32-bit sparse and
-    track streams; no chain route launches."""
+    """32,800 samples (H = 65,600), above the narrow decode state's 16-bit
+    slot field: the chains on their cluster routes (the decode's state
+    (slot << 15) | beta), the run flush on a cluster a chunk, the WAH
+    kernels and the rank chain (its device route, 32-bit ranks), 32-bit
+    sparse and track streams; the packed-key scan and the blocked decode
+    do not run."""
     rng = np.random.default_rng(6 + missing)
     n_samples, L = 32800, 48
     p = rng.choice([0.0005, 0.005, 0.2, 0.6, 0.9995], (L, 1))
@@ -645,10 +748,16 @@ def test_wide_block_roundtrip_on_card(dev, missing):
     for row in gt:
         ref.encode_record(row, 2)
         enc.encode_record(row, 2)
-    payload, out, counts = _block_counts(
-        enc, lambda e: e.serialize(),
-        lambda pl: decoder_torch.decode_block_records(
-            pl, n_samples, 2 * n_samples, np.uint32, [2] * L, device=dev))
+    def refuse(*a, **k):
+        raise AssertionError("a plain wide form ran on the card path")
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("pbwt_encode_scan", "pbwt_decode_blocked"):
+            mp.setattr(pbwt_torch, name, refuse)
+        payload, out, counts = _block_counts(
+            enc, lambda e: e.serialize(),
+            lambda pl: decoder_torch.decode_block_records(
+                pl, n_samples, 2 * n_samples, np.uint32, [2] * L,
+                device=dev))
     assert payload == ref.serialize()
     np.testing.assert_array_equal(np.stack(out), gt)
     host = GtBlockDecoder(payload, n_samples, 2 * n_samples, np.uint32)
@@ -656,8 +765,39 @@ def test_wide_block_roundtrip_on_card(dev, missing):
         host.seek(i)
         np.testing.assert_array_equal(host.fill_genotype_array_advance(2),
                                       gt[i])
-    assert set(counts) == {"wah_compress_bits", "wah_expand_bits",
-                           "rank_chain"}
+    assert counts == {"wah_compress_bits": 1, "wah_expand_bits": 1,
+                      "rank_chain": 1, "chain_encode_cluster": 1,
+                      "chain_decode_rows": 1,
+                      "decode_run_flush_cluster": 1}
+
+
+def test_widest_block_roundtrip_on_card(dev):
+    """245,752 samples (H = 491,504), above 428,032: the encode chain on 16
+    CTAs, the decode chain with its rows in device memory (the state
+    (slot << 13) | beta), the run flush on a cluster a chunk; payload
+    equal to the host encoder's, every record decoded."""
+    rng = np.random.default_rng(9)
+    n_samples, L = 245752, 24
+    p = rng.choice([0.0005, 0.2, 0.6, 0.9995], (L, 1))
+    alleles = (rng.random((L, 2 * n_samples)) < p).astype(np.int32)
+    gt = ((alleles + 1) << 1) | (np.arange(2 * n_samples) & 1)
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=491,
+              default_phasing=1, aet_dtype=np.uint32)
+    ref = GtBlockEncoder(**kw)
+    enc = encoder_torch.TorchBlockEncoder(device=dev, **kw)
+    for row in gt:
+        ref.encode_record(row, 2)
+        enc.encode_record(row, 2)
+    payload, out, counts = _block_counts(
+        enc, lambda e: e.serialize(),
+        lambda pl: decoder_torch.decode_block_records(
+            pl, n_samples, 2 * n_samples, np.uint32, [2] * L, device=dev))
+    assert payload == ref.serialize()
+    np.testing.assert_array_equal(np.stack(out), gt)
+    assert counts == {"wah_compress_bits": 1, "wah_expand_bits": 1,
+                      "rank_chain": 1, "chain_encode_cluster": 1,
+                      "chain_decode_rows": 1,
+                      "decode_run_flush_cluster": 1}
 
 
 def _cli_compress(vcf, xsi, device, block):

@@ -39,9 +39,9 @@ def _lines(rng, L, ps=(0.0005, 0.02, 0.3, 0.7, 0.9995)):
 
 def test_width_is_above_the_one_cta_bounds():
     assert pbwt_kernels.MAX_H_DECODE < pbwt_kernels.MAX_H_ENCODE < H
-    assert H <= pbwt_kernels.MAX_H
+    assert H <= pbwt_kernels.SLOT16_H
     assert pbwt_kernels.cluster_size("chain_encode", H) == 8
-    assert pbwt_kernels.cluster_size("chain_decode", H) == 8
+    assert pbwt_kernels.cluster_size("chain_decode", H) == 16
 
 
 @pytest.mark.parametrize("name,width,cluster,want", [
@@ -49,8 +49,9 @@ def test_width_is_above_the_one_cta_bounds():
     ("chain_encode", 57856, None, 1),
     ("chain_encode", 57857, None, 8),
     ("chain_decode", 28928, None, 1),
-    ("chain_decode", 28929, None, 8),
-    ("chain_decode", 57857, None, 8),
+    # the decode on a cluster keeps its rows in device memory, on 16 CTAs
+    ("chain_decode", 28929, None, 16),
+    ("chain_decode", 57857, None, 16),
     ("chain_decode", 5008, 4, 4),
     ("chain_decode", H, 3, 3),
     ("chain_encode", 3, 8, 8),
@@ -66,11 +67,12 @@ def test_cluster_size(name, width, cluster, want):
     ("chain_encode", 57857, 1, 2 * 2 * (57856 + 256)),
     ("chain_decode", 28928, 1, 2 * 4 * 28928),
     ("chain_decode", 28929, 1, 2 * 4 * (28928 + 128)),
-    # a cluster: each CTA's share in whole tiles, plus 16 warps' staging
-    # of two runs (a tile and 16 bytes each)
+    # the encode on a cluster: each CTA's share in whole tiles, plus 16
+    # warps' staging of two runs (a tile and 16 bytes each); the decode on
+    # a cluster keeps both rows in device memory
     ("chain_encode", H, 2, 2 * 2 * 32512 + 16 * 2 * 528),
-    ("chain_decode", H, 3, 2 * 4 * 21760 + 16 * 2 * 528),
-    ("chain_decode", H, 8, 2 * 4 * 8192 + 16 * 2 * 528),
+    ("chain_decode", H, 3, 0),
+    ("chain_decode", H, 8, 0),
     ("chain_encode", 3, 8, 2 * 2 * 256 + 16 * 2 * 528),
 ])
 def test_chain_smem_bytes(name, width, K, want):
@@ -84,9 +86,10 @@ def test_chain_smem_bytes(name, width, K, want):
 @pytest.mark.parametrize("name,width,cluster,match", [
     ("chain_decode", 28929, 1, "shared memory"),
     ("chain_encode", H, 1, "shared memory"),
-    ("chain_decode", H, 2, "shared memory"),
-    ("chain_decode", 5008, 9, "1 to 8 CTAs"),
-    ("chain_encode", 65536, None, "16 bits"),
+    ("chain_decode", 131073, 2, "device memory"),  # 512 tiles a CTA
+    ("chain_decode", 5008, 17, "1 to 16 CTAs"),
+    ("chain_decode", 491506, None, "491505"),
+    ("chain_encode", 491506, None, "491505"),
 ])
 def test_cluster_size_refusals(name, width, cluster, match):
     with pytest.raises(ValueError, match=match):

@@ -152,16 +152,18 @@ def test_run_route_at_the_default_threshold(side, H):
     ([0] * 255 + [1] * 256 + [0] * 3 + [1] * 2, 10,
      [(0, 255, "step"), (255, 511, "haploid"), (511, 516, "step")]),
     ([0, 1] * 300, 10, [(0, 600, "step")]),
-    # diploid runs wider than the chains' 16-bit slot field step, haploid
-    # runs of ceil(H / 2) <= 65,535 samples take the chains
+    # runs wider than 65,535 slots take the chains with the wide state
     ([0] * 600 + [1] * 600, 65536,
-     [(0, 600, "step"), (600, 1200, "haploid")]),
-    ([1] * 600, 131071, [(0, 600, "step")]),
+     [(0, 600, "diploid"), (600, 1200, "haploid")]),
+    ([1] * 600, 131071, [(0, 600, "haploid")]),
     # where the stepping kernel's state is in device memory (H > 17,801),
     # runs of MIN_RUN_LINES_WIDE lines already take the chains
     ([0] * 16 + [1] * 15 + [0] * 40, 17802,
      [(0, 16, "diploid"), (16, 31, "step"), (31, 71, "diploid")]),
     ([0] * 16 + [1] * 15, 17801, [(0, 31, "step")]),
+    # and at the widest rows (the decode chain's rows in device memory)
+    ([0] * 600 + [1] * 600, 428033,
+     [(0, 600, "diploid"), (600, 1200, "haploid")]),
 ])
 def test_mixed_runs_pieces(hap, H, want):
     assert pbwt_torch.MIN_RUN_LINES == 256

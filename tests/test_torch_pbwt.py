@@ -123,11 +123,12 @@ def test_chunked_encode_decode_match_jax_and_numpy(L, H):
 
 
 def test_haplotype_guards():
-    big = torch.zeros((1, 65536), dtype=torch.int8)
-    with pytest.raises(ValueError, match="H <= 65535"):
+    # the chains take every width the format allows
+    big = torch.zeros((1, pbwt_kernels.MAX_RANK_H + 1), dtype=torch.int8)
+    with pytest.raises(ValueError, match="at most 491505"):
         pbwt_torch.pbwt_encode_chunked(big, torch.ones(1, dtype=torch.int32),
                                        torch.ones(1, dtype=torch.bool))
-    with pytest.raises(ValueError, match="H <= 65535"):
+    with pytest.raises(ValueError, match="at most 491505"):
         pbwt_torch.pbwt_decode_chunked(big.to(torch.uint8),
                                        torch.ones(1, dtype=torch.bool))
     assert pbwt_kernels.MAX_H_DECODE >= 5008

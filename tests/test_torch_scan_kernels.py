@@ -141,7 +141,7 @@ def test_rank_chain_wide_rows_take_the_plain_chain(monkeypatch):
         raise AssertionError("a kernel launched for a CPU tensor")
     monkeypatch.setattr(pbwt_kernels._build, "launch", no_launch)
     rng = np.random.default_rng(3)
-    for H in (5, pbwt_kernels.MAX_H + 1):
+    for H in (5, pbwt_kernels.SLOT16_H + 1):
         alleles = torch.from_numpy((rng.random((6, H)) < 0.3)
                                    .astype(np.int8))
         pbwt_torch.pbwt_encode_scan(alleles, torch.ones(6, dtype=torch.int32),

@@ -1,9 +1,11 @@
 """The torch port above the 16-bit slot field: H > 65,535 haplotypes.
 
-Wide blocks take the packed-key scan (pbwt_torch.pbwt_encode_scan) and the
-blocked decode (pbwt_torch.pbwt_decode_blocked) in place of the chunk
-chains, as the JAX package takes pbwt_jax.pbwt_encode_scan and
-pbwt_decode_blocked; their sparse and track streams are 32-bit.  The same
+The packed-key scan (pbwt_torch.pbwt_encode_scan) and the blocked decode
+(pbwt_torch.pbwt_decode_blocked) are the JAX package's wide forms
+(pbwt_jax.pbwt_encode_scan, pbwt_decode_blocked) and the chunk chains'
+plain counterparts there; the codec's route, the chains with the decode's
+wide state, is held in tests/test_torch_wide_chains.py.  Wide blocks'
+sparse and track streams are 32-bit.  The same
 seeded numpy inputs go through the port (CPU tensors, the kernels' plain
 versions) and the JAX package (XLA forms, the host codec, its CLI with
 the NumPy codec).  The wide blocks are 32,800 samples (H = 65,600) and a

@@ -185,8 +185,8 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
 
     Records are grouped by block.  A block TorchBlockDecoder.decode_bits
     takes decodes on the device (on "cuda": wah_expand_bits, then
-    chain_decode, or the blocked decode above 65,535 haplotypes; a
-    mixed-ploidy block through wah_expand_varw_bits and the mixed scan);
+    chain_decode and the run flush; a mixed-ploidy block through
+    wah_expand_varw_bits and the mixed scan);
     its bi-allelic records' lines are gathered there and multiplied in
     float32 with the phenotype weights, one product per block: y[h >> 1] on
     a diploid block, y on a uniformly haploid one (n_samples wide), and on

@@ -8,9 +8,9 @@ Port of xsqueezeit_tpu/codec/decoder_jax.py.  One block decodes as
     other lines, negated lines flip; then per-ALT overlays on the host.
 
 Uniformly diploid and uniformly haploid blocks take this path (haploid
-ones at H = n_samples); above 65,535 haplotypes the blocked decode
-(pbwt_torch.pbwt_decode_blocked) takes the chains' place and the sparse
-and track streams are 32-bit.  A whole mixed-ploidy block expands at
+ones at H = n_samples); above 65,535 haplotypes the chains keep wider
+states in chunks of fewer lines (pbwt_kernels.decode_chunk) and the
+sparse and track streams are 32-bit.  A whole mixed-ploidy block expands at
 per-line widths (wah_expand_varw_bits) and runs the parity-reconstructing
 scan run by run of one ploidy (_decode_block_mixed).  Anything else -- a
 record subset of a mixed block, or a LINE_SORT track that differs from
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..format.constants import INT32_VECTOR_END, WeirdnessStrategy
-from ..ops import pbwt_kernels, pbwt_np, pbwt_torch, wah_kernels, wah_np
+from ..ops import pbwt_np, pbwt_torch, wah_kernels, wah_np
 from ..ops import wah_torch
 from ..ops.sparse_np import msb as _msb, sparse_line_offsets
 from .gt_block_decoder import GtBlockDecoder
@@ -36,11 +36,7 @@ def _decode_wah_and_scan(stream, sorts, h: int, w: int) -> torch.Tensor:
     natural-order bits uint8[Lw, h].  stream: uint16[N] the lines' words
     back to back; sorts: bool[Lw]."""
     ys = wah_kernels.wah_expand_bits(stream, sorts.shape[0], w, h)
-    # the chunk chains keep slots in 16 bits; wider blocks take the
-    # blocked decode
-    decode = (pbwt_torch.pbwt_decode_chunked if h <= pbwt_kernels.MAX_H
-              else pbwt_torch.pbwt_decode_blocked)
-    vals, _ = decode(ys, sorts)
+    vals, _ = pbwt_torch.pbwt_decode_chunked(ys, sorts)
     return vals
 
 

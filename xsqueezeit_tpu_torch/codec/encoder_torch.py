@@ -13,9 +13,10 @@ and the host assembles the byte-exact GT block payload through
 encoder_base, exactly as for the JAX and NumPy encoders.  Line classes are
 host-known (per-record carrier counts taken at ingest), so the chain runs
 only over the WAH rows and the extraction only over the sparse rows.
-Blocks wider than 65,535 haplotypes, whose slots do not fit the chains'
-16-bit fields, take the packed-key scan (pbwt_torch.pbwt_encode_scan) in
-place of the chains; their sparse and track streams are 32-bit.
+The encode chain takes every width the format allows (a cluster of 8
+CTAs above 57,856 haplotypes, 16 above 428,032); blocks wider than 65,535
+haplotypes
+have 32-bit sparse and track streams.
 Mixed-ploidy blocks take the parity scan (encode_block_core_mixed).
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..format.constants import WeirdnessStrategy
-from ..ops import pbwt_kernels, pbwt_torch, wah_kernels, wah_torch
+from ..ops import pbwt_torch, wah_kernels, wah_torch
 from .encoder_base import EOV_CODE, MISSING_CODE, BlockEncoderBase
 
 def carrier_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
@@ -65,11 +66,8 @@ def encode_block_core_compact(alleles, alts, wah_rows, sorts_w, sparse_rows,
     int32[Ls, sparse_cap], sparse_len int64[Ls], rows in the order given.
     """
     aw = alleles.index_select(0, wah_rows)
-    # the chunk chains keep slots in 16 bits; wider blocks take the scan
-    encode = (pbwt_torch.pbwt_encode_chunked
-              if aw.shape[1] <= pbwt_kernels.MAX_H
-              else pbwt_torch.pbwt_encode_scan)
-    ys, _ = encode(aw, alts.index_select(0, wah_rows), sorts_w)
+    ys, _ = pbwt_torch.pbwt_encode_chunked(aw, alts.index_select(0, wah_rows),
+                                           sorts_w)
     wah_words, wah_len = _wah_rows(ys)
 
     sp = alleles.index_select(0, sparse_rows)

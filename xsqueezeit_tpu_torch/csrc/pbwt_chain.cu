@@ -2,7 +2,9 @@
 // cluster per chunk of C <= 16 lines.
 //
 // Replaces xsqueezeit_tpu/ops/pbwt_pallas.py _chain_encode_kernel (:133-170)
-// and _chain_decode_kernel (:76-130).
+// and _chain_decode_kernel (:76-130), and above 65,535 haplotypes, with the
+// rank chain and the run flush, the XLA programs the JAX package runs there:
+// pbwt_jax.py pbwt_encode_scan (:48) and pbwt_decode_blocked (:456).
 //
 // What they compute.  A chunk's state is one value per haplotype slot in
 // arrangement order.  For each line j of the chunk the bit of line j is read
@@ -10,9 +12,14 @@
 // bit (zeros keep their order at the front, ones follow in order).
 //   encode: the state is each haplotype's 16-bit register of the chunk's
 //           bits (bit j = line j); line j's output is bit j of every slot.
-//   decode: the state is (chunk-start slot << 16) | beta; line j's input bit
+//   decode: the state is (chunk-start slot << sh) | beta; line j's input bit
 //           is ORed into beta at bit j before the partition, so it travels
 //           with its haplotype.  The final state is the kernel's output.
+//           sh = 16 up to 65,536 slots (the narrow form); above that the
+//           wrapper makes the chunks C = 32 - ceil(log2 H) lines long and
+//           sh = C, so the slot's bits and beta share the 32 bits (14 lines
+//           at TOPMed's 194,512 haplotypes, 13 at the format's 491,505);
+//           the state's top bit may then be set: it is unsigned throughout.
 //
 // What bounds them on this card.  The chain is sequential over the C lines
 // of a chunk and every partition is a permutation of the whole row, so the
@@ -45,15 +52,19 @@
 // they sort as ones behind every real one, so they stay at the tail and the
 // first H slots are the real row.
 //
-// Two routes, chosen by the wrapper (ops/pbwt_kernels.py) from H:
+// Routes, chosen by the wrapper (ops/pbwt_kernels.py) from H:
 //
 // One CTA per chunk (xsi_chain_encode / xsi_chain_decode) while the
 // double-buffered row fits the 227 KB one CTA may use: H <= 57,856 (encode)
 // or 28,928 (decode), 226 tiles.  The runs are written straight into the
 // next buffer.
 //
-// A cluster of K <= 8 CTAs per chunk (the *_cluster entry points) above
-// that, up to H = 65,535 (the 16-bit slot field).  CTA r owns the global
+// The encode on a cluster of K <= 16 CTAs per chunk
+// (xsi_chain_encode_cluster) above that: 8 up to 428,032 haplotypes, 16
+// above (a non-portable cluster size, checked with
+// cudaOccupancyMaxActiveClusters before the launch), up to the format's
+// 491,505.  Global slots, run offsets and counters are ints (< 2^19 at
+// 491,505).  CTA r owns the global
 // slots [r*S, r*S + S), S = ceil(H / K) rounded up to whole tiles.  A warp
 // first stages its two runs in its own shared memory, shifted so that a
 // staged index and its destination slot agree modulo 16 bytes; then each
@@ -62,21 +73,32 @@
 // two ragged ends).  A run is at most one tile and S is whole tiles, so it
 // spans at most two owners: the owner is computed once per run.
 // Barriers: one cluster barrier per sorting line.  Placing CTA r's slots
-// needs the ones count of the line before slot r*S and in all.  Decode reads
-// them from the line's input row, which holds the line's bit of every slot
-// in the arrangement the line partitions, so all C lines' counts are known
+// needs the ones count of the line before slot r*S and in all.  The bits
+// live only in the registers, so while the runs of line j are stored, each
+// warp also counts the next sorting line's bits per destination CTA and
+// adds them to that CTA's counter with one warp-aggregated atomic per run
+// through distributed shared memory; the barrier that ends line j then also
+// completes every count the next sorting line needs.  The counters rotate
+// over three slots: one is read by line j, one is filled during line j, and
+// the CTA clears the third, which every CTA finished reading before the
+// previous barrier.  The first sorting line of a chunk takes one extra
+// barrier for its counts.
+//
+// The decode on a cluster of K <= 16 CTAs per chunk (xsi_chain_decode_rows)
+// above one CTA's bound, up to the format's 491,505, with both rows in
+// device memory (a scratch of 2 K S states a chunk; 16 CTAs by default).
+// CTA r owns the slots [r S, r S + S) of the current row, as the encode's
+// CTAs do.  The decode's bit of line j at slot g is the input byte yc[j][g]
+// in the arrangement line j partitions, so all C lines' counts are known
 // before the chain starts: each CTA counts every line in its own slots, one
 // cluster barrier at the chunk's start publishes them, and no count crosses
-// between CTAs after that.  Encode's bits live only in the registers, so
-// while the runs of line j are stored, each warp also counts the next
-// sorting line's bits per destination CTA and adds them to that CTA's
-// counter with one warp-aggregated atomic per run through distributed
-// shared memory; the barrier that ends line j then also completes every
-// count the next sorting line needs.  The counters rotate over three slots:
-// one is read by line j, one is filled during line j, and the CTA clears the
-// third, which every CTA finished reading before the previous barrier.
-// Encode's first sorting line of a chunk takes one extra barrier for its
-// counts.  PERF.md has both routes' times beside their bounds.
+// between CTAs after that.  The scatter stores every element straight at
+// its global slot of the next row, as the one-CTA route does in shared
+// memory, and the cluster barrier that ends the line orders those stores
+// before any CTA reads them.  It moves each line's row through device
+// memory (or L2) three times; at HRC and TOPMed widths it ran faster than
+// the same chain with its rows in the cluster's shared memory, which this
+// route replaced (PERF.md has the times).
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -86,7 +108,8 @@ namespace cg = cooperative_groups;
 
 constexpr int CHAIN_THREADS = 512;
 constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
-constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int PORTABLE_CLUSTER = 8;
+constexpr int MAX_CLUSTER = 16;  // non-portable above 8 (an H100 takes 16)
 constexpr int LANE_BYTES = 16;
 constexpr int TILE_BYTES = 32 * LANE_BYTES;
 // Shared memory one CTA may use on an H100, and what is left of it for the
@@ -95,6 +118,9 @@ constexpr int TILE_BYTES = 32 * LANE_BYTES;
 constexpr int SMEM_LIMIT = 227 * 1024;
 constexpr int STATIC_RESERVE = 1024;
 constexpr int MAX_TILES = (SMEM_LIMIT - STATIC_RESERVE) / (2 * TILE_BYTES);
+// Tiles a CTA owns on the decode's cluster route, rows in device memory
+// (65,536 slots).
+constexpr int MAX_TILES_ROWS = 512;
 // Returned when no cluster of the requested shape fits on the device.
 constexpr int XSI_ERR_NO_CLUSTER = 100001;
 
@@ -103,7 +129,8 @@ struct Chain {
     using T = typename std::conditional<DEC, uint32_t, uint16_t>::type;
     static constexpr int VEC = LANE_BYTES / sizeof(T);  // elements per lane
     static constexpr int TILE = 32 * VEC;               // elements per tile
-    // staging of one warp (cluster route): two runs, each shifted by < VEC
+    // staging of one warp (the encode's cluster route): two runs, each
+    // shifted by < VEC
     static constexpr int STAGE = 2 * (TILE + VEC);
 };
 
@@ -126,11 +153,12 @@ __device__ __forceinline__ uint32_t load_bits4(const uint8_t* row, int g,
     return b;
 }
 
-// Load the chunk's starting row into this CTA's slots, pads past H.
+// Load the chunk's starting row into this CTA's slots, pads past H; a
+// decode state starts as (slot << sh).
 template <bool DEC>
 __device__ __forceinline__ void load_row(typename Chain<DEC>::T* cur,
                                          const void* in, long ch, int H,
-                                         int base, int S) {
+                                         int base, int S, int sh) {
     using T = typename Chain<DEC>::T;
     constexpr int VEC = Chain<DEC>::VEC;
     for (int gi = threadIdx.x; gi < S / VEC; gi += CHAIN_THREADS) {
@@ -139,7 +167,7 @@ __device__ __forceinline__ void load_row(typename Chain<DEC>::T* cur,
         if constexpr (DEC) {
 #pragma unroll
             for (int i = 0; i < VEC; ++i)
-                grp.v[i] = g + i < H ? (T)((uint32_t)(g + i) << 16) : (T)~0u;
+                grp.v[i] = g + i < H ? (T)((uint32_t)(g + i) << sh) : (T)~0u;
         } else {
             const int32_t* q = static_cast<const int32_t*>(in) + ch * H;
             if ((H & 3) == 0 && g + VEC <= H) {
@@ -159,18 +187,16 @@ __device__ __forceinline__ void load_row(typename Chain<DEC>::T* cur,
     }
 }
 
-// Store one staged run -- global slots [d, d + n), staged so that
-// `staged[k]` belongs at slot (d - d % VEC) + k -- into the owners' next
-// buffers, and add its elements' bits of the next sorting line `jn` (if
-// any; encode only) to the owners' counters `cnt`.  Warp-uniform
+// The encode's cluster route: store one staged run -- global slots [d, d +
+// n), staged so that `staged[k]` belongs at slot (d - d % VEC) + k -- into
+// the owners' next buffers, and add its elements' bits of the next sorting
+// line `jn` (if any) to the owners' counters `cnt`.  Warp-uniform
 // arguments.
-template <bool DEC>
-__device__ __forceinline__ void store_run(const typename Chain<DEC>::T* staged,
-                                          typename Chain<DEC>::T* nxt,
-                                          int* cnt, int d, int n, int S,
-                                          int K, int jn) {
-    using T = typename Chain<DEC>::T;
-    constexpr int VEC = Chain<DEC>::VEC;
+__device__ __forceinline__ void store_run(const uint16_t* staged,
+                                          uint16_t* nxt, int* cnt, int d,
+                                          int n, int S, int K, int jn) {
+    using T = uint16_t;
+    constexpr int VEC = Chain<false>::VEC;
     if (n == 0) return;
     cg::cluster_group cluster = cg::this_cluster();
     const int lane = threadIdx.x & 31;
@@ -216,19 +242,24 @@ __device__ __forceinline__ void store_run(const typename Chain<DEC>::T* staged,
     }
 }
 
-// One chunk per CTA (CL false) or per cluster of K CTAs (CL true).
+// One chunk per CTA (CL false) or per cluster of K CTAs (CL true), the
+// rows in shared memory, or (the decode on a cluster, GM) in device memory
+// at `rows` (2 K S states a chunk).
 //   encode (DEC false): in = q0 int32[n_ch, H], out = y uint8[n_ch, C, H];
-//   decode (DEC true):  in = yc uint8[n_ch, C, H], out = uint32[n_ch, H].
+//   decode (DEC true):  in = yc uint8[n_ch, C, H], out = uint32[n_ch, H],
+//                       the states (slot << sh) | beta (C <= sh).
 // S: slots per CTA, a whole number of tiles (K * S >= H).
 template <bool DEC, bool CL>
 __global__ void __launch_bounds__(CHAIN_THREADS)
 chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
-             void* __restrict__ out, int H, int C, int S) {
+             void* __restrict__ out, uint32_t* __restrict__ rows, int H,
+             int C, int S, int sh) {
+    constexpr bool GM = DEC && CL;
     using T = typename Chain<DEC>::T;
     constexpr int VEC = Chain<DEC>::VEC;
     constexpr int TILE = Chain<DEC>::TILE;
     extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int tile_ones[MAX_TILES];
+    __shared__ int tile_ones[GM ? MAX_TILES_ROWS : MAX_TILES];
     __shared__ int cta_ones[3];  // cluster encode: rotating line counters
     // cluster decode: each line's ones in this CTA's slots, and in the
     // slots before them and in all (pads included)
@@ -245,15 +276,24 @@ chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
     const int base = rank * S;  // global slot of this CTA's first slot
     const int NT = S / TILE;
     const int per = (NT + 31) >> 5;  // tiles per lane in the tile scan
+    // the rows: this CTA's share of the current one (`cur`) and where the
+    // scatter stores (`nxt`: the next row's own share in shared memory on
+    // the cluster route, whole rows on the one-CTA and device routes)
     T* cur = reinterpret_cast<T*>(smem);
     T* nxt = cur + S;
-    T* stage = nxt + S + warp * Chain<DEC>::STAGE;  // cluster route only
+    T* stage = nxt + S + warp * Chain<DEC>::STAGE;  // the encode's cluster
+    T* cur_row = nullptr;
+    if constexpr (GM) {
+        cur_row = reinterpret_cast<T*>(rows) + ch * 2 * (long)K * S;
+        nxt = cur_row + (long)K * S;
+        cur = cur_row + base;
+    }
     const uint8_t* yc = static_cast<const uint8_t*>(in);
     unsigned sorts = 0;  // bit j: line j sorts (uniform in the cluster)
     for (int j = 0; j < C; ++j)
         sorts |= (unsigned)(ss[ch * C + j] != 0) << j;
 
-    load_row<DEC>(cur, in, ch, H, base, S);
+    load_row<DEC>(cur, in, ch, H, base, S, sh);
     if constexpr (CL && DEC) {
         if (sorts) {
             // Decode's bit of line j at slot g is the input byte yc[j][g]
@@ -412,7 +452,7 @@ chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
                 const bool b = (v >> j) & 1;
                 const unsigned bal = __ballot_sync(0xffffffffu, b);
                 const int ob = __popc(bal & ((1u << lane) - 1u));
-                if constexpr (CL) {
+                if constexpr (CL && !DEC) {
                     if (b) ost[os + ob] = v;
                     else zst[zs + lane - ob] = v;
                 } else {
@@ -421,13 +461,12 @@ chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
                 os += __popc(bal);
                 zs += 32 - __popc(bal);
             }
-            if constexpr (CL) {
+            if constexpr (CL && !DEC) {
                 __syncwarp();
                 int* cnt = &cta_ones[(s + 1) % 3];
-                store_run<DEC>(stage, nxt, cnt, zdst, TILE - n_ones, S, K,
-                               jn);
-                store_run<DEC>(stage + TILE + VEC, nxt, cnt, odst, n_ones, S,
-                               K, jn);
+                store_run(stage, nxt, cnt, zdst, TILE - n_ones, S, K, jn);
+                store_run(stage + TILE + VEC, nxt, cnt, odst, n_ones, S, K,
+                          jn);
                 __syncwarp();  // the staging is free for the next tile
             }
         }
@@ -439,9 +478,16 @@ chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
         } else {
             __syncthreads();
         }
-        T* tmp = cur;
-        cur = nxt;
-        nxt = tmp;
+        if constexpr (GM) {
+            T* tmp = cur_row;
+            cur_row = nxt;
+            nxt = tmp;
+            cur = cur_row + base;
+        } else {
+            T* tmp = cur;
+            cur = nxt;
+            nxt = tmp;
+        }
         ++s;
     }
 
@@ -464,7 +510,8 @@ chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
 
 // Slots per CTA of a K-CTA chain at width H (whole tiles), and its dynamic
 // shared memory: the double-buffered slots, plus every warp's staging on
-// the cluster route.  Mirrors ops/pbwt_kernels.py chain_smem_bytes.
+// the encode's cluster route; the decode's cluster keeps its rows in device
+// memory and takes none.  Mirrors ops/pbwt_kernels.py chain_smem_bytes.
 template <bool DEC>
 static int slots_per_cta(int H, int K) {
     constexpr int TILE = Chain<DEC>::TILE;
@@ -475,6 +522,7 @@ static int slots_per_cta(int H, int K) {
 template <bool DEC>
 static size_t smem_bytes(int S, int K) {
     using T = typename Chain<DEC>::T;
+    if (DEC && K > 1) return 0;
     size_t b = 2 * sizeof(T) * (size_t)S;
     if (K > 1) b += sizeof(T) * (size_t)CHAIN_WARPS * Chain<DEC>::STAGE;
     return b;
@@ -482,7 +530,8 @@ static size_t smem_bytes(int S, int K) {
 
 template <bool DEC>
 static int launch_one_cta(const void* in, const void* ss, void* out,
-                          int n_ch, int H, int C, cudaStream_t stream) {
+                          int n_ch, int H, int C, int sh,
+                          cudaStream_t stream) {
     const int S = slots_per_cta<DEC>(H, 1);
     if (S / Chain<DEC>::TILE > MAX_TILES) return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes<DEC>(S, 1);
@@ -492,24 +541,32 @@ static int launch_one_cta(const void* in, const void* ss, void* out,
     if (e != cudaSuccess) return (int)e;
     if (n_ch > 0)
         chain_kernel<DEC, false><<<n_ch, CHAIN_THREADS, smem, stream>>>(
-            in, (const uint8_t*)ss, out, H, C, S);
+            in, (const uint8_t*)ss, out, nullptr, H, C, S, sh);
     return (int)cudaGetLastError();
 }
 
-// Launch the K-CTA route on n_ch clusters.  Refuses (XSI_ERR_NO_CLUSTER)
-// when the device cannot hold one such cluster.
+// Launch the K-CTA route on n_ch clusters (the decode's with its rows at
+// `rows`).  Refuses (XSI_ERR_NO_CLUSTER) when the device cannot hold one
+// such cluster.
 template <bool DEC>
 static int launch_cluster(const void* in, const void* ss, void* out,
-                          int n_ch, int H, int C, int K,
+                          void* rows, int n_ch, int H, int C, int sh, int K,
                           cudaStream_t stream) {
-    if (K < 1 || K > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    if (K < 1 || K > MAX_CLUSTER || (DEC && rows == nullptr))
+        return (int)cudaErrorInvalidValue;
     const int S = slots_per_cta<DEC>(H, K);
-    if (S / Chain<DEC>::TILE > MAX_TILES) return (int)cudaErrorInvalidValue;
+    if (S / Chain<DEC>::TILE > (DEC ? MAX_TILES_ROWS : MAX_TILES))
+        return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes<DEC>(S, K);
     auto kernel = chain_kernel<DEC, true>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    if (K > PORTABLE_CLUSTER) {
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+    }
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = K;
@@ -527,35 +584,47 @@ static int launch_cluster(const void* in, const void* ss, void* out,
     if (e != cudaSuccess) return (int)e;
     if (n_clusters < 1) return XSI_ERR_NO_CLUSTER;
     if (n_ch == 0) return 0;
-    e = cudaLaunchKernelEx(&cfg, kernel, in, (const uint8_t*)ss, out, H, C,
-                           S);
+    e = cudaLaunchKernelEx(&cfg, kernel, in, (const uint8_t*)ss, out,
+                           (uint32_t*)rows, H, C, S, sh);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
+// The decode entry points take the state's shift sh: C <= sh <= 16 and
+// the slots below 2^(32 - sh).
+static bool bad_shift(int H, int C, int sh) {
+    return sh < C || sh > 16 || (H > 1 && ((uint32_t)(H - 1) >> (32 - sh)));
+}
+
 extern "C" int xsi_chain_encode(const void* q0, const void* ss, void* y,
                                 int n_ch, int H, int C, void* stream) {
-    return launch_one_cta<false>(q0, ss, y, n_ch, H, C,
+    return launch_one_cta<false>(q0, ss, y, n_ch, H, C, 0,
                                  (cudaStream_t)stream);
 }
 
 extern "C" int xsi_chain_decode(const void* yc, const void* ss, void* out,
-                                int n_ch, int H, int C, void* stream) {
-    return launch_one_cta<true>(yc, ss, out, n_ch, H, C,
+                                int n_ch, int H, int C, int sh,
+                                void* stream) {
+    if (bad_shift(H, C, sh)) return (int)cudaErrorInvalidValue;
+    return launch_one_cta<true>(yc, ss, out, n_ch, H, C, sh,
                                 (cudaStream_t)stream);
 }
 
 extern "C" int xsi_chain_encode_cluster(const void* q0, const void* ss,
                                         void* y, int n_ch, int H, int C,
                                         int K, void* stream) {
-    return launch_cluster<false>(q0, ss, y, n_ch, H, C, K,
+    return launch_cluster<false>(q0, ss, y, nullptr, n_ch, H, C, 0, K,
                                  (cudaStream_t)stream);
 }
 
-extern "C" int xsi_chain_decode_cluster(const void* yc, const void* ss,
-                                        void* out, int n_ch, int H, int C,
-                                        int K, void* stream) {
-    return launch_cluster<true>(yc, ss, out, n_ch, H, C, K,
+// The decode on a cluster of K CTAs with both rows in device memory:
+// `rows` holds 2 K S uint32 states a chunk, S = ceil(H / K) in whole tiles
+// (mirrors ops/pbwt_kernels.py chain_rows_slots).
+extern "C" int xsi_chain_decode_rows(const void* yc, const void* ss,
+                                     void* out, void* rows, int n_ch, int H,
+                                     int C, int sh, int K, void* stream) {
+    if (bad_shift(H, C, sh)) return (int)cudaErrorInvalidValue;
+    return launch_cluster<true>(yc, ss, out, rows, n_ch, H, C, sh, K,
                                 (cudaStream_t)stream);
 }
 

@@ -36,15 +36,15 @@ _S = ctypes.c_size_t
 #: C entry points: name -> argument types (each returns a cudaError_t).
 ENTRY_POINTS = {
     "xsi_chain_encode": (_P, _P, _P, _I, _I, _I, _P),
-    "xsi_chain_decode": (_P, _P, _P, _I, _I, _I, _P),
+    "xsi_chain_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
     "xsi_chain_encode_cluster": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "xsi_chain_decode_cluster": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "xsi_chain_decode_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "xsi_wah_expand": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "xsi_wah_compress": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "xsi_rank_chain": (_P, _P, _P, _P, _P, _S, _I, _I, _P),
     "xsi_decode_scan_mixed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "xsi_decode_run_flush": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _P),
+                             _I, _I, _P),
 }
 
 _lock = threading.Lock()

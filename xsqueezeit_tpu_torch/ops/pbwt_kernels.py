@@ -15,10 +15,18 @@ fallback from one to the other.
 
 Each chain runs on one CTA while its double-buffered row fits one CTA's
 shared memory (H <= MAX_H_ENCODE / MAX_H_DECODE), and on a thread-block
-cluster of 8 CTAs above that, up to H = 65,535 (at HRC width, 64,976
-haplotypes, 8 CTAs ran both chains faster than 2, 3 or 4 on an H100;
-PERF.md has the times).  ``cluster`` picks the route explicitly (see
-:func:`cluster_size`).  ``launches`` counts kernel launches per route.
+cluster above that, up to the format's widest panel (MAX_RANK_H =
+491,505).  The encode, whose state is a 16-bit register, keeps the row in
+the cluster's shared memory: 8 CTAs (at HRC width, 64,976 haplotypes, 8
+ran faster than 2, 3 or 4 on an H100; PERF.md has the times), 16 where 8
+do not hold it.  The decode, whose 4-byte state (chunk-start slot <<
+shift) | beta keeps shift = 16 up to 65,536 slots and shift = C = 32 -
+ceil(log2 H) lines a chunk above (decode_chunk), runs on 16 CTAs with
+both rows in device memory (chain_decode_rows in ``launches``): at HRC
+and TOPMed widths that ran faster than the cluster's shared memory.  Each
+bound follows from chain_max_h.  ``cluster`` picks the route explicitly
+(see :func:`cluster_size`).  ``launches`` counts kernel launches per
+route (:func:`chain_route`).
 
 The kernels own the row by warp tiles of 512 bytes (32 lanes x 16 bytes)
 and pad it to whole tiles; :func:`chain_smem_bytes` mirrors their shared
@@ -37,59 +45,137 @@ _SMEM_BYTES = 227 * 1024 - 1024
 TILE_BYTES = 32 * 16
 #: Threads (hence warps) per CTA of either route.
 CHAIN_WARPS = 512 // 32
-#: Largest H the one-CTA kernels hold: a double-buffered row of 16-bit
-#: registers (encode) or of 32-bit (slot << 16 | beta) states (decode),
-#: in whole tiles.
-MAX_H_ENCODE = _SMEM_BYTES // (2 * TILE_BYTES) * TILE_BYTES // 2
-MAX_H_DECODE = _SMEM_BYTES // (2 * TILE_BYTES) * TILE_BYTES // 4
-#: Largest H of either route: the decode state keeps the slot in 16 bits.
-MAX_H = 65535
-#: Most CTAs in a cluster (the portable cluster size).
-MAX_CLUSTER = 8
+#: The widest row whose slots fit 16 bits: the narrow decode state (slot
+#: << 16 | beta), the run flush's one-CTA route, the rank chain's 2-byte
+#: dense ranks.
+SLOT16_H = 65535
+#: The format's widest panel (32,767 WAH words of 15 haplotypes a line):
+#: the rank chain and the encode chain take every width up to it.
+MAX_RANK_H = 491505
+#: Cluster sizes: 8 is portable; 16, the most an H100 takes, needs the
+#: kernels' non-portable attribute.
+PORTABLE_CLUSTER = 8
+MAX_CLUSTER = 16
 #: Bytes per haplotype of each chain's state.
 _STATE_BYTES = {"chain_encode": 2, "chain_decode": 4}
+#: CTAs a chunk of the run flush above SLOT16_H slots.
+FLUSH_CLUSTER = 8
 
 #: Kernel launches since the last reset, by kernel route.
 launches = {"chain_encode": 0, "chain_decode": 0,
-            "chain_encode_cluster": 0, "chain_decode_cluster": 0,
-            "rank_chain": 0, "decode_scan_mixed": 0, "decode_run_flush": 0}
+            "chain_encode_cluster": 0, "chain_decode_rows": 0,
+            "rank_chain": 0, "decode_scan_mixed": 0, "decode_run_flush": 0,
+            "decode_run_flush_cluster": 0}
+
+
+#: Tiles a CTA owns on the decode's cluster route, rows in device memory
+#: (csrc/pbwt_chain.cu MAX_TILES_ROWS): 65,536 slots.
+MAX_TILES_ROWS = 512
+
+
+def _rows_in_device_memory(name: str, K: int) -> bool:
+    """The decode on a cluster keeps both rows in device memory."""
+    return name == "chain_decode" and K > 1
+
+
+def _staging_bytes(K: int) -> int:
+    """Every warp's staging of two runs (a tile and 16 bytes each) on the
+    encode's cluster route."""
+    return CHAIN_WARPS * 2 * (TILE_BYTES + 16) if K > 1 else 0
+
+
+def chain_slots(name: str, H: int, K: int) -> int:
+    """Slots a CTA of kernel `name` owns on K CTAs at width H: ceil(H / K)
+    in whole tiles (256 u16 registers or 128 u32 states)."""
+    tile = TILE_BYTES // _STATE_BYTES[name]
+    return -(-(-(-H // K)) // tile) * tile
 
 
 def chain_smem_bytes(name: str, H: int, K: int) -> int:
     """Dynamic shared memory per CTA of kernel `name` on K CTAs at width
-    H: each CTA's share of the row, rounded up to whole tiles and double
-    buffered, plus on the cluster route every warp's staging of two runs
-    (a tile and 16 bytes each)."""
+    H: each CTA's slots double buffered, plus on the encode's cluster
+    route every warp's staging; 0 for the decode on a cluster, whose rows
+    are in device memory."""
+    if _rows_in_device_memory(name, K):
+        return 0
     state = _STATE_BYTES[name]
-    tile = TILE_BYTES // state
-    slots = -(-(-(-H // K)) // tile) * tile
-    staging = CHAIN_WARPS * 2 * (TILE_BYTES + 16) if K > 1 else 0
-    return 2 * state * slots + staging
+    return 2 * state * chain_slots(name, H, K) + _staging_bytes(K)
+
+
+def chain_max_h(name: str, K: int) -> int:
+    """The widest row kernel `name` holds on K CTAs: K times the whole
+    tiles a CTA owns, which are those of its shared memory, double
+    buffered, after the staging (MAX_TILES_ROWS for the decode on a
+    cluster)."""
+    tile = TILE_BYTES // _STATE_BYTES[name]
+    if _rows_in_device_memory(name, K):
+        return MAX_TILES_ROWS * tile * K
+    state = _STATE_BYTES[name]
+    return (_SMEM_BYTES - _staging_bytes(K)) // (2 * state) // tile * tile * K
+
+
+#: The widest rows of the one-CTA routes (57,856 encode, 28,928 decode).
+MAX_H_ENCODE = chain_max_h("chain_encode", 1)
+MAX_H_DECODE = chain_max_h("chain_decode", 1)
 
 
 def cluster_size(name: str, H: int, cluster: int | None = None) -> int:
     """CTAs per chain for kernel `name` at width H: 1 is the one-CTA
     route, K >= 2 a cluster of K CTAs.
 
-    cluster=None picks 1 while the row fits one CTA and else
-    MAX_CLUSTER; an int asks for that many CTAs (so a cluster can also run
-    a narrow row).  Raises ValueError for a size the shared memory or the
-    cluster limit refuses, and for H > 65,535."""
-    if H > MAX_H:
-        raise ValueError(f"{name} keeps slots in 16 bits: H <= {MAX_H} "
-                         f"(got {H})")
+    cluster=None picks one CTA while its shared memory holds the row, else
+    for the encode the first of 8 and 16 CTAs whose shared memory does,
+    for the decode 16 CTAs (rows in device memory); an int asks for that
+    many CTAs (so a cluster can also run a narrow row).  Raises ValueError
+    for a size the shared memory, the cluster limit or MAX_TILES_ROWS
+    refuses, and for H > MAX_RANK_H."""
+    if H > MAX_RANK_H:
+        raise ValueError(f"{name} takes at most {MAX_RANK_H} haplotypes, "
+                         f"the format's widest panel (got {H})")
     if cluster is None:
-        K = 1 if chain_smem_bytes(name, H, 1) <= _SMEM_BYTES else MAX_CLUSTER
+        sizes = ((1, PORTABLE_CLUSTER, MAX_CLUSTER) if name == "chain_encode"
+                 else (1, MAX_CLUSTER))
+        K = next(k for k in sizes
+                 if H <= chain_max_h(name, k) or k == MAX_CLUSTER)
     else:
         K = int(cluster)
     if not 1 <= K <= MAX_CLUSTER:
         raise ValueError(f"{name}: a chain runs on 1 to {MAX_CLUSTER} CTAs "
                          f"(got {K})")
-    if chain_smem_bytes(name, H, K) > _SMEM_BYTES:
-        raise ValueError(f"{name} on {K} CTA(s) needs "
-                         f"{chain_smem_bytes(name, H, K)} B of shared memory "
-                         f"per CTA at H = {H}; {_SMEM_BYTES} B fit")
+    if H > chain_max_h(name, K):
+        where = ("device memory" if _rows_in_device_memory(name, K)
+                 else "shared memory")
+        raise ValueError(f"{name} on {K} CTA(s) holds at most "
+                         f"{chain_max_h(name, K)} haplotypes in {where} "
+                         f"(got H = {H})")
     return K
+
+
+def chain_route(name: str, K: int) -> str:
+    """The ``launches`` key of kernel `name` on K CTAs."""
+    if K == 1:
+        return name
+    return "chain_decode_rows" if name == "chain_decode" else f"{name}_cluster"
+
+
+def _slot_bits(W: int) -> int:
+    """Bits of a slot index below W (at least 1)."""
+    return max(int(W - 1).bit_length(), 1)
+
+
+def decode_chunk(W: int) -> int:
+    """Lines a chunk of the decode chain at W slots, which is also its
+    state's shift: 16 while the slots fit 16 bits (W <= 65,536), else C =
+    32 - ceil(log2 W), so that (slot << C) | beta fills the 32 bits (15 at
+    65,600, 14 at 194,512, 13 at 491,505)."""
+    return min(16, 32 - _slot_bits(W))
+
+
+def _check_chunk(name: str, W: int, C: int) -> None:
+    """A chunk's beta must fit beside the slot: C <= decode_chunk(W)."""
+    if C > decode_chunk(W):
+        raise ValueError(f"{name}: a chunk of a row of {W} slots holds at "
+                         f"most {decode_chunk(W)} lines (got {C})")
 
 
 def _inverse(perm: torch.Tensor) -> torch.Tensor:
@@ -141,12 +227,13 @@ def chain_encode_plain(q0: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
 
 def chain_decode_plain(yc: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
     """yc: uint8[n_ch, C, H] bits in arrangement order; ss: bool[n_ch, C].
-    Returns int64[n_ch, H]: per end-of-chunk slot, (chunk-start slot << 16)
-    | beta, where bit j of beta is the element's bit on chunk line j."""
+    Returns int64[n_ch, H]: per end-of-chunk slot, (chunk-start slot <<
+    decode_chunk(H)) | beta, where bit j of beta is the element's bit on
+    chunk line j (below 2^32; the top bit may be set)."""
     n_ch, C, H = yc.shape
     sorts = ss.to(torch.bool)
     iota = torch.arange(H, device=yc.device)
-    p = (iota << 16).expand(n_ch, H).clone()
+    p = (iota << decode_chunk(H)).expand(n_ch, H).clone()
     for j in range(C):
         y = yc[:, j].to(torch.int64)
         p = p | (y << j)
@@ -174,17 +261,6 @@ def _flags(name: str, ss: torch.Tensor, n_ch: int,
     return ss.contiguous().view(torch.uint8)
 
 
-def _launch(name: str, device, K: int, *args) -> None:
-    """Launch `name`'s one-CTA kernel (K = 1) or its K-CTA cluster kernel
-    and count the launch under its route."""
-    if K == 1:
-        _build.launch(device, f"xsi_{name}", *args)
-        _build.count(launches, name)
-    else:
-        _build.launch(device, f"xsi_{name}_cluster", *args, K)
-        _build.count(launches, f"{name}_cluster")
-
-
 def chain_encode(q0: torch.Tensor, ss: torch.Tensor,
                  cluster: int | None = None) -> torch.Tensor:
     """Encode chunk chains (see chain_encode_plain for the contract) on
@@ -198,8 +274,12 @@ def chain_encode(q0: torch.Tensor, ss: torch.Tensor,
     C = flags.shape[1]
     q0 = q0.contiguous()
     y = torch.empty((n_ch, C, H), dtype=torch.uint8, device=q0.device)
-    _launch("chain_encode", q0.device, K, q0.data_ptr(), flags.data_ptr(),
-            y.data_ptr(), n_ch, H, C)
+    args = (q0.data_ptr(), flags.data_ptr(), y.data_ptr(), n_ch, H, C)
+    if K == 1:
+        _build.launch(q0.device, "xsi_chain_encode", *args)
+    else:
+        _build.launch(q0.device, "xsi_chain_encode_cluster", *args, K)
+    _build.count(launches, chain_route("chain_encode", K))
     return y
 
 
@@ -212,9 +292,14 @@ def chain_decode(yc: torch.Tensor, ss: torch.Tensor,
                  cluster: int | None = None, widen: bool = True
                  ) -> torch.Tensor:
     """Decode chunk chains (see chain_decode_plain for the contract) on
-    `cluster` CTAs per chain (see cluster_size; None: chosen by H).
-    widen=False returns the states as the kernel writes them: int32
-    holding each uint32 state's bits (what decode_run_flush reads)."""
+    `cluster` CTAs per chain (see cluster_size; None: chosen by H): one
+    CTA holds both rows in its shared memory, a cluster of K keeps them in
+    device memory (a scratch of 2 K chain_slots states a chunk, allocated
+    here).  widen=False returns the states as the kernel writes them:
+    int32 holding each uint32 state's bits (what decode_run_flush reads).
+    Raises ValueError for more lines a chunk than decode_chunk(H)."""
+    if yc.dim() == 3:
+        _check_chunk("chain_decode", yc.shape[2], yc.shape[1])
     if yc.device.type == "cpu":
         p = chain_decode_plain(yc, ss)
         return p if widen else _u32_bits(p)
@@ -229,8 +314,17 @@ def chain_decode(yc: torch.Tensor, ss: torch.Tensor,
     # the kernel writes uint32 states; torch's uint32 lacks shifts, so the
     # bits land in an int32 buffer and widen to int64 here if asked
     out = torch.empty((n_ch, H), dtype=torch.int32, device=yc.device)
-    _launch("chain_decode", yc.device, K, yc.data_ptr(), flags.data_ptr(),
-            out.data_ptr(), n_ch, H, C)
+    shift = decode_chunk(H)
+    if K == 1:
+        _build.launch(yc.device, "xsi_chain_decode", yc.data_ptr(),
+                      flags.data_ptr(), out.data_ptr(), n_ch, H, C, shift)
+    else:
+        scratch = torch.empty(n_ch * 2 * K * chain_slots("chain_decode", H, K),
+                              dtype=torch.int32, device=yc.device)
+        _build.launch(yc.device, "xsi_chain_decode_rows", yc.data_ptr(),
+                      flags.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                      n_ch, H, C, shift, K)
+    _build.count(launches, chain_route("chain_decode", K))
     return out.to(torch.int64) & 0xFFFFFFFF if widen else out
 
 
@@ -291,11 +385,9 @@ def rank_chain_levels_plain(T: torch.Tensor, r0: torch.Tensor
     return r[n_ch], r[:n_ch]
 
 
-#: Widest row the rank chain sorts in one CTA's shared memory, and the
-#: format's widest panel (32,767 WAH words of 15 haplotypes a line); 16-bit
-#: dense ranks up to MAX_H, 32-bit above.
+#: Widest row the rank chain sorts in one CTA's shared memory (16-bit
+#: dense ranks up to SLOT16_H, 32-bit above, up to MAX_RANK_H).
 RANK_SMEM_H = 16384
-MAX_RANK_H = 491505
 #: The device route's digit radix and keys per tile (csrc/rank_chain.cu).
 RANK_RADIX = 256
 RANK_TILE = 4096
@@ -310,7 +402,7 @@ def rank_route(H: int) -> tuple[str, int]:
         raise ValueError(f"rank_chain takes 1 <= H <= {MAX_RANK_H} "
                          f"haplotypes (got {H})")
     return ("shared" if H <= RANK_SMEM_H else "device",
-            2 if H <= MAX_H else 4)
+            2 if H <= SLOT16_H else 4)
 
 
 def rank_scratch_bytes(n_ch: int, H: int) -> int:
@@ -494,8 +586,9 @@ def decode_run_flush_plain(p_fin: torch.Tensor, start: torch.Tensor,
     states back to natural-order rows.
 
     p_fin: int32[n_ch, W] per end-of-chunk slot the uint32 state's bits,
-    (chunk-start slot << 16) | beta (chain_decode with widen=False); start: int64[W] the haplotype (diploid run, W =
-    H) or the sample (haploid run, W = ceil(H / 2)) at each run-start
+    (chunk-start slot << decode_chunk(W)) | beta (chain_decode with
+    widen=False); start: int64[W] the haplotype (diploid run, W = H) or
+    the sample (haploid run, W = ceil(H / 2)) at each run-start
     position; ss: bool[n_ch, C] the sort flags; n: the run's lines,
     (n_ch - 1) C < n <= n_ch C.  The chunks compose (_compose_prefix) into
     the run-start position at each end slot.  Returns (rows uint8[n, H],
@@ -509,9 +602,10 @@ def decode_run_flush_plain(p_fin: torch.Tensor, start: torch.Tensor,
     C = ss.shape[1]
     dev = p_fin.device
     p = p_fin.to(torch.int64) & 0xFFFFFFFF
-    at = start[_compose_prefix(p >> 16)]       # haplotype per end slot
+    shift = decode_chunk(W)
+    at = start[_compose_prefix(p >> shift)]    # haplotype per end slot
     # beta in natural order: sample (haploid) or haplotype per column
-    X = torch.empty_like(p).scatter_(1, at, p & 0xFFFF)
+    X = torch.empty_like(p).scatter_(1, at, p & ((1 << shift) - 1))
     if haploid:
         X = X.repeat_interleave(2, dim=1)[:, :H]
     full = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
@@ -531,6 +625,14 @@ def decode_run_flush_plain(p_fin: torch.Tensor, start: torch.Tensor,
     return rows, T, at[-1]
 
 
+def flush_cluster(W: int) -> int:
+    """CTAs a chunk of the run flush at W slots, as csrc/pbwt_scan.cu
+    chooses them (FLUSH_ONE_CTA_W), mirrored here to count the launch: 1
+    up to SLOT16_H slots, where the one-CTA route stood before the wide
+    state (its 2 B a slot would fit about 115,000), else FLUSH_CLUSTER."""
+    return 1 if W <= SLOT16_H else FLUSH_CLUSTER
+
+
 def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
                      ss: torch.Tensor, H: int, n: int, haploid: bool,
                      want_T: bool = False, out: torch.Tensor | None = None
@@ -539,18 +641,20 @@ def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
     """The run flush (see decode_run_flush_plain for the contract) in one
     call of csrc/pbwt_scan.cu's xsi_decode_run_flush: the composition, one
     launch a level over all chunks (through a scratch of two int32 [n_ch,
-    W] buffers allocated here), then decode_run_flush_kernel, a CTA a
-    chunk, beta scattered to natural order in shared memory (W <=
-    65,535)."""
+    W] buffers allocated here), then the flush: decode_run_flush_kernel, a
+    CTA a chunk, beta scattered to natural order in its shared memory (W
+    <= 65,535), or above that decode_run_flush_cluster_kernel, a cluster
+    of FLUSH_CLUSTER CTAs a chunk, each holding W / 8 columns (counted as
+    decode_run_flush_cluster)."""
     name = "decode_run_flush"
     if p_fin.dim() != 2 or p_fin.dtype != torch.int32:
         raise ValueError(f"{name}: p_fin must be int32[n_ch, W], got "
                          f"{p_fin.dtype} {tuple(p_fin.shape)}")
     n_ch, W = p_fin.shape
-    if W != ((H + 1) // 2 if haploid else H) or not 1 <= W <= MAX_H:
+    if W != ((H + 1) // 2 if haploid else H) or not 1 <= W <= MAX_RANK_H:
         raise ValueError(f"{name}: W = {W} slots for a "
                          f"{'haploid' if haploid else 'diploid'} run of "
-                         f"H = {H} (at most {MAX_H})")
+                         f"H = {H} (at most {MAX_RANK_H})")
     if start.dtype != torch.int64 or tuple(start.shape) != (W,) \
             or start.device != p_fin.device:
         raise ValueError(f"{name}: start must be int64[{W}] on "
@@ -560,6 +664,7 @@ def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
     C = flags.shape[1]
     if not (n_ch - 1) * C < n <= n_ch * C:
         raise ValueError(f"{name}: {n} lines in {n_ch} chunks of {C}")
+    _check_chunk(name, W, C)
     _check_out(name, out, (n, H), p_fin.device)
     if p_fin.device.type == "cpu":
         return decode_run_flush_plain(p_fin, start, ss, H, n, haploid,
@@ -578,6 +683,7 @@ def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
                   None if scratch is None else scratch.data_ptr(),
                   start.data_ptr(), flags.data_ptr(), rows.data_ptr(),
                   None if T is None else T.data_ptr(), last.data_ptr(),
-                  n_ch, C, W, H, n, int(haploid))
-    _build.count(launches, name)
+                  n_ch, C, W, H, n, int(haploid), decode_chunk(W))
+    _build.count(launches, name if flush_cluster(W) == 1
+                 else f"{name}_cluster")
     return rows, T, last

@@ -4,15 +4,21 @@ their forms for any width, and the mixed-ploidy scans.
 Port of xsqueezeit_tpu/ops/pbwt_jax.py (pbwt_encode_chunked,
 pbwt_decode_chunked, pbwt_encode_keys, pbwt_encode_scan,
 pbwt_encode_scan_parity, pbwt_decode_blocked, pbwt_decode_scan_mixed;
-its _rank_chain is ops/pbwt_kernels.py rank_chain).  Up to H = 65,535
-lines group into chunks of C = 16; a 16-bit register per haplotype carries
-the chunk's bits through the partitions, which run in the chunk-chain
-kernels of ops/pbwt_kernels.py.  Cross-chunk state comes from a rank chain
-(encode: the rank_chain kernels, every width) or from composing the
-chunks' arrangements (decode: the run flush kernel composes them and
-writes the rows).  Wider blocks, whose slots do not fit the
-registers' 16-bit fields, encode with packed per-line keys and one batched
-row sort (the scan) and decode by the blocked three-phase form.
+its _rank_chain is ops/pbwt_kernels.py rank_chain).  The encode groups
+lines into chunks of C = 16 at every width: a 16-bit register per
+haplotype carries the chunk's bits through the partitions, which run in
+the chunk-chain kernels of ops/pbwt_kernels.py.  The decode's chain
+carries (chunk-start slot << C) | beta in 32 bits, so its chunks hold C =
+16 lines up to 65,536 haplotypes and C = 32 - ceil(log2 H) above
+(pbwt_kernels.decode_chunk).  Cross-chunk state comes from a rank chain
+(encode: the rank_chain kernels) or from composing the chunks'
+arrangements (decode: the run flush kernel composes them and writes the
+rows).  The chains take every width the format allows (the decode above
+one CTA's 28,928 haplotypes with its rows in device memory).  The
+packed-key scan
+(pbwt_encode_scan) and the blocked three-phase decode (pbwt_decode_blocked)
+are the JAX package's forms at any width and the chains' plain
+counterparts above 65,535.
 Mixed-ploidy blocks encode with the parity scan and decode run by run
 (pbwt_decode_scan_mixed): a long run of one ploidy is a uniform chunked
 decode (at width ceil(H / 2) for a haploid run, over the samples) with
@@ -119,8 +125,8 @@ def pbwt_encode_scan(alleles: torch.Tensor, alts: torch.Tensor,
     """Arrangement-ordered bits for every line at any width, block start
     at the identity (pbwt_jax.pbwt_encode_scan): one batched row sort of
     the packed keys puts each line's bits in the arrangement in force
-    before it, in the key's lowest bit.  The form for H > 65,535, where
-    the chunk chains' 16-bit slot fields do not reach.  Returns (ys
+    before it, in the key's lowest bit.  pbwt_encode_chunked's plain
+    counterpart at every width (no card path calls it).  Returns (ys
     uint8[L, H], a_final int64[H])."""
     packed, r_fin = pbwt_encode_keys(alleles, alts, sorts)
     ys = torch.empty(packed.shape, dtype=torch.uint8, device=packed.device)
@@ -155,15 +161,18 @@ def pbwt_encode_scan_parity(alleles: torch.Tensor, alts: torch.Tensor,
 def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
                         sorts: torch.Tensor, chunk: int = 16
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Arrangement-ordered bits for every line (H <= 65535).
+    """Arrangement-ordered bits for every line, at every width up to
+    pbwt_kernels.MAX_RANK_H = 491,505: the rank chain, the register load
+    and chain_encode (one CTA, or a cluster of 8 or 16).
 
     alleles: int8/int16[L, H] allele codes; alts: int32[L] target ALT per
     line; sorts: bool[L] whether the line updates the arrangement.
     Returns (ys uint8[L, H], a_final int64[H]).
     """
     L, H = alleles.shape
-    if H > 65535:
-        raise ValueError("pbwt_encode_chunked requires H <= 65535")
+    if H > pbwt_kernels.MAX_RANK_H:
+        raise ValueError(f"pbwt_encode_chunked takes at most "
+                         f"{pbwt_kernels.MAX_RANK_H} haplotypes (got {H})")
     dev = alleles.device
     C = chunk
     x = alleles == alts[:, None]
@@ -190,7 +199,8 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
         T |= (xj << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
 
     iota = torch.arange(H, device=dev)
-    r_fin, r_starts = pbwt_kernels.rank_chain(T, iota)
+    r_fin, r_starts = pbwt_kernels.rank_chain(T, iota,
+                                             max(16, _hap_bits(H)))
 
     # Register load: each haplotype's register lands at its chunk-start slot.
     q0 = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
@@ -201,16 +211,18 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
 
 def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked PBWT decode (H <= 65535): bits back to natural order, block
-    start at the identity.  A diploid run of the mixed scan's run route
-    from the identity (_decode_run): the chunk chains, then the run flush.
+    """Chunked PBWT decode, at every width up to pbwt_kernels.MAX_RANK_H =
+    491,505: bits back to natural order, block start at the identity.  A
+    diploid run of the mixed scan's run route from the identity
+    (_decode_run): the chunk chains, then the run flush.
 
     ys: uint8[L, H] bits in arrangement order; sorts: bool[L].  Returns
     (vals uint8[L, H] natural-order bits, a_final int64[H]).
     """
     L, H = ys.shape
-    if H > 65535:
-        raise ValueError("pbwt_decode_chunked requires H <= 65535")
+    if H > pbwt_kernels.MAX_RANK_H:
+        raise ValueError(f"pbwt_decode_chunked takes at most "
+                         f"{pbwt_kernels.MAX_RANK_H} haplotypes (got {H})")
     vals = torch.empty((L, H), dtype=torch.uint8, device=ys.device)
     a_fin = _decode_run(ys.to(torch.uint8), sorts,
                         torch.arange(H, device=ys.device), False, vals,
@@ -222,8 +234,8 @@ def pbwt_decode_blocked(ys: torch.Tensor, sorts: torch.Tensor,
                         chunk: int = DECODE_CHUNK
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """PBWT decode at any width (pbwt_jax.pbwt_decode_blocked): bits back
-    to natural order, block start at the identity.  The form for H >
-    65,535, where the chunk chains' 16-bit slot fields do not reach.
+    to natural order, block start at the identity.  pbwt_decode_chunked's
+    plain counterpart at every width (no card path calls it).
 
     Three phases over chunks of `chunk` lines, every step a batched
     scatter over the chunks ([n_ch, H], one chunk line at a time):
@@ -277,9 +289,8 @@ def mixed_runs(hap: np.ndarray, H: int) -> list[tuple[int, int, str]]:
     host's haploid flags: [(first line, end line, route)], route "diploid"
     or "haploid" for a maximal run of one ploidy of at least MIN_RUN_LINES
     lines (MIN_RUN_LINES_WIDE where the stepping kernel's state does not
-    fit shared memory) whose width (H, or ceil(H / 2) samples) fits the
-    chains' 16-bit slot field, else "step" (the stepping kernel),
-    consecutive such runs in one piece."""
+    fit shared memory), at any width (H, or ceil(H / 2) samples), else
+    "step" (the stepping kernel), consecutive such runs in one piece."""
     hap = np.asarray(hap, dtype=bool)
     cuts = np.flatnonzero(hap[1:] != hap[:-1]) + 1
     short = (MIN_RUN_LINES_WIDE if pbwt_kernels.mixed_smem_bytes(H)
@@ -288,8 +299,7 @@ def mixed_runs(hap: np.ndarray, H: int) -> list[tuple[int, int, str]]:
     for a, b in zip([0, *cuts.tolist()], [*cuts.tolist(), hap.shape[0]]):
         if b <= a:
             continue
-        width = (H + 1) // 2 if hap[a] else H
-        route = ("step" if b - a < short or width > pbwt_kernels.MAX_H
+        route = ("step" if b - a < short
                  else "haploid" if hap[a] else "diploid")
         if route == "step" and pieces and pieces[-1][2] == "step":
             pieces[-1] = (pieces[-1][0], b, route)
@@ -306,12 +316,14 @@ def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
     (None where `end` is false).  A haploid run decodes over the samples,
     from their order E = a[a even] >> 1 (a line stably partitions the even
     slots by its stored bits), and its end arrangement is the rank chain of
-    the histories the flush writes, from the ranks inverse(a)."""
+    the histories the flush writes, from the ranks inverse(a).  Chunks
+    hold pbwt_kernels.decode_chunk(W) lines, the chain states' shift (16
+    up to 65,536 slots)."""
     n, H = ys.shape
     dev = ys.device
-    C = DECODE_CHUNK
-    n_ch = -(-n // C)
     W = (H + 1) // 2 if haploid else H
+    C = pbwt_kernels.decode_chunk(W)
+    n_ch = -(-n // C)
     pad = n_ch * C - n
     y = ys[:, :W]
     if pad:                      # whole chunks of zero rows
