@@ -16,7 +16,10 @@ exactly:
    in shared memory, the decode with its rows in device memory) and
    forced at H = 5008 (also against the one-CTA route), both chains on 16
    CTAs at the format's widest panel (491,505 haplotypes; the decode with
-   its wide state (slot << 13) | beta), the decode at one CTA's widest
+   its wide state (slot << 13) | beta), the encode with the parity
+   payload (chunks of 15 lines, bit 15 the slot parity) on one CTA at the
+   chrX PAR block's chunks, on 8 CTAs at H = 97,256 and on 16 at 491,504,
+   the decode at one CTA's widest
    row (28,928) on one CTA and on 16, the WAH kernels at HRC
    width (w = 4332), the per-line-width expand at the widths of a chrX
    PAR block (w = 165 and 83, lines alternating in runs), the WAH routes
@@ -33,7 +36,7 @@ exactly:
    scans against their plain versions: the rank chain (csrc/rank_chain.cu,
    also against its log-depth form rank_chain_levels_plain, timed as a
    yardstick) at 1KGP3 (301 chunks x 5008, 16-bit totals), the chrX PAR
-   parity scan's (255 x 2466, 18-bit), H = 1, 2 and 16,384 (rows in
+   mixed encode's (305 x 2466, 15-bit), H = 1, 2 and 16,384 (rows in
    shared memory), and H = 16,385, HRC (325 x 64,976), 65,536 and TOPMed
    (395 x 194,512, 13-bit; rows through device memory, 32-bit ranks above
    65,535), and the mixed decode scan (csrc/pbwt_scan.cu): its stepping
@@ -50,8 +53,9 @@ exactly:
    and a sweep of run lengths with every run on the chains against the
    stepping kernel (the crossover behind pbwt_torch.MIN_RUN_LINES); after
    each block the rank chain again at the block's own totals, and after
-   the chrX PAR block the run route, the run flush and the stepping
-   kernel at its own lines;
+   each mixed block the parity encode chain, the run route and the run
+   flush at its own registers and lines (and at chrX PAR the stepping
+   kernel);
 4. the 1KGP3 block (2504 samples = 5008 haplotypes x 8192 lines, MAF
    threshold 10, the rare-heavy mix of bench.py), the HRC block (32,488
    samples = 64,976 haplotypes x 8192 lines, MAF threshold 64, the same
@@ -71,7 +75,8 @@ exactly:
    (and no other); while it runs, wah_torch's plain pack_bits,
    unpack_bits and wah_word_offsets, pbwt_kernels' plain rank chain,
    stepping scan, chain decode and run flush, and pbwt_torch's packed-key
-   scan and blocked decode raise (every block, TOPMed's included).
+   scans (uniform and with the parity) and blocked decode raise (every
+   block, TOPMed's included).
    Prints ms/block and
    GB/s in bench.py's unit (L * H * 4 logical gt bytes), the compression
    ratio, the device part of the decode alone, and the peak device memory
@@ -80,11 +85,16 @@ exactly:
    1KGP3-missing (the 1KGP3 block with 1 % of entries missing, as
    bench.py's missing regime: every record carries a missing track),
    1KGP3-chrX (the 1233 male samples hold end-of-vector in their second
-   slot on every record) and chrX-males-PAR (the 1233 males only, 4096
-   diploid PAR lines then 4096 haploid ones: a mixed-ploidy block, decoded
-   without offsets; its two runs of WAH lines on the chains and the run
-   flush, no stepping launch).  The track blocks also hold the fused decode
-   (_decode_block_full_gt_tracks) against the input;
+   slot on every record), chrX-males-PAR (the 1233 males only, 4096
+   diploid PAR lines then 4096 haploid ones: a mixed-ploidy block, encoded
+   on the chain with the parity payload and decoded without offsets; its
+   two runs of WAH lines on the chains and the run flush, no stepping
+   launch) and TOPMed-males-PAR (the same layout at 48,628 males, H =
+   97,256, MAF 0.001, 32-bit streams: the parity encode on 8 CTAs, both
+   runs on the decode's rows route, the diploid run's flush on a cluster
+   a chunk; the encode core also with the packed-key parity scan in the
+   chains' place, its peak both ways).  The track blocks also hold the
+   fused decode (_decode_block_full_gt_tracks) against the input;
 6. the file level: a synthetic 1KGP3-width BCF of two blocks through
    `cli -c --device cuda` and `--device numpy` (byte-identical .xsi) and
    `cli -x --device cuda` back to BCF (the input's genotypes on every
@@ -169,10 +179,16 @@ HRC_H = 2 * 32488
 TOPMED_SAMPLES = 97256
 #: Male samples of the 1KGP3 panel: haploid on chrX outside the PARs.
 MALES = 1233
+#: Male samples of a TOPMed-size panel (half of its 97,256).
+TOPMED_MALES = TOPMED_SAMPLES // 2
 #: Exception-track blocks at 1KGP3 width (the 1KGP3 block's alleles).
 TRACK_BLOCKS = ("1KGP3-missing", "1KGP3-chrX")
 TRACK_PAYLOADS: dict = {}  # name -> (payload, samples): track_block_phase
 MIXED_BLOCK = "chrX-males-PAR"
+WIDE_MIXED_BLOCK = "TOPMed-males-PAR"
+#: The mixed-ploidy blocks: (name, male samples, seed of the block).
+MIXED_BLOCKS = ((MIXED_BLOCK, MALES, SEED + 2),
+                (WIDE_MIXED_BLOCK, TOPMED_MALES, SEED + 4))
 ONE_CTA = ("chain_encode", "chain_decode", "wah_expand_bits",
            "wah_compress_bits", "rank_chain", "decode_run_flush")
 #: Kernel routes each block's path must launch (the others must not: the
@@ -192,23 +208,34 @@ PATH_KERNELS = {
                "wah_compress_bits", "rank_chain"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
-    # the mixed scan's run route: both runs on the chains and the run
-    # flush, no stepping launch (the decode keeps no final arrangement, so
-    # the haploid run's rank chain is skipped: the encode launches it)
-    MIXED_BLOCK: ("wah_compress_bits", "wah_expand_varw_bits", "rank_chain",
-                  "chain_decode", "decode_run_flush"),
+    # the encode on the chain with the parity payload; the mixed scan's
+    # run route: both runs on the chains and the run flush, no stepping
+    # launch (the decode keeps no final arrangement, so the haploid run's
+    # rank chain is skipped: the encode launches it)
+    MIXED_BLOCK: ("chain_encode_parity", "wah_compress_bits",
+                  "wah_expand_varw_bits", "rank_chain", "chain_decode",
+                  "decode_run_flush"),
+    # the same at 97,256 haplotypes: the parity encode on 8 CTAs, both
+    # runs (97,256 and 48,628 slots) on the decode's rows route, the
+    # diploid run's flush on a cluster a chunk, the haploid one's on one
+    # CTA
+    WIDE_MIXED_BLOCK: ("chain_encode_parity_cluster", "rank_chain",
+                       "wah_compress_bits", "wah_expand_varw_bits",
+                       "chain_decode_rows", "decode_run_flush_cluster",
+                       "decode_run_flush"),
 }
 #: Plain passes that must not run on a block's card path (they are
 #: replaced by functions that raise while it runs), by module: the mixed
 #: scan's run route on the CPU is its pieces' plain versions (the chains,
-#: the run flush, the rank chain, the stepping scan); the packed-key scan
-#: (its batched row sort) and the blocked decode are the wide path's
-#: plain forms.
+#: the run flush, the rank chain, the stepping scan); the packed-key scans
+#: (their batched row sort: uniform and with the parity) and the blocked
+#: decode are the chains' plain forms.
 PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
                 (pbwt_kernels, ("rank_chain_plain", "decode_scan_mixed_plain",
                                 "chain_decode_plain",
                                 "decode_run_flush_plain")),
-                (pbwt_torch, ("pbwt_encode_scan", "pbwt_decode_blocked")))
+                (pbwt_torch, ("pbwt_encode_scan", "pbwt_encode_scan_parity",
+                              "pbwt_decode_blocked")))
 #: The plain passes a block's path takes by design: none (the rank chain
 #: and the chains run their kernels at every width).
 PLAIN_ROUTES: dict = {}
@@ -229,6 +256,13 @@ WIDE_CHAINS = (("chain_encode", pbwt_kernels.MAX_RANK_H, 32, 16, None),
                 pbwt_kernels.MAX_CLUSTER))
 #: The chain routes the HRC-width kernel checks hold (the rest at 1KGP3).
 CLUSTER_ROUTES = ("chain_encode_cluster", "chain_decode_rows")
+#: The encode with the parity payload (chunks of 15 lines, bit 15 of the
+#: registers set at random) on each route: (label, width, chunks, CTAs or
+#: None for the default): one CTA at the chrX PAR block's chunks, 8 CTAs
+#: at the TOPMed males' width, 16 at the widest even width.
+PARITY_CHAINS = (("chrX-PAR chunks", 2 * MALES, 305, None),
+                 ("TOPMed-males width", 2 * TOPMED_MALES, 64, None),
+                 ("H=491504", 491504, 32, None))
 #: WAH kernel checks above the 16-bit slot field, where only a CTA per line
 #: fits: TOPMed width (w = 12,968) and the format's widest line (w =
 #: 32,767 groups).
@@ -247,6 +281,10 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     "wah_compress": ("wah.cu", "wah_pallas.py:112"),
     "chain_encode_cluster": ("pbwt_chain.cu", "pbwt_pallas.py:133"),
     "chain_decode_rows": ("pbwt_chain.cu", "pbwt_pallas.py:76"),
+    # the encode chain with the parity payload: the mixed encode's route in
+    # place of the XLA parity scan (its packed keys' row sort)
+    "chain_encode_parity": ("pbwt_chain.cu", "pbwt_jax.py:80"),
+    "chain_encode_parity_cluster": ("pbwt_chain.cu", "pbwt_jax.py:80"),
     # an XLA function in the JAX package (no Pallas kernel there)
     "wah_expand_varw": ("wah.cu", "wah_jax.py:227"),
     # the same kernels with unpack_bits / pack_bits fused in
@@ -283,13 +321,18 @@ def _expand_kernels(varw: bool, bits: bool) -> tuple:
 #: profiler's events.  An expand route is the span scan plus the expand
 #: (and a memset of the scan's tile flags, not counted).
 KERNEL_NAMES = {
-    "chain_encode": (("chain_kernel<false, false>",
-                      "chain_kernelILb0ELb0"),),
-    "chain_decode": (("chain_kernel<true, false>", "chain_kernelILb1ELb0"),),
-    "chain_encode_cluster": (("chain_kernel<false, true>",
-                              "chain_kernelILb0ELb1"),),
-    "chain_decode_rows": (("chain_kernel<true, true>",
-                           "chain_kernelILb1ELb1"),),
+    "chain_encode": (("chain_kernel<false, false, false>",
+                      "chain_kernelILb0ELb0ELb0E"),),
+    "chain_decode": (("chain_kernel<true, false, false>",
+                      "chain_kernelILb1ELb0ELb0E"),),
+    "chain_encode_cluster": (("chain_kernel<false, true, false>",
+                              "chain_kernelILb0ELb1ELb0E"),),
+    "chain_decode_rows": (("chain_kernel<true, true, false>",
+                           "chain_kernelILb1ELb1ELb0E"),),
+    "chain_encode_parity": (("chain_kernel<false, false, true>",
+                             "chain_kernelILb0ELb0ELb1E"),),
+    "chain_encode_parity_cluster": (("chain_kernel<false, true, true>",
+                                     "chain_kernelILb0ELb1ELb1E"),),
     "wah_expand": _expand_kernels(False, False),
     "wah_expand_varw": _expand_kernels(True, False),
     "wah_expand_bits": _expand_kernels(False, True),
@@ -792,8 +835,25 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             lambda f=getattr(pbwt_kernels, f"{name}_plain"), a=args: f(*a),
             None, chain_bytes(name, args), None))
 
+    # the encode with the parity payload on each route (its own generator):
+    # registers of 15 lines and a random bit 15, the slot parity
+    prng = np.random.default_rng(7)
+    for label, H, n_ch, K in PARITY_CHAINS:
+        ss = torch.from_numpy(prng.random((n_ch, 15)) < 0.9).to(dev)
+        q0 = torch.from_numpy(prng.integers(0, 1 << 16, (n_ch, H),
+                                            dtype=np.int32)).to(dev)
+        K = pbwt_kernels.cluster_size("chain_encode", H, K)
+        cases.append((
+            pbwt_kernels.chain_route("chain_encode_parity", K), label,
+            f"H={H} C=15 n_ch={n_ch} K={K}",
+            lambda a=(q0, ss), K=K: pbwt_kernels.chain_encode(
+                *a, cluster=K, parity=True),
+            lambda a=(q0, ss): pbwt_kernels.chain_encode_plain(
+                *a, parity=True),
+            None, chain_bytes("chain_encode", (q0, ss)), None))
+
     # the PBWT device scans (their own generator): the rank chain on both
-    # routes at the main path's widths, the chrX PAR parity scan's, the
+    # routes at the main path's widths, the chrX PAR mixed encode's, the
     # narrowest, each side of the shared-memory route's bound and of the
     # 16-bit ranks', and TOPMed's; the mixed scan at chrX PAR width and at
     # HRC width (its state in device memory).  Their plain versions step
@@ -801,7 +861,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
     srng = np.random.default_rng(4)
     for label, n_ch, H, bits in (("1KGP3", 301, 5008, 16),
                                  ("HRC", 325, HRC_H, 16),
-                                 ("chrX-PAR parity", 255, 2 * MALES, 18),
+                                 ("chrX-PAR parity", 305, 2 * MALES, 15),
                                  ("H=1", 64, 1, 30), ("H=2", 64, 2, 30),
                                  ("H=16384", 301, 16384, 16),
                                  ("H=16385", 301, 16385, 16),
@@ -851,7 +911,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
 
     rows, checks = {}, []
     wide_labels = ({label for label, _ in WIDE_WAH}
-                   | {f"H={H}" for _, H, *_ in WIDE_CHAINS})
+                   | {f"H={H}" for _, H, *_ in WIDE_CHAINS}
+                   | {label for label, *_ in PARITY_CHAINS})
     for name, label, shape, kern, plain, extra, nbytes, old, *meta in cases:
         meta = meta[0] if meta else {}
         got, want = kern(), plain()
@@ -888,8 +949,8 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         # cluster chains at HRC, the per-line-width expand at chrX PAR
         # widths, the rest at 1KGP3 (the chains are replaced by their
         # blocks' own shapes once the blocks have run), plus the WAH routes
-        # at TOPMed width and at the widest line and the chains on 16 CTAs,
-        # rows of their own
+        # at TOPMed width and at the widest line, the chains on 16 CTAs and
+        # the parity routes, rows of their own
         if label in wide_labels:
             rows[f"{name}@{label}"] = kernel_row(check)
         elif name not in rows and (name in CLUSTER_ROUTES) == (label == "HRC"):
@@ -968,15 +1029,17 @@ def flush_check(label: str, args, kw, card: str) -> dict:
 
 
 def mixed_route_checks(label: str, ys, so, hp, hnp, card: str,
-                       flush: bool = True) -> tuple[dict, list[dict]]:
+                       flush: bool = True, step_iters: int = 5
+                       ) -> tuple[dict, list[dict]]:
     """The mixed scan's run route (pbwt_torch.pbwt_decode_scan_mixed) on
     these lines: bit-exact against the stepping kernel's plain version
     (vals and a_final), timed as the codec calls it (no final
     arrangement) and with the final arrangement, beside the stepping
     kernel forced over the same lines (timed in turns: stepping, route,
-    route, stepping), with its launches a call.  With `flush`, the run
-    flush at each of the route's runs against its plain version, timed.
-    Returns (the route's record, the flush checks)."""
+    route, stepping; `step_iters` calls each turn), with its launches a
+    call.  With `flush`, the run flush at each of the route's runs against
+    its plain version, timed.  Returns (the route's record, the flush
+    checks)."""
     Lw, H = ys.shape
 
     def route(keep=True):
@@ -999,10 +1062,10 @@ def mixed_route_checks(label: str, ys, so, hp, hnp, card: str,
     route(False)
     torch.cuda.synchronize()
     ran = {k: v - n0[k] for k, v in read_counts().items() if v != n0[k]}
-    step_a = cuda_ms(step, iters=5, warmup=1)
+    step_a = cuda_ms(step, iters=step_iters, warmup=1)
     route_ms = cuda_ms(lambda: route(False), iters=10)
     final_ms = cuda_ms(route, iters=10)
-    step_ms = (step_a + cuda_ms(step, iters=5, warmup=1)) / 2
+    step_ms = (step_a + cuda_ms(step, iters=step_iters, warmup=1)) / 2
     enqueue = host_ms(lambda: route(False))
     b_ms = bound_ms(mixed_bytes(ys, hp))
     print(f"mixed route [{label}: {shape}]: bit-exact vs plain (vals and "
@@ -1139,12 +1202,14 @@ def captured_args():
     """Records (a copy of) the arguments of the first call of each chain,
     rank chain, mixed scan and bits WAH wrapper made inside the block, so
     the kernels can be held and timed at the shapes, registers, sort flags,
-    lines and streams the block's own path gives them."""
+    lines and streams the block's own path gives them (the encode chain
+    with the parity payload as chain_encode_parity)."""
     seen = {}
 
     def recorder(name, fn):
         def call(*args, **kw):
-            seen.setdefault(name, tuple(
+            key = f"{name}_parity" if kw.get("parity") else name
+            seen.setdefault(key, tuple(
                 a.clone() if isinstance(a, torch.Tensor) else a
                 for a in args))
             return fn(*args, **kw)
@@ -1236,27 +1301,30 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
     plain version and timed (the decode's states widened, as chain_decode
     returns them by default); at HRC width also on the other cluster sizes
     (encode K = 2, 4 and 8 in shared memory, decode K = 3, 4 and 8 with
-    its rows in device memory), above 65,535 haplotypes on 8 and 16 CTAs.
-    A wide block's checks fill rows of their own (route@block)."""
+    its rows in device memory), above 65,535 haplotypes on 8 and 16 CTAs;
+    the encode with the parity payload (chain_encode_parity) likewise.  A
+    wide block's checks fill rows of their own (route@block)."""
     out = []
     for name, args in seen.items():
         if not name.startswith("chain"):
             continue
-        plain = getattr(pbwt_kernels, f"{name}_plain")
-        kern = getattr(pbwt_kernels, name)
+        base, kw = (("chain_encode", {"parity": True})
+                    if name == "chain_encode_parity" else (name, {}))
+        plain = getattr(pbwt_kernels, f"{base}_plain")
+        kern = getattr(pbwt_kernels, base)
         H = args[0].shape[-1]
         n_ch, C = args[1].shape
-        K0 = pbwt_kernels.cluster_size(name, H)
+        K0 = pbwt_kernels.cluster_size(base, H)
         sizes = [K0]
         if K0 > 1:
             others = ((8, 16) if H > pbwt_kernels.SLOT16_H
-                      else (2, 4, 8) if name == "chain_encode"
+                      else (2, 4, 8) if base == "chain_encode"
                       else (3, 4, 8))
             sizes += [k for k in others if k != K0]
-        want = plain(*args)
-        plain_ms = cuda_ms(lambda: plain(*args), iters=10, warmup=2)
+        want = plain(*args, **kw)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=10, warmup=2)
         for K in sizes:
-            got = kern(*args, cluster=K)
+            got = kern(*args, cluster=K, **kw)
             torch.cuda.synchronize()
             err = diff(got, want)
             route = pbwt_kernels.chain_route(name, K)
@@ -1266,10 +1334,10 @@ def block_chain_checks(label: str, seen: dict, card: str) -> list[dict]:
                               f"(max abs err {err})")
             del got
             def call(K=K):
-                return kern(*args, cluster=K)
+                return kern(*args, cluster=K, **kw)
             ms = cuda_ms(call, iters=10, warmup=2)
             check = timed_check(route, f"{label} block", shape, err, ms,
-                                plain_ms, chain_bytes(name, args), "", card,
+                                plain_ms, chain_bytes(base, args), "", card,
                                 kernel_device_ms(route, call), host_ms(call))
             check["default_route"] = K == K0 and H <= pbwt_kernels.SLOT16_H
             if K == K0 and H > pbwt_kernels.SLOT16_H:
@@ -1484,6 +1552,20 @@ def run_path(name: str, enc, decode, ref_payload: bytes, rows) -> tuple:
     return payload, launches, peak_gb
 
 
+def alone(block: str, fn, nbytes: int, label: str, card: str) -> dict:
+    """A path's function timed alone (CUDA events), with its byte bound
+    and its peak device memory above what is allocated."""
+    ms = cuda_ms(fn, iters=3, warmup=1)
+    base = torch.cuda.memory_allocated() / 1e9
+    extra = once_peak_gb(fn) - base
+    print(f"[{block}] {label} alone: {ms:.3f} ms, bound "
+          f"{bound_ms(nbytes):.4f} ms ({nbytes} B), share "
+          f"{bound_ms(nbytes) / ms:.4f}; peak above its inputs "
+          f"{extra:.3f} GB ({card})")
+    return {"ms": ms, "bound_ms": bound_ms(nbytes), "bytes": nbytes,
+            "peak_above_inputs_gb": extra}
+
+
 def aet_dtype_for(H: int):
     """The sparse and track streams' type, by width, as the compressor
     picks it (codec/compressor.py): 32-bit above 65,535 haplotypes."""
@@ -1561,19 +1643,6 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
         with swapped(pbwt_torch, {route: getattr(pbwt_torch, old)}):
             return cuda_ms(fn, iters=3, warmup=1), once_peak_gb(fn)
 
-    def alone(fn, nbytes, label):
-        """A wide-path function timed alone (CUDA events), with its byte
-        bound and its peak device memory above what is allocated."""
-        ms = cuda_ms(fn, iters=3, warmup=1)
-        base = torch.cuda.memory_allocated() / 1e9
-        extra = once_peak_gb(fn) - base
-        print(f"[{name}] {label} alone: {ms:.3f} ms, bound "
-              f"{bound_ms(nbytes):.4f} ms ({nbytes} B), share "
-              f"{bound_ms(nbytes) / ms:.4f}; peak above its inputs "
-              f"{extra:.3f} GB ({card})")
-        return {"ms": ms, "bound_ms": bound_ms(nbytes), "bytes": nbytes,
-                "peak_above_inputs_gb": extra}
-
     staged = (t(prep["alleles_p"]), t(prep["alts_p"]),
               t(prep["wah_rows_p"], torch.int64), t(prep["sorts_w"]),
               t(prep["sparse_rows_p"], torch.int64), t(prep["negated_s"]))
@@ -1612,8 +1681,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
         # the final arrangement: the chains' route, then the old scan
         for route in ("pbwt_encode_chunked", "pbwt_encode_scan"):
             parts[route] = alone(
-                lambda f=getattr(pbwt_torch, route): f(aw, at, sw),
-                2 * aw.numel() + at.nbytes + sw.nbytes + 8 * H, route)
+                name, lambda f=getattr(pbwt_torch, route): f(aw, at, sw),
+                2 * aw.numel() + at.nbytes + sw.nbytes + 8 * H, route, card)
         del aw, at, sw
     del staged
     ser_ms = wall_ms(lambda: ingest().serialize(), **host_loop)
@@ -1664,8 +1733,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
         sorts = dstaged[1]
         for route in ("pbwt_decode_chunked", "pbwt_decode_blocked"):
             parts[route] = alone(
-                lambda f=getattr(pbwt_torch, route): f(ys, sorts),
-                2 * ys.numel() + sorts.nbytes + 8 * H, route)
+                name, lambda f=getattr(pbwt_torch, route): f(ys, sorts),
+                2 * ys.numel() + sorts.nbytes + 8 * H, route, card)
         del ys, sorts
     del dstaged
     rec_ms = wall_ms(lambda: records(payload), **host_loop)
@@ -1898,34 +1967,57 @@ def track_block_phase(name: str, card: str) -> dict:
                                "decode": dec_peak_gb}}
 
 
-def mixed_block_phase(card: str) -> dict:
-    """chrX-males-PAR: the 1233 male samples (2466 haplotypes), lines
-    0-4095 diploid (PAR1) and 4096-8191 haploid (non-PAR), bench.py's
-    allele mix.  The mixed-ploidy encode (parity scan, two WAH grids) and
-    decode (per-line-width expand, the mixed scan) run through
-    TorchBlockEncoder.serialize and decode_block_records without offsets;
-    their steps are timed one by one."""
-    name, N = MIXED_BLOCK, MALES
+def parity_scan_in_place(alleles, alts, sorts, chunk=16, parity=False):
+    """pbwt_torch.pbwt_encode_chunked(..., parity=True) with the packed-key
+    parity scan in the chains' place: the mixed encode as it ran before
+    them, timed beside them in the same run."""
+    return pbwt_torch.pbwt_encode_scan_parity(alleles, alts, sorts)
+
+
+def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
+    """A mixed-ploidy block of N male samples (2N haplotypes): lines 0-4095
+    diploid (PAR1) and 4096-8191 haploid (non-PAR), bench.py's allele mix,
+    MAF 0.001.  chrX-males-PAR has the 1233 males of 1KGP3,
+    TOPMed-males-PAR the 48,628 of a TOPMed-size panel (32-bit streams).
+    The mixed-ploidy encode (the encode chain with the parity payload, two
+    WAH grids) and decode (per-line-width expand, the mixed scan's run
+    route) run through TorchBlockEncoder.serialize and
+    decode_block_records without offsets; their steps are timed one by
+    one: the encode core beside the same core with the packed-key parity
+    scan in the chains' place (its outputs held equal), the parity route
+    and the even-slot compaction alone, the peaks both ways.  At the wide
+    block the host loops run once and the stepping kernel, which its path
+    does not run, is timed over fewer calls and its plain version not at
+    all."""
     H = 2 * N
     mac = int(H * 0.001)
+    aet = aet_dtype_for(H)
+    wide = H > 2 * 5008
     t0 = time.perf_counter()
-    alleles = make_block(np.random.default_rng(SEED + 2), H)
+    alleles = make_block(np.random.default_rng(seed), H)
     hap = np.arange(L) >= L // 2
     rows = [((alleles[i, :N] if hap[i] else alleles[i]).astype(np.int32)
              + 1) << 1 for i in range(L)]
+    del alleles
     kw = dict(n_samples=N, block_bcf_lines=L, mac_threshold=mac,
-              default_phasing=0, aet_dtype=np.uint16)
+              default_phasing=0, aet_dtype=aet)
     print(f"[{name}] block of {L} lines ({int(hap.sum())} haploid) x {H} "
           f"haplotypes made in {time.perf_counter() - t0:.1f} s")
     ref_payload = host_reference(name, kw, rows)
     ingest = ingester(kw, np.concatenate(rows), np.where(hap, N, H))
     enc = ingest()
-    payload, launches, peak_gb = run_path(
-        name, enc, lambda p: decoder_torch.decode_block_records(
-            p, N, H, np.uint16, [2] * L, device=DEVICE),
-        ref_payload, rows)
+
+    def records(p):
+        return decoder_torch.decode_block_records(p, N, H, aet, [2] * L,
+                                                  device=DEVICE)
+
+    payload, launches, peak_gb = run_path(name, enc, records, ref_payload,
+                                          rows)
+    del rows
 
     # ---- timings, step by step (bench.py's unit) ----------------------
+    loop = dict(iters=3, warmup=1) if wide else dict(iters=5, warmup=1)
+    host_loop = dict(iters=1, warmup=0) if wide else dict(iters=3, warmup=1)
     prep = enc.prepare()
     is_wah, hap_l = prep["is_wah"], prep["hap_line"]
     wah_rows = np.flatnonzero(is_wah)
@@ -1937,23 +2029,53 @@ def mixed_block_phase(card: str) -> dict:
                      hap_l[sparse_rows])
     n_wah, n_hap_wah = len(wah_rows), int(hap_w.sum())
     del prep, enc
+
     def encode_core():
         return encoder_torch.encode_block_core_mixed(*args, max(mac, 1))
 
     torch.cuda.reset_peak_memory_stats()
-    enc_ms = cuda_ms(encode_core, iters=5, warmup=1)
+    enc_ms = cuda_ms(encode_core, **loop)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_core_peak = once_peak_gb(encode_core)
+    # the same core with the packed-key parity scan in the chains' place
+    # (as it ran before them): the same outputs, its time and peak
+    want = encode_core()
+    with swapped(pbwt_torch, {"pbwt_encode_chunked": parity_scan_in_place}):
+        got = encode_core()
+        require(all(diff(got[k], want[k]) == 0 for k in want),
+                f"{name}: the encode core with the packed-key parity scan "
+                f"differs from the chains'")
+        del got, want
+        enc_scan_ms = cuda_ms(encode_core, **loop)
+        enc_core_peak_scan = once_peak_gb(encode_core)
     aw, at = args[0].index_select(0, args[2]), args[1].index_select(0, args[2])
     ones = torch.ones(n_wah, dtype=torch.bool, device=DEVICE)
-    def parity_scan():
-        return pbwt_torch.pbwt_encode_scan_parity(aw, at, ones)
 
-    scan_ms = cuda_ms(parity_scan, iters=5, warmup=1)
-    # the parity scan and the encode core with the plain rank chain in the
-    # kernel's place (as they ran before it)
+    def parity_route():
+        return pbwt_torch.pbwt_encode_chunked(aw, at, ones, parity=True)
+
+    # each reads the WAH lines' alleles and flags and writes their bits,
+    # their parities and the final arrangement
+    nbytes = 3 * aw.numel() + at.nbytes + ones.nbytes + 8 * H
+    parts = {"pbwt_encode_chunked(parity=True)": alone(
+                 name, parity_route, nbytes,
+                 "pbwt_encode_chunked(parity=True)", card),
+             "pbwt_encode_scan_parity": alone(
+                 name, lambda: pbwt_torch.pbwt_encode_scan_parity(aw, at,
+                                                                  ones),
+                 nbytes, "pbwt_encode_scan_parity", card)}
+    ys, par, _ = parity_route()
+    hy, hpar = ys.index_select(0, args[4]), par.index_select(0, args[4])
+    del ys, par
+    # reads the haploid lines' bits and parities, writes their even bits
+    parts["even_slot_rows"] = alone(
+        name, lambda: encoder_torch.even_slot_rows(hy, hpar),
+        2 * hy.numel() + hy.shape[0] * N, "even_slot_rows", card)
+    del hy, hpar
+    # the parity route and the encode core with the plain rank chain in
+    # the kernel's place (as they ran before it)
     with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
-        scan_plain_chain_ms = cuda_ms(parity_scan, iters=3, warmup=1)
+        route_plain_chain_ms = cuda_ms(parity_route, iters=3, warmup=1)
         enc_plain_chain_ms = cuda_ms(encode_core, iters=3, warmup=1)
         enc_core_peak_plain = once_peak_gb(encode_core)
     # the path's own inputs of each kernel (captured after the peaks: the
@@ -1962,11 +2084,12 @@ def mixed_block_phase(card: str) -> dict:
         encode_core()
     pchain = scan_block_checks(name, seen, card)["rank_chain"]
     seen.pop("rank_chain")
+    checks = block_chain_checks(
+        name, {"chain_encode_parity": seen.pop("chain_encode_parity")}, card)
     del args, aw, at
-    ser_ms = wall_ms(lambda: ingest().serialize(), iters=3, warmup=1)
+    ser_ms = wall_ms(lambda: ingest().serialize(), **host_loop)
 
-    dec = decoder_torch.TorchBlockDecoder(payload, N, H, np.uint16,
-                                          device=DEVICE)
+    dec = decoder_torch.TorchBlockDecoder(payload, N, H, aet, device=DEVICE)
     *arrays, h, w_max, _ = dec.host_inputs_mixed()
     dargs = to_device(*arrays)
     hap_host = arrays[3]
@@ -1979,21 +2102,26 @@ def mixed_block_phase(card: str) -> dict:
         return decoder_torch._decode_block_mixed(*dargs, hap_host, h, w_max)
 
     torch.cuda.reset_peak_memory_stats()
-    dec_ms = wall_ms(decode_once, iters=3, warmup=1)
+    dec_ms = wall_ms(decode_once, iters=host_loop["iters"], warmup=1)
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    dec_dev_ms = cuda_ms(decode_device, iters=10, warmup=2)
+    dec_dev_ms = cuda_ms(decode_device, iters=5 if wide else 10, warmup=2)
     dec_dev_peak = once_peak_gb(decode_device)
     # the device decode with the stepping kernel forced over all the
     # block's lines (the route before the run route), and with its plain
-    # version (one Python step per line, as it ran before the kernel)
+    # version (one Python step per line, as it ran before the kernel;
+    # not at the wide block)
     def forced(fn):
         return {"pbwt_decode_scan_mixed":
                 lambda ys, so, hp, _host, keep_final=True: fn(ys, so, hp)}
     with swapped(pbwt_torch, forced(pbwt_kernels.decode_scan_mixed)):
-        dec_dev_step_ms = cuda_ms(decode_device, iters=10, warmup=2)
+        dec_dev_step_ms = cuda_ms(decode_device, iters=2 if wide else 10,
+                                  warmup=1 if wide else 2)
         dec_dev_peak_step = once_peak_gb(decode_device)
-    with swapped(pbwt_torch, forced(pbwt_kernels.decode_scan_mixed_plain)):
-        dec_dev_plain_ms = cuda_ms(decode_device, iters=1, warmup=1)
+    dec_dev_plain_ms = None
+    if not wide:
+        with swapped(pbwt_torch,
+                     forced(pbwt_kernels.decode_scan_mixed_plain)):
+            dec_dev_plain_ms = cuda_ms(decode_device, iters=1, warmup=1)
     with captured_args() as seen_dec:
         decode_device()
     seen.update(seen_dec)
@@ -2004,68 +2132,91 @@ def mixed_block_phase(card: str) -> dict:
     # the scan at the block's own lines: the run route (and the run flush
     # at its runs), and the stepping kernel forced over the same lines
     ys_b, so_b, hp_b, host_b = seen["pbwt_decode_scan_mixed"][:4]
-    droute, dflush = mixed_route_checks(name, ys_b, so_b, hp_b, host_b, card)
+    droute, dflush = mixed_route_checks(name, ys_b, so_b, hp_b, host_b, card,
+                                        step_iters=1 if wide else 5)
     droute["width"] = f"{name} block"
     for c in dflush:
         c["width"] = f"{name} block"
-        c["default_route"] = not c["haploid"]
-        if c["haploid"]:
+        c["default_route"] = not (c["haploid"] or wide)
+        if wide:
+            c["row"] = (f"{c['name']}@{name}"
+                        + (" haploid" if c["haploid"] else ""))
+        elif c["haploid"]:
             c["row"] = "decode_run_flush@haploid"
-    seen["decode_scan_mixed"] = (ys_b, so_b, hp_b)
-    dscan = scan_block_checks(name, seen, card)["decode_scan_mixed"]
-    checks = (wah_block_checks(name, seen, card) + [pchain, dscan] + dflush
-              + [droute])
+    dscan = None
+    if not wide:
+        seen["decode_scan_mixed"] = (ys_b, so_b, hp_b)
+        dscan = scan_block_checks(name, seen, card)["decode_scan_mixed"]
+    checks += (wah_block_checks(name, seen, card) + [pchain]
+               + ([dscan] if dscan else []) + dflush + [droute])
     droute["default_route"] = False
     del dargs, seen, ys_b, so_b, hp_b
-    rec_ms = wall_ms(lambda: decoder_torch.decode_block_records(
-        payload, N, H, np.uint16, [2] * L, device=DEVICE), iters=1, warmup=0)
+    rec_ms = wall_ms(lambda: records(payload), iters=1, warmup=0)
     gt_bytes = L * H * 4
     ratio = gt_bytes / len(payload)
+    pc = next(c for c in checks if c["name"].startswith("chain_encode_par"))
     print(f"[{name}] block: {L} lines x {H} haplotypes; {n_wah} WAH lines "
           f"({n_hap_wah} haploid), {L - n_wah} sparse; payload "
           f"{len(payload)} B byte-equal to GtBlockEncoder's; decode without "
           f"offsets bit-exact on all {L} records; peak device memory of the "
           f"run {peak_gb:.3f} GB")
     print(f"[{name}] encode core (mixed): {enc_ms:.3f} ms/block = "
-          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB), "
-          f"of which the parity scan {scan_ms:.3f} ms, of which the rank "
-          f"chain {pchain['ms']:.3f} ms | decode (host parse + device): "
+          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB); "
+          f"with the packed-key parity scan in the chains' place "
+          f"{enc_scan_ms:.3f} ms | the parity route "
+          f"{parts['pbwt_encode_chunked(parity=True)']['ms']:.3f} ms (the "
+          f"packed-key parity scan "
+          f"{parts['pbwt_encode_scan_parity']['ms']:.3f} ms), of which the "
+          f"rank chain {pchain['ms']:.3f} ms and {pc['name']} {pc['ms']:.4f} "
+          f"ms | decode (host parse + device): "
           f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
           f"{dec_peak_gb:.3f} GB), of which wah_expand_varw_bits "
           f"{exp_ms:.4f} ms and the mixed scan (run route, no final "
           f"arrangement) {droute['ms']:.3f} ms | "
           f"serialize: {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
+    plain_scan = ("" if dscan is None else
+                  f"; the stepping scan {dscan['plain_ms']:.3f} ms, the "
+                  f"device decode {dec_dev_plain_ms:.3f} ms")
     print(f"[{name}] with the plain versions in the kernels' place: the "
-          f"rank chain {pchain['plain_ms']:.3f} ms, the parity scan "
-          f"{scan_plain_chain_ms:.3f} ms, the encode core "
-          f"{enc_plain_chain_ms:.3f} ms (peak {enc_core_peak_plain:.3f} GB); "
-          f"the stepping scan {dscan['plain_ms']:.3f} ms, the device "
-          f"decode {dec_dev_plain_ms:.3f} ms ({card})")
+          f"rank chain {pchain['plain_ms']:.3f} ms, the parity route "
+          f"{route_plain_chain_ms:.3f} ms, the encode core "
+          f"{enc_plain_chain_ms:.3f} ms (peak {enc_core_peak_plain:.3f} GB)"
+          f"{plain_scan} ({card})")
+    step_scan = ("" if dscan is None else
+                 f"the scan {dscan['ms']:.3f} ms, ")
     print(f"[{name}] device alone: encode core peak {enc_core_peak:.3f} GB "
+          f"(with the packed-key parity scan {enc_core_peak_scan:.3f} GB) "
           f"| decode {dec_dev_ms:.3f} ms, peak {dec_dev_peak:.3f} GB; with "
-          f"the stepping kernel forced over the block's lines: the scan "
-          f"{dscan['ms']:.3f} ms, the decode {dec_dev_step_ms:.3f} ms, peak "
+          f"the stepping kernel forced over the block's lines: {step_scan}"
+          f"the decode {dec_dev_step_ms:.3f} ms, peak "
           f"{dec_dev_peak_step:.3f} GB ({card})")
-    return {"launches": launches, "H": H, "encode_ms": enc_ms,
-            "block_checks": checks, "decode_device_ms": dec_dev_ms,
+    return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
+            "encode_ms": enc_ms, "block_checks": checks,
+            "encode_packed_key_parity_scan_ms": enc_scan_ms,
+            "parity_path_alone": parts,
+            "decode_device_ms": dec_dev_ms,
             "decode_device_stepping_ms": dec_dev_step_ms,
             "decode_device_plain_scan_ms": dec_dev_plain_ms,
-            "encode_parity_scan_ms": scan_ms,
-            "encode_parity_scan_plain_chain_ms": scan_plain_chain_ms,
+            "encode_parity_route_ms":
+                parts["pbwt_encode_chunked(parity=True)"]["ms"],
+            "encode_parity_scan_ms": parts["pbwt_encode_scan_parity"]["ms"],
+            "encode_parity_route_plain_chain_ms": route_plain_chain_ms,
             "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": pchain["ms"],
             "rank_chain_plain_ms": pchain["plain_ms"], "decode_ms": dec_ms,
             "decode_expand_ms": exp_ms, "decode_scan_ms": droute["ms"],
             "decode_scan_with_final_ms": droute["ms_with_final"],
-            "decode_scan_stepping_ms": dscan["ms"],
-            "decode_scan_plain_ms": dscan["plain_ms"],
+            "decode_scan_stepping_ms": droute["stepping_ms"],
+            "decode_scan_plain_ms": dscan and dscan["plain_ms"],
             "serialize_ms": ser_ms, "decode_records_ms": rec_ms,
             "compression_ratio": ratio, "payload_bytes": len(payload),
             "wah_lines": n_wah, "haploid_wah_lines": n_hap_wah,
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
                                "decode": dec_peak_gb,
                                "encode_core_once": enc_core_peak,
+                               "encode_core_once_packed_key_parity_scan":
+                                   enc_core_peak_scan,
                                "encode_core_once_plain_rank_chain":
                                    enc_core_peak_plain,
                                "decode_device_once": dec_dev_peak,
@@ -2974,8 +3125,9 @@ def main() -> int:
               for name, n, seed in BLOCKS}
     for name in TRACK_BLOCKS:
         blocks[name] = phase(f"block_{name}", track_block_phase, name, card)
-    blocks[MIXED_BLOCK] = phase(f"block_{MIXED_BLOCK}", mixed_block_phase,
-                                card)
+    for name, n, seed in MIXED_BLOCKS:
+        blocks[name] = phase(f"block_{name}", mixed_block_phase, name, n,
+                             seed, card)
     files = {"file": phase("file", file_phase, card, keep=SCALE_WORK),
              "file-missing": phase("file-missing", file_phase, card,
                                    "file-missing", 0.01, True),

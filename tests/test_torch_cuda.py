@@ -188,6 +188,38 @@ def test_chain_cluster_routes_match_plain(dev, n_ch, C, H, K_enc, K_dec,
     assert n1["chain_decode"] == n0["chain_decode"]
 
 
+@pytest.mark.parametrize("n_ch,C,H,K,lines", [
+    (3, 15, 2466, None, "random"),    # one CTA: the chrX PAR block's width
+    (2, 15, 33, None, "random"), (4, 7, 513, None, "random"),
+    (4, 15, 5008, None, "ones"), (4, 15, 5008, None, "nosort"),
+    (2, 15, 57856, None, "random"),   # one CTA's widest row
+    (3, 15, 5008, 2, "random"),       # a cluster forced
+    (2, 15, 97256, None, "random"),   # 8 CTAs: the TOPMed males' width
+    (1, 15, 491504, None, "random"),  # 16 CTAs
+])
+def test_chain_encode_parity_matches_plain(dev, n_ch, C, H, K, lines):
+    """The encode with the parity payload (bit 15 of each register, set at
+    random) on each route against its plain version, counted under its
+    own launch keys; 16 lines a chunk are refused."""
+    rng = np.random.default_rng(H + C + 7)
+    ss, q0, _ = _chain_inputs(rng, n_ch, C, H, lines)
+    q0 |= torch.from_numpy(rng.integers(0, 2, (n_ch, H),
+                                        dtype=np.int32)) << 15
+    n0 = dict(pbwt_kernels.launches)
+    got = pbwt_kernels.chain_encode(q0.to(dev), ss.to(dev), cluster=K,
+                                    parity=True)
+    assert _equal(got, pbwt_kernels.chain_encode_plain(q0, ss, parity=True))
+    route = pbwt_kernels.chain_route(
+        "chain_encode_parity", pbwt_kernels.cluster_size("chain_encode", H,
+                                                         K))
+    n1 = pbwt_kernels.launches
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {route: 1}
+    with pytest.raises(ValueError, match="at most 15 lines"):
+        pbwt_kernels.chain_encode(
+            q0.to(dev), torch.ones((n_ch, 16), dtype=torch.bool, device=dev),
+            parity=True)
+
+
 def _totals(rng, n_ch, H, bits, kind="random"):
     """Per-chunk history totals below 2^bits: each bit a sorting line of a
     density drawn per line; "zeros" all 0, "sparse" every other chunk
@@ -676,7 +708,7 @@ def test_mixed_block_roundtrip_on_card(dev, min_run, monkeypatch):
     assert all(np.array_equal(o, r) for o, r in zip(out, recs))
     # the decode's pieces: a stepping launch each, or chain_decode and the
     # run flush (a haploid run not the last also a rank chain); the
-    # encode's parity scan one rank chain
+    # encode one rank chain and the chain with the parity payload
     dec = decoder_torch.TorchBlockDecoder(payload, n_samples, 2 * n_samples,
                                           np.uint16, device=dev)
     runs = [r for *_, r in pbwt_torch.mixed_runs(dec.host_inputs_mixed()[3],
@@ -685,11 +717,49 @@ def test_mixed_block_roundtrip_on_card(dev, min_run, monkeypatch):
     n_runs = len(runs) - n_step
     assert (n_runs > 0) == (min_run is not None)
     want = {"rank_chain": 1 + runs[:-1].count("haploid"),
+            "chain_encode_parity": 1,
             "decode_scan_mixed": n_step, "chain_decode": n_runs,
             "decode_run_flush": n_runs}
     assert set(counts) == {"wah_compress_bits", "wah_expand_varw_bits",
                            *(k for k, v in want.items() if v)}
     assert all(counts.get(k, 0) == v for k, v in want.items())
+
+
+def test_wide_mixed_block_roundtrip_on_card(dev):
+    """48,628 males (H = 97,256), diploid records then haploid ones: the
+    encode chain with the parity payload on 8 CTAs, the packed-key scan
+    made to raise; payload equal to the host encoder's, every record
+    decoded."""
+    rng = np.random.default_rng(10)
+    n_samples, L = 48628, 32
+    recs = []
+    for i in range(L):
+        n = n_samples if i >= L // 2 else 2 * n_samples
+        a = (rng.random(n) < [0.0005, 0.2, 0.6, 0.03][i % 4]) \
+            .astype(np.int32)
+        recs.append(((a + 1) << 1).astype(np.int32))
+    kw = dict(n_samples=n_samples, block_bcf_lines=L, mac_threshold=97,
+              default_phasing=0, aet_dtype=np.uint32)
+    ref = GtBlockEncoder(**kw)
+    enc = encoder_torch.TorchBlockEncoder(device=dev, **kw)
+    for row in recs:
+        ref.encode_record(row, 2)
+        enc.encode_record(row, 2)
+
+    def refuse(*a, **k):
+        raise AssertionError("the packed-key scan ran on the card path")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pbwt_torch, "pbwt_encode_scan_parity", refuse)
+        payload, out, counts = _block_counts(
+            enc, lambda e: e.serialize(),
+            lambda pl: decoder_torch.decode_block_records(
+                pl, n_samples, 2 * n_samples, np.uint32, [2] * L,
+                device=dev))
+    assert payload == ref.serialize()
+    assert all(np.array_equal(o, r) for o, r in zip(out, recs))
+    assert counts["chain_encode_parity_cluster"] == 1
+    assert not {"chain_encode", "chain_encode_cluster",
+                "chain_encode_parity"} & set(counts)
 
 
 @pytest.mark.parametrize("n_samples,L,mac,route", [

@@ -310,8 +310,8 @@ def test_wide_block_codec_takes_the_chains(kind, monkeypatch):
     """A 65,600-haplotype block through the torch codec on the CPU: the
     payload equals the host encoder's and decodes to its records, through
     the chain wrappers and the run flush (the wide state), with the
-    packed-key scan and the blocked decode made to raise (a mixed block's
-    encode keeps its parity scan)."""
+    packed-key scans and the blocked decode made to raise (a mixed block's
+    encode takes the chain with the parity payload, 15 lines a chunk)."""
     rng = np.random.default_rng(41 if kind == "uniform" else 42)
     recs = []
     for i in range(24):
@@ -329,11 +329,10 @@ def test_wide_block_codec_takes_the_chains(kind, monkeypatch):
 
     def refuse(*a, **k):
         raise AssertionError("a plain wide form ran")
-    for name in ("pbwt_encode_scan", "pbwt_decode_blocked"):
+    for name in ("pbwt_encode_scan", "pbwt_encode_scan_parity",
+                 "pbwt_decode_blocked", "_sorted_rows"):
         monkeypatch.setattr(pbwt_torch, name, refuse)
-    if kind == "uniform":
-        monkeypatch.setattr(pbwt_torch, "_sorted_rows", refuse)
-    else:                   # a few lines a run: put each on the chains
+    if kind == "mixed":     # a few lines a run: put each on the chains
         monkeypatch.setattr(pbwt_torch, "MIN_RUN_LINES_WIDE", 1)
     seen = {}
 
@@ -364,6 +363,7 @@ def test_wide_block_codec_takes_the_chains(kind, monkeypatch):
         (shape, sh), = seen["decode_run_flush"]
         assert shape[1] == H and sh == C
     else:                   # the two runs: diploid wide, haploid narrow
-        assert "chain_encode" not in seen
+        (shape, sh), = seen["chain_encode"]     # the parity payload
+        assert shape[1] == H and sh == 15
         assert {(shape[1], sh) for shape, sh in seen["decode_run_flush"]} \
             == {(H, C), (N_SAMPLES, 16)}

@@ -17,7 +17,8 @@ The encode chain takes every width the format allows (a cluster of 8
 CTAs above 57,856 haplotypes, 16 above 428,032); blocks wider than 65,535
 haplotypes
 have 32-bit sparse and track streams.
-Mixed-ploidy blocks take the parity scan (encode_block_core_mixed).
+Mixed-ploidy blocks take the same chains with the parity payload
+(encode_block_core_mixed).
 """
 from __future__ import annotations
 
@@ -145,6 +146,19 @@ def encode_block_core_compact_tracks(alleles, alts, wah_rows, sorts_w,
     return out
 
 
+def even_slot_rows(ys: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
+    """The bits of each row at its even-parity positions (par == 0), in
+    order, front-packed: uint8[R, H // 2] from ys, par uint8[R, H] (a
+    haploid line's stored bits; encoder_jax computes them with a sort).
+    Each even position's rank among the evens is a cumsum, and one
+    scatter places the bits (the odd ones land past the row)."""
+    N = ys.shape[1] // 2
+    even = (par == 0).to(torch.int64)
+    dest = torch.where(even != 0, torch.cumsum(even, 1) - 1, N)
+    return torch.zeros((ys.shape[0], N + 1), dtype=torch.uint8,
+                       device=ys.device).scatter_(1, dest, ys)[:, :N]
+
+
 def encode_block_core_mixed(alleles, alts, wah_rows, dip_w, hap_w,
                             sparse_rows, negated_s, hap_s,
                             sparse_cap: int) -> dict:
@@ -160,28 +174,23 @@ def encode_block_core_mixed(alleles, alts, wah_rows, dip_w, hap_w,
     bool[Ls].
 
     A diploid WAH line emits its 2N arrangement-ordered bits; a haploid
-    one the N bits of its even-parity positions (the parity scan gives
-    each position's slot parity; the subsequence is a cumsum and a
-    scatter).  Haploid sparse lines keep even-slot carriers, halved to
-    sample indices.  Returns wah_words uint16[len(dip_w), W(2N)],
-    wah_len, hap_wah_words uint16[len(hap_w), W(N)], hap_wah_len,
-    sparse_idx int32[Ls, sparse_cap] and sparse_len int64[Ls].
+    one the N bits of its even-parity positions (the encode chains carry
+    each position's slot parity, pbwt_encode_chunked(..., parity=True);
+    even_slot_rows takes the subsequence).  Haploid sparse lines keep
+    even-slot carriers, halved to sample indices.  Returns wah_words
+    uint16[len(dip_w), W(2N)], wah_len, hap_wah_words uint16[len(hap_w),
+    W(N)], hap_wah_len, sparse_idx int32[Ls, sparse_cap] and sparse_len
+    int64[Ls].
     """
     H = alleles.shape[1]
-    N = H // 2
     dev = alleles.device
     aw = alleles.index_select(0, wah_rows)
     sorts = torch.ones(aw.shape[0], dtype=torch.bool, device=dev)
-    ys, par, _ = pbwt_torch.pbwt_encode_scan_parity(
-        aw, alts.index_select(0, wah_rows), sorts)
+    ys, par, _ = pbwt_torch.pbwt_encode_chunked(
+        aw, alts.index_select(0, wah_rows), sorts, parity=True)
     wah_words, wah_len = _wah_rows(ys.index_select(0, dip_w))
-
-    hy = ys.index_select(0, hap_w)
-    even = (par.index_select(0, hap_w) == 0).to(torch.int64)
-    dest = torch.where(even != 0, torch.cumsum(even, 1) - 1, N)
-    hap_ys = torch.zeros((hy.shape[0], N + 1), dtype=torch.uint8,
-                         device=dev).scatter_(1, dest, hy)[:, :N]
-    hap_words, hap_len = _wah_rows(hap_ys)
+    hap_words, hap_len = _wah_rows(even_slot_rows(
+        ys.index_select(0, hap_w), par.index_select(0, hap_w)))
 
     sp = alleles.index_select(0, sparse_rows)
     sp_allele = torch.where(negated_s, 0, alts.index_select(0, sparse_rows))

@@ -12,6 +12,13 @@
 // bit (zeros keep their order at the front, ones follow in order).
 //   encode: the state is each haplotype's 16-bit register of the chunk's
 //           bits (bit j = line j); line j's output is bit j of every slot.
+//           With the parity payload (PAR, the mixed-ploidy encode) a chunk
+//           holds C <= 15 lines and bit 15 holds the haplotype's slot
+//           parity h & 1, which rides through every partition with its
+//           register (no line sorts on it); each output byte is then
+//           bit j | (bit 15 << 1): the line's bit and the parity of the
+//           haplotype at that slot, in place of pbwt_jax.py
+//           pbwt_encode_scan_parity (:80).
 //   decode: the state is (chunk-start slot << sh) | beta; line j's input bit
 //           is ORed into beta at bit j before the partition, so it travels
 //           with its haplotype.  The final state is the kernel's output.
@@ -50,17 +57,19 @@
 //   4. one barrier (the buffer is complete), then the buffers swap.
 // The row is padded to whole tiles with pad elements whose every bit is 1:
 // they sort as ones behind every real one, so they stay at the tail and the
-// first H slots are the real row.
+// first H slots are the real row (only those are emitted, so a pad's bit
+// 15 never reads as a parity).
 //
 // Routes, chosen by the wrapper (ops/pbwt_kernels.py) from H:
 //
-// One CTA per chunk (xsi_chain_encode / xsi_chain_decode) while the
-// double-buffered row fits the 227 KB one CTA may use: H <= 57,856 (encode)
-// or 28,928 (decode), 226 tiles.  The runs are written straight into the
-// next buffer.
+// One CTA per chunk (xsi_chain_encode / xsi_chain_decode, and
+// xsi_chain_encode_parity) while the double-buffered row fits the 227 KB
+// one CTA may use: H <= 57,856 (encode) or 28,928 (decode), 226 tiles.  The
+// runs are written straight into the next buffer.
 //
 // The encode on a cluster of K <= 16 CTAs per chunk
-// (xsi_chain_encode_cluster) above that: 8 up to 428,032 haplotypes, 16
+// (xsi_chain_encode_cluster, xsi_chain_encode_parity_cluster) above that:
+// 8 up to 428,032 haplotypes, 16
 // above (a non-portable cluster size, checked with
 // cudaOccupancyMaxActiveClusters before the launch), up to the format's
 // 491,505.  Global slots, run offsets and counters are ints (< 2^19 at
@@ -242,14 +251,24 @@ __device__ __forceinline__ void store_run(const uint16_t* staged,
     }
 }
 
+// The encode's output byte of line j at one slot: the register's bit j,
+// and with the parity payload its bit 15 (the slot's parity) above it.
+template <bool PAR>
+__device__ __forceinline__ uint32_t emit_bits(uint16_t v, int j) {
+    uint32_t b = (v >> j) & 1u;
+    if constexpr (PAR) b |= (uint32_t)(v >> 15) << 1;
+    return b;
+}
+
 // One chunk per CTA (CL false) or per cluster of K CTAs (CL true), the
 // rows in shared memory, or (the decode on a cluster, GM) in device memory
 // at `rows` (2 K S states a chunk).
-//   encode (DEC false): in = q0 int32[n_ch, H], out = y uint8[n_ch, C, H];
+//   encode (DEC false): in = q0 int32[n_ch, H], out = y uint8[n_ch, C, H]
+//                       (PAR: C <= 15, bit 15 of q0 the slot parity);
 //   decode (DEC true):  in = yc uint8[n_ch, C, H], out = uint32[n_ch, H],
 //                       the states (slot << sh) | beta (C <= sh).
 // S: slots per CTA, a whole number of tiles (K * S >= H).
-template <bool DEC, bool CL>
+template <bool DEC, bool CL, bool PAR>
 __global__ void __launch_bounds__(CHAIN_THREADS)
 chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
              void* __restrict__ out, uint32_t* __restrict__ rows, int H,
@@ -380,8 +399,8 @@ chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
                 uint32_t lo = 0, hi = 0;
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
-                    lo |= (uint32_t)((grp.v[i] >> j) & 1) << (8 * i);
-                    hi |= (uint32_t)((grp.v[i + 4] >> j) & 1) << (8 * i);
+                    lo |= emit_bits<PAR>(grp.v[i], j) << (8 * i);
+                    hi |= emit_bits<PAR>(grp.v[i + 4], j) << (8 * i);
                 }
                 if ((H & 7) == 0 && g + VEC <= H) {
                     *reinterpret_cast<uint2*>(y_row + g) = make_uint2(lo, hi);
@@ -389,7 +408,8 @@ chain_kernel(const void* __restrict__ in, const uint8_t* __restrict__ ss,
 #pragma unroll
                     for (int i = 0; i < VEC; ++i)
                         if (g + i < H)
-                            y_row[g + i] = (uint8_t)((grp.v[i] >> j) & 1);
+                            y_row[g + i] =
+                                (uint8_t)emit_bits<PAR>(grp.v[i], j);
                 }
             }
             if (sorting) {
@@ -528,7 +548,7 @@ static size_t smem_bytes(int S, int K) {
     return b;
 }
 
-template <bool DEC>
+template <bool DEC, bool PAR = false>
 static int launch_one_cta(const void* in, const void* ss, void* out,
                           int n_ch, int H, int C, int sh,
                           cudaStream_t stream) {
@@ -536,11 +556,11 @@ static int launch_one_cta(const void* in, const void* ss, void* out,
     if (S / Chain<DEC>::TILE > MAX_TILES) return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes<DEC>(S, 1);
     const cudaError_t e = cudaFuncSetAttribute(
-        chain_kernel<DEC, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        chain_kernel<DEC, false, PAR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     if (n_ch > 0)
-        chain_kernel<DEC, false><<<n_ch, CHAIN_THREADS, smem, stream>>>(
+        chain_kernel<DEC, false, PAR><<<n_ch, CHAIN_THREADS, smem, stream>>>(
             in, (const uint8_t*)ss, out, nullptr, H, C, S, sh);
     return (int)cudaGetLastError();
 }
@@ -548,7 +568,7 @@ static int launch_one_cta(const void* in, const void* ss, void* out,
 // Launch the K-CTA route on n_ch clusters (the decode's with its rows at
 // `rows`).  Refuses (XSI_ERR_NO_CLUSTER) when the device cannot hold one
 // such cluster.
-template <bool DEC>
+template <bool DEC, bool PAR = false>
 static int launch_cluster(const void* in, const void* ss, void* out,
                           void* rows, int n_ch, int H, int C, int sh, int K,
                           cudaStream_t stream) {
@@ -558,7 +578,7 @@ static int launch_cluster(const void* in, const void* ss, void* out,
     if (S / Chain<DEC>::TILE > (DEC ? MAX_TILES_ROWS : MAX_TILES))
         return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes<DEC>(S, K);
-    auto kernel = chain_kernel<DEC, true>;
+    auto kernel = chain_kernel<DEC, true, PAR>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -615,6 +635,25 @@ extern "C" int xsi_chain_encode_cluster(const void* q0, const void* ss,
                                         int K, void* stream) {
     return launch_cluster<false>(q0, ss, y, nullptr, n_ch, H, C, 0, K,
                                  (cudaStream_t)stream);
+}
+
+// The encode with the parity payload (bit 15 of each register, C <= 15):
+// each output byte is the line's bit | (the slot's parity << 1).
+extern "C" int xsi_chain_encode_parity(const void* q0, const void* ss,
+                                       void* y, int n_ch, int H, int C,
+                                       void* stream) {
+    if (C > 15) return (int)cudaErrorInvalidValue;
+    return launch_one_cta<false, true>(q0, ss, y, n_ch, H, C, 0,
+                                       (cudaStream_t)stream);
+}
+
+extern "C" int xsi_chain_encode_parity_cluster(const void* q0,
+                                               const void* ss, void* y,
+                                               int n_ch, int H, int C, int K,
+                                               void* stream) {
+    if (C > 15) return (int)cudaErrorInvalidValue;
+    return launch_cluster<false, true>(q0, ss, y, nullptr, n_ch, H, C, 0, K,
+                                       (cudaStream_t)stream);
 }
 
 // The decode on a cluster of K CTAs with both rows in device memory:

@@ -38,6 +38,8 @@ ENTRY_POINTS = {
     "xsi_chain_encode": (_P, _P, _P, _I, _I, _I, _P),
     "xsi_chain_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
     "xsi_chain_encode_cluster": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "xsi_chain_encode_parity": (_P, _P, _P, _I, _I, _I, _P),
+    "xsi_chain_encode_parity_cluster": (_P, _P, _P, _I, _I, _I, _I, _P),
     "xsi_chain_decode_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "xsi_wah_expand": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "xsi_wah_compress": (_P, _I, _P, _P, _I, _I, _I, _I, _P),

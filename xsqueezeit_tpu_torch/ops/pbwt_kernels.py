@@ -26,7 +26,11 @@ both rows in device memory (chain_decode_rows in ``launches``): at HRC
 and TOPMed widths that ran faster than the cluster's shared memory.  Each
 bound follows from chain_max_h.  ``cluster`` picks the route explicitly
 (see :func:`cluster_size`).  ``launches`` counts kernel launches per
-route (:func:`chain_route`).
+route (:func:`chain_route`).  With ``parity=True`` the encode carries
+each haplotype's slot parity in bit 15 of its register (chunks of
+PARITY_CHUNK = 15 lines) and emits it beside each line's bit: the
+mixed-ploidy encode's route, in place of the row sort of
+pbwt_jax.pbwt_encode_scan_parity.
 
 The kernels own the row by warp tiles of 512 bytes (32 lanes x 16 bytes)
 and pad it to whole tiles; :func:`chain_smem_bytes` mirrors their shared
@@ -60,10 +64,14 @@ MAX_CLUSTER = 16
 _STATE_BYTES = {"chain_encode": 2, "chain_decode": 4}
 #: CTAs a chunk of the run flush above SLOT16_H slots.
 FLUSH_CLUSTER = 8
+#: Lines a chunk of the encode chain with the parity payload: bit 15 of
+#: each 16-bit register holds the haplotype's slot parity.
+PARITY_CHUNK = 15
 
 #: Kernel launches since the last reset, by kernel route.
 launches = {"chain_encode": 0, "chain_decode": 0,
             "chain_encode_cluster": 0, "chain_decode_rows": 0,
+            "chain_encode_parity": 0, "chain_encode_parity_cluster": 0,
             "rank_chain": 0, "decode_scan_mixed": 0, "decode_run_flush": 0,
             "decode_run_flush_cluster": 0}
 
@@ -207,11 +215,14 @@ def _partition_dest(y: torch.Tensor, sorts: torch.Tensor) -> torch.Tensor:
     return torch.where(sorts[:, None], dest, iota)
 
 
-def chain_encode_plain(q0: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+def chain_encode_plain(q0: torch.Tensor, ss: torch.Tensor,
+                       parity: bool = False) -> torch.Tensor:
     """q0: int32[n_ch, H] chunk-start registers (bit j = the haplotype's
     bit on chunk line j, slots in chunk-start arrangement order); ss:
     bool[n_ch, C] sort flags.  Returns uint8[n_ch, C, H]: line j's bits in
-    the arrangement in force before line j."""
+    the arrangement in force before line j.  With `parity` (C <=
+    PARITY_CHUNK) bit 15 of each register travels with it, and each output
+    byte also holds that bit, the slot's parity, at bit 1."""
     n_ch, H = q0.shape
     C = ss.shape[1]
     q = q0.to(torch.int64)
@@ -219,7 +230,8 @@ def chain_encode_plain(q0: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
     ys = torch.empty((n_ch, C, H), dtype=torch.uint8, device=q0.device)
     for j in range(C):
         y = (q >> j) & 1
-        ys[:, j] = y.to(torch.uint8)
+        ys[:, j] = (y | (((q >> 15) & 1) << 1) if parity else y).to(
+            torch.uint8)
         dest = _partition_dest(y, sorts[:, j])
         q = torch.empty_like(q).scatter_(1, dest, q)
     return ys
@@ -262,11 +274,19 @@ def _flags(name: str, ss: torch.Tensor, n_ch: int,
 
 
 def chain_encode(q0: torch.Tensor, ss: torch.Tensor,
-                 cluster: int | None = None) -> torch.Tensor:
+                 cluster: int | None = None, parity: bool = False
+                 ) -> torch.Tensor:
     """Encode chunk chains (see chain_encode_plain for the contract) on
-    `cluster` CTAs per chain (see cluster_size; None: chosen by H)."""
+    `cluster` CTAs per chain (see cluster_size; None: chosen by H), with
+    the parity payload if `parity` (counted as chain_encode_parity /
+    chain_encode_parity_cluster).  Raises ValueError for parity with more
+    than PARITY_CHUNK lines a chunk."""
+    if parity and ss.dim() == 2 and ss.shape[1] > PARITY_CHUNK:
+        raise ValueError(f"chain_encode: with the parity payload a chunk "
+                         f"holds at most {PARITY_CHUNK} lines (got "
+                         f"{ss.shape[1]})")
     if q0.device.type == "cpu":
-        return chain_encode_plain(q0, ss)
+        return chain_encode_plain(q0, ss, parity)
     _check("chain_encode", q0, torch.int32, 2)
     n_ch, H = q0.shape
     K = cluster_size("chain_encode", H, cluster)
@@ -275,11 +295,12 @@ def chain_encode(q0: torch.Tensor, ss: torch.Tensor,
     q0 = q0.contiguous()
     y = torch.empty((n_ch, C, H), dtype=torch.uint8, device=q0.device)
     args = (q0.data_ptr(), flags.data_ptr(), y.data_ptr(), n_ch, H, C)
+    name = "chain_encode_parity" if parity else "chain_encode"
     if K == 1:
-        _build.launch(q0.device, "xsi_chain_encode", *args)
+        _build.launch(q0.device, f"xsi_{name}", *args)
     else:
-        _build.launch(q0.device, "xsi_chain_encode_cluster", *args, K)
-    _build.count(launches, chain_route("chain_encode", K))
+        _build.launch(q0.device, f"xsi_{name}_cluster", *args, K)
+    _build.count(launches, chain_route(name, K))
     return y
 
 

@@ -7,22 +7,24 @@ pbwt_encode_scan_parity, pbwt_decode_blocked, pbwt_decode_scan_mixed;
 its _rank_chain is ops/pbwt_kernels.py rank_chain).  The encode groups
 lines into chunks of C = 16 at every width: a 16-bit register per
 haplotype carries the chunk's bits through the partitions, which run in
-the chunk-chain kernels of ops/pbwt_kernels.py.  The decode's chain
-carries (chunk-start slot << C) | beta in 32 bits, so its chunks hold C =
-16 lines up to 65,536 haplotypes and C = 32 - ceil(log2 H) above
+the chunk-chain kernels of ops/pbwt_kernels.py; the mixed-ploidy encode
+takes chunks of 15 lines and carries the haplotype's slot parity in the
+register's bit 15 (pbwt_encode_chunked(..., parity=True)).  The decode's
+chain carries (chunk-start slot << C) | beta in 32 bits, so its chunks
+hold C = 16 lines up to 65,536 haplotypes and C = 32 - ceil(log2 H) above
 (pbwt_kernels.decode_chunk).  Cross-chunk state comes from a rank chain
 (encode: the rank_chain kernels) or from composing the chunks'
 arrangements (decode: the run flush kernel composes them and writes the
 rows).  The chains take every width the format allows (the decode above
 one CTA's 28,928 haplotypes with its rows in device memory).  The
-packed-key scan
-(pbwt_encode_scan) and the blocked three-phase decode (pbwt_decode_blocked)
-are the JAX package's forms at any width and the chains' plain
-counterparts above 65,535.
-Mixed-ploidy blocks encode with the parity scan and decode run by run
-(pbwt_decode_scan_mixed): a long run of one ploidy is a uniform chunked
-decode (at width ceil(H / 2) for a haploid run, over the samples) with
-the run flush kernel, and short runs take the stepping kernel.
+packed-key scans
+(pbwt_encode_scan, pbwt_encode_scan_parity) and the blocked three-phase
+decode (pbwt_decode_blocked) are the JAX package's forms at any width and
+the chains' plain counterparts: no card path calls them.
+Mixed-ploidy blocks decode run by run (pbwt_decode_scan_mixed): a long
+run of one ploidy is a uniform chunked decode (at width ceil(H / 2) for a
+haploid run, over the samples) with the run flush kernel, and short runs
+take the stepping kernel.
 
 Where the JAX package applies permutations with packed row sorts (fast on a
 TPU), this module scatters and gathers.  The block-start arrangement is the
@@ -145,8 +147,9 @@ def pbwt_encode_scan_parity(alleles: torch.Tensor, alts: torch.Tensor,
 
     The mixed-ploidy encoder needs, per line, the arrangement-ordered bit
     and the parity (a & 1) of the haplotype at each position.  One batched
-    row sort of the packed keys gives both.  Returns (ys uint8[L, H], par
-    uint8[L, H], a_final int64[H]).
+    row sort of the packed keys gives both.  pbwt_encode_chunked(...,
+    parity=True)'s plain counterpart at every width (no card path calls
+    it).  Returns (ys uint8[L, H], par uint8[L, H], a_final int64[H]).
     """
     packed, r_fin = pbwt_encode_keys(alleles, alts, sorts,
                                      carry_parity=True)
@@ -159,22 +162,27 @@ def pbwt_encode_scan_parity(alleles: torch.Tensor, alts: torch.Tensor,
 
 
 def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
-                        sorts: torch.Tensor, chunk: int = 16
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        sorts: torch.Tensor, chunk: int = 16,
+                        parity: bool = False) -> tuple[torch.Tensor, ...]:
     """Arrangement-ordered bits for every line, at every width up to
     pbwt_kernels.MAX_RANK_H = 491,505: the rank chain, the register load
     and chain_encode (one CTA, or a cluster of 8 or 16).
 
     alleles: int8/int16[L, H] allele codes; alts: int32[L] target ALT per
     line; sorts: bool[L] whether the line updates the arrangement.
-    Returns (ys uint8[L, H], a_final int64[H]).
+    Returns (ys uint8[L, H], a_final int64[H]).  With `parity` (the
+    mixed-ploidy encode) the chunks hold at most pbwt_kernels.PARITY_CHUNK
+    = 15 lines, bit 15 of each register is the haplotype's slot parity h &
+    1, and chain_encode emits it beside each line's bit: returns (ys, par
+    uint8[L, H] the parity of the haplotype at each position, a_final),
+    the contract of pbwt_encode_scan_parity.
     """
     L, H = alleles.shape
     if H > pbwt_kernels.MAX_RANK_H:
         raise ValueError(f"pbwt_encode_chunked takes at most "
                          f"{pbwt_kernels.MAX_RANK_H} haplotypes (got {H})")
     dev = alleles.device
-    C = chunk
+    C = min(chunk, pbwt_kernels.PARITY_CHUNK) if parity else chunk
     x = alleles == alts[:, None]
     pad = (-L) % C
     sorts = sorts.to(torch.bool)
@@ -201,12 +209,18 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
     iota = torch.arange(H, device=dev)
     r_fin, r_starts = pbwt_kernels.rank_chain(T, iota,
                                              max(16, _hap_bits(H)))
+    if parity:
+        bhat |= (iota.to(torch.int32) & 1) << 15
 
     # Register load: each haplotype's register lands at its chunk-start slot.
     q0 = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
     q0.scatter_(1, r_starts, bhat)
-    ys = pbwt_kernels.chain_encode(q0, ss)
-    return ys.reshape(n_ch * C, H)[:L], _inverse(r_fin)
+    ys = pbwt_kernels.chain_encode(q0, ss, parity=parity)
+    ys = ys.reshape(n_ch * C, H)[:L]
+    if not parity:
+        return ys, _inverse(r_fin)
+    par = ys >> 1
+    return ys.bitwise_and_(1), par, _inverse(r_fin)
 
 
 def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor
