@@ -133,7 +133,18 @@ exactly:
    genotypes), a block's host ingest and the 1KGP3-chrX block's host
    parse with the native routes and without (carriers and records equal),
    c_api_test and c_xcf_test built with gcc against the port's libraries
-   (their genotypes the Accessor's), and `loading_time --native`.
+   (their genotypes the Accessor's), and `loading_time --native`;
+11. corrupt containers (corrupt_phase, after the native phase): 42 corrupt
+   copies of containers written on the card (a stored index past its
+   line's width in the sparse, missing, EOV and haploid streams, WAH
+   streams cut short or with a counter past its line, byte flips, and the
+   file-wide phase's TOPMed-width container) through `cli -x --device
+   cuda` in this process, each exit 0 or 1 with one error line and a good
+   container extracted bit-exact after each (the CUDA context alive);
+   the decode kernels on corrupt streams against their plain versions;
+   and the native library built with ASan and UBSan on this machine,
+   its fuzz_accessor clean over those containers, 20 truncations and 20
+   flips.
 
 Any failure exits non-zero; the last line of standard output is the result
 JSON, the line before it the card's name and power limit.
@@ -1197,6 +1208,20 @@ def swapped(module, fns: dict):
             setattr(module, n, fn)
 
 
+def index_checks_ms(parse) -> dict:
+    """A block's host parse `parse` timed with the decoder's index checks
+    (decoder_torch.check_indices) and with them made a no-op, in turns
+    (with, without, without, with; 5 calls each): the checks' cost on
+    the decode path, beside its spread."""
+    times = {True: [], False: []}
+    for checked in (True, False, False, True):
+        fns = {} if checked else {"check_indices": lambda *a: None}
+        with swapped(decoder_torch, fns):
+            times[checked].append(wall_ms(parse, iters=5, warmup=1))
+    return {"host_parse_ms": times[True],
+            "host_parse_unchecked_ms": times[False]}
+
+
 @contextlib.contextmanager
 def captured_args():
     """Records (a copy of) the arguments of the first call of each chain,
@@ -1793,6 +1818,7 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
             "decode_device_blocked_ms": dec_dev_blocked_ms,
             "wide_path_alone": parts,
             "decode_ms": dec_ms, "serialize_ms": ser_ms,
+            "index_checks": index_checks_ms(dec.host_inputs),
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
             "payload_bytes": len(payload), "wah_lines": n_wah,
             "sparse_lines": L - n_wah, "negated_lines": n_neg,
@@ -1860,7 +1886,7 @@ def track_block_phase(name: str, card: str) -> dict:
         for stream, flags in ((m.missing_sparse, m.line_has_missing),
                               (m.eov_sparse, m.line_has_eov)):
             out += (decoder_torch.track_carriers(
-                stream, np.flatnonzero(flags), np.uint16)
+                stream, np.flatnonzero(flags), np.uint16, dec.line_width)
                 if flags is not None else [np.zeros(0, np.int64)] * 2)
         return out
 
@@ -1953,6 +1979,8 @@ def track_block_phase(name: str, card: str) -> dict:
             "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": rc["ms"], "rank_chain_plain_ms": rc["plain_ms"],
             "decode_ms": dec_ms, "decode_track_walk_ms": walk_ms,
+            "index_checks": index_checks_ms(
+                lambda: (dec.host_inputs(), carrier_pairs())),
             "decode_device_ms": dev_ms,
             "decode_device_torch_flush_ms": dev_torch_flush_ms,
             "serialize_ms": ser_ms,
@@ -2205,6 +2233,7 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
             "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": pchain["ms"],
             "rank_chain_plain_ms": pchain["plain_ms"], "decode_ms": dec_ms,
+            "index_checks": index_checks_ms(dec.host_inputs_mixed),
             "decode_expand_ms": exp_ms, "decode_scan_ms": droute["ms"],
             "decode_scan_with_final_ms": droute["ms_with_final"],
             "decode_scan_stepping_ms": droute["stepping_ms"],
@@ -3027,7 +3056,7 @@ def native_phase(card: str) -> dict:
         def parse():
             dec.host_inputs()
             return [decoder_torch.track_carriers(s, np.flatnonzero(f),
-                                                 np.uint16)
+                                                 np.uint16, dec.line_width)
                     for s, f in ((m.missing_sparse, m.line_has_missing),
                                  (m.eov_sparse, m.line_has_eov))
                     if f is not None]
@@ -3107,6 +3136,301 @@ def native_phase(card: str) -> dict:
             "emit_zlib": zlib_mode}
 
 
+#: The corrupt phase: the file-wide phase's TOPMed-width outputs are kept
+#: here, and the phase's containers written here.
+WIDE_WORK = os.path.join(REPO, ".bench_work", "chip_smoke_wide")
+CORRUPT_WORK = os.path.join(REPO, ".bench_work", "chip_smoke_corrupt")
+#: Samples and records of the corrupt phase's containers (H = 512, blocks
+#: of 32 records).
+CORRUPT_SAMPLES, CORRUPT_RECORDS, CORRUPT_BLOCK = 256, 96, 32
+
+
+def cli_in_process(args: list[str]) -> tuple[int, list[str]]:
+    """`cli.main(args)` in this process: its exit code and the non-empty
+    lines it wrote to standard error."""
+    import io
+
+    from xsqueezeit_tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    return rc, [l for l in err.getvalue().splitlines() if l.strip()]
+
+
+def corrupt_stream_checks() -> dict:
+    """The decode kernels on corrupt streams (bench/corrupt.wah_streams:
+    random u16 words, a well-formed stream cut short, counters of 16,383
+    groups past their line), against their plain versions on the CPU,
+    bit-exact: wah_expand_bits (a warp per line at H = 512, a CTA per line
+    at TOPMed's 194,512) and wah_expand_varw_bits (lines of 256 and 512
+    bits), then chain_decode and the run flush (pbwt_decode_chunked) on
+    each expansion."""
+    from xsqueezeit_tpu_torch.bench import corrupt
+
+    rng = np.random.default_rng(SEED + 15)
+    cases = 0
+    for n_lines, h in ((64, 512), (4, 2 * TOPMED_SAMPLES)):
+        w = wah_torch.n_words_for(h)
+        for kind, s in corrupt.wah_streams(rng, n_lines, w).items():
+            st = torch.from_numpy(s.astype(np.int32)).to(torch.uint16)
+            want = wah_torch.wah_expand_stream_bits(st, n_lines, w, h)
+            got = wah_kernels.wah_expand_bits(st.to(DEVICE), n_lines, w, h)
+            require(diff(got.cpu(), want) == 0,
+                    f"[corrupt] wah_expand_bits on a {kind} stream "
+                    f"({n_lines} x {h}) differs from its plain version")
+            sorts = torch.ones(n_lines, dtype=torch.bool)
+            dv, _ = pbwt_torch.pbwt_decode_chunked(got, sorts.to(DEVICE))
+            pv, _ = pbwt_torch.pbwt_decode_chunked(want, sorts)
+            require(diff(dv.cpu(), pv) == 0,
+                    f"[corrupt] chain_decode on a {kind} stream's "
+                    f"expansion ({n_lines} x {h}) differs from its plain "
+                    "version")
+            cases += 1
+            if h != 512:
+                continue
+            hap = np.arange(n_lines) % 3 == 2
+            goff = np.zeros(n_lines + 1, np.int64)
+            np.cumsum(np.where(hap, wah_torch.n_words_for(h // 2), w),
+                      out=goff[1:])
+            go = torch.from_numpy(goff)
+            want = wah_torch.wah_expand_stream_varw_bits(st, go, w, h)
+            got = wah_kernels.wah_expand_varw_bits(st.to(DEVICE),
+                                                   go.to(DEVICE), w, h)
+            require(diff(got.cpu(), want) == 0,
+                    f"[corrupt] wah_expand_varw_bits on a {kind} stream "
+                    "differs from its plain version")
+            cases += 1
+    torch.cuda.synchronize()
+    return {"stream_cases": cases}
+
+
+def corrupt_phase(card: str) -> dict:
+    """Corrupt containers on the card (bench/corrupt.py).
+
+    (a) Containers of 256 samples (H = 512) written with `cli -c --device
+    cuda`: uniformly diploid ("wah", the default MAF; "diploid", --maf
+    0.4: most lines sparse), with tracks ("tracks": 40 haploid males, 1 %
+    missing) and mixed ploidy ("mixed", every third record haploid).  In
+    this process `cli -x --device cuda` runs on each corrupt copy: a
+    stored index at its line's width + 3 (sparse, missing and EOV tracks,
+    a haploid line's sample), the WAH stream 1 / 5 / 37 words late and
+    with a counter of 16,383 groups at word 0 / 3 / 40, 20 random flips,
+    and the file-wide phase's TOPMed-width container (32-bit streams)
+    with a sparse index past its line.  Each exits 0 or 1 with one
+    `xsqueezeit: error:` line; the index cases exit 1 with the native
+    accessor's words.  After each, the same process extracts the "wah"
+    container on cuda:0 to the VCF bytes of --device numpy (the CUDA
+    context is alive).  The mixed copies also go through the mixed device
+    route (decode_block_records of the whole block), and the TOPMed
+    container's block with a counter past its line through decode_bits
+    (the CTA-per-line expand, the rows chains, the cluster flush).
+    (b) The decode kernels on corrupt streams against their plain
+    versions (corrupt_stream_checks).  No compute-sanitizer memcheck: it
+    reports the card as not supported where this script runs (PERF.md).
+    (c) The port's native library with ASan and UBSan, built on the
+    card's host (no zstd, no libdeflate as there), and fuzz_accessor over
+    part (a)'s containers:
+    each walked to its end, 20 truncations and 20 flips; a sanitizer
+    report or a signal fails.  The build starts with the phase."""
+    import concurrent.futures
+
+    from xsqueezeit_tpu_torch.bench import corrupt
+    from xsqueezeit_tpu_torch.format.container import XsiReader
+    from xsqueezeit_tpu_torch.interop import native
+
+    shutil.rmtree(CORRUPT_WORK, ignore_errors=True)
+    os.makedirs(CORRUPT_WORK)
+    secs = {}
+    t_phase = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    asan = pool.submit(native.build_sanitized, "asan",
+                       os.path.join(CORRUPT_WORK), zstd=False,
+                       libdeflate=False)
+
+    def path(f):
+        return os.path.join(CORRUPT_WORK, f)
+
+    try:
+        t0 = time.perf_counter()
+        synth_bcf(path("diploid.bcf"), CORRUPT_RECORDS, CORRUPT_SAMPLES,
+                  seed=SEED)
+        corrupt.write_vcf(path("tracks.vcf"), CORRUPT_SAMPLES,
+                          CORRUPT_RECORDS, seed=SEED, males=40,
+                          missing_frac=0.01)
+        corrupt.write_vcf(path("mixed.vcf"), CORRUPT_SAMPLES,
+                          CORRUPT_RECORDS, seed=SEED + 1, males=40,
+                          haploid_every=3, missing_frac=0.01)
+        good = {}
+        for name, src, maf in (("wah", "diploid.bcf", "0.01"),
+                               ("diploid", "diploid.bcf", "0.4"),
+                               ("tracks", "tracks.vcf", "0.01"),
+                               ("mixed", "mixed.vcf", "0.4")):
+            good[name] = path(f"{name}.xsi")
+            rc, err = cli_in_process(
+                ["-c", "-f", path(src), "-o", good[name], "--maf", maf,
+                 "--variant-block-length", str(CORRUPT_BLOCK), "--device",
+                 DEVICE])
+            require(rc == 0, f"[corrupt] -c {name}: exit {rc} {err}")
+        rc, err = cli_in_process(["-x", "-f", good["wah"], "-o",
+                                  path("want.vcf"), "-O", "v", "--device",
+                                  "numpy"])
+        require(rc == 0, f"[corrupt] -x --device numpy: exit {rc} {err}")
+        with open(path("want.vcf"), "rb") as f:
+            want = f.read()
+        secs["containers"] = time.perf_counter() - t0
+
+        def alive(after: str) -> None:
+            rc, err = cli_in_process(["-x", "-f", good["wah"], "-o",
+                                      path("good.vcf"), "-O", "v",
+                                      "--device", DEVICE])
+            with open(path("good.vcf"), "rb") as f:
+                same = f.read() == want
+            require(rc == 0 and same,
+                    f"[corrupt] after {after}: -x --device {DEVICE} of a "
+                    f"good container exit {rc}, VCF equal: {same} {err}")
+
+        outcomes = {}
+
+        def case(label: str, p: str, words: str | None = None) -> None:
+            rc, err = cli_in_process(["-x", "-f", p, "-o", path("bad.vcf"),
+                                      "-O", "v", "--device", DEVICE])
+            one = (rc == 0 and not err) or (
+                rc == 1 and len(err) == 1
+                and err[0].startswith("xsqueezeit: error:"))
+            require(one, f"[corrupt] {label}: exit {rc}, stderr {err}")
+            if words is not None:
+                require(rc == 1 and err == [f"xsqueezeit: error: {words}"],
+                        f"[corrupt] {label}: exit {rc}, stderr {err}, not "
+                        f"'{words}'")
+            outcomes[label] = err[0][len("xsqueezeit: error: "):] \
+                if rc else "decoded"
+            alive(label)
+
+        t0 = time.perf_counter()
+        reset_counts()
+        for kind, name, stream, haploid, words, blocks in (
+                ("sparse", "diploid", "sparse", None,
+                 "sparse index out of range", (0, 1, 2)),
+                ("missing", "tracks", "missing", None,
+                 "missing index out of range", (0, 1)),
+                ("eov", "tracks", "eov", None, "EOV index out of range",
+                 (0, 1)),
+                ("haploid", "mixed", "sparse", True,
+                 "sparse index out of range", (0, 1))):
+            for b in blocks:
+                p = corrupt.index_past_width(
+                    good[name], path(f"{kind}{b}.xsi"), stream, b, haploid)
+                case(f"{kind} index past its line, block {b}", p, words)
+                if kind == "haploid":
+                    rd = XsiReader(p)
+                    try:
+                        decoder_torch.decode_block_records(
+                            rd.gt_block_payload(b), rd.n_samples, rd.n_haps,
+                            rd.aet_dtype, [2] * CORRUPT_BLOCK,
+                            device=DEVICE)
+                        raised = None
+                    except ValueError as exc:
+                        raised = str(exc)
+                    require(raised == words,
+                            f"[corrupt] the mixed device route on block "
+                            f"{b}: {raised!r}, not {words!r}")
+        for name in ("wah", "tracks"):
+            for k in (1, 5, 37):
+                case(f"{name}: WAH stream {k} words late",
+                     corrupt.wah_dropped_words(good[name],
+                                               path(f"drop{k}.xsi"), k))
+        for name in ("wah", "mixed"):
+            for k in (0, 3, 40):
+                p = corrupt.wah_long_counter(good[name], path(f"long{k}.xsi"),
+                                             k)
+                case(f"{name}: counter past its line at word {k}", p)
+                if name == "mixed":
+                    rd = XsiReader(p)
+                    decoder_torch.decode_block_records(
+                        rd.gt_block_payload(0), rd.n_samples, rd.n_haps,
+                        rd.aet_dtype, [2] * CORRUPT_BLOCK, device=DEVICE)
+        rng = np.random.default_rng(SEED + 16)
+        for t in range(20):
+            name = ("wah", "diploid", "tracks", "mixed")[t % 4]
+            case(f"{name}: flips, trial {t}",
+                 corrupt.flip_bytes(good[name], path(f"flip{t}.xsi"), rng,
+                                    int(rng.integers(1, 4))))
+        wide = os.path.join(WIDE_WORK, "cuda.xsi")
+        case("TOPMed width: sparse index past its line",
+             corrupt.index_past_width(wide, path("wide.xsi"), "sparse"),
+             "sparse index out of range")
+        p = corrupt.wah_long_counter(wide, path("wide_long.xsi"), 3)
+        rd = XsiReader(p)
+        dec = decoder_torch.TorchBlockDecoder(
+            rd.gt_block_payload(0), rd.n_samples, rd.n_haps, rd.aet_dtype,
+            device=DEVICE)
+        dec.decode_bits()
+        torch.cuda.synchronize()
+        alive("TOPMed width: counter past its line, decode_bits")
+        launches = {k: v for k, v in read_counts().items() if v}
+        for route in DECODE_ROUTES:
+            require(launches.get(route, 0) > 0,
+                    f"[corrupt] {route} was not launched by part (a)")
+        secs["containers_on_card"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        streams = corrupt_stream_checks()
+        secs["kernels_on_corrupt_streams"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        prog = asan.result()["fuzz_accessor"]
+        secs["asan_build_wait"] = time.perf_counter() - t0
+        env = {**os.environ, "ASAN_OPTIONS": "exitcode=99:abort_on_error=0",
+               "UBSAN_OPTIONS": "exitcode=99:print_stacktrace=1"}
+        runs = [(f"{name} walked to its end", good[name], name)
+                for name in ("wah", "diploid", "tracks", "mixed")]
+        data = open(good["tracks"], "rb").read()
+        for t, cut in enumerate(np.linspace(0, len(data) - 1, 20)
+                                .astype(int)):
+            runs.append((f"truncated at {cut}", corrupt.copy_container(
+                good["tracks"], path(f"cut{t}.xsi"), data[:cut]), None))
+        for t in range(20):
+            runs.append((f"flips, trial {t}", corrupt.flip_bytes(
+                good["diploid"], path(f"aflip{t}.xsi"), rng,
+                int(rng.integers(1, 4))), None))
+        with concurrent.futures.ThreadPoolExecutor(4) as fz:
+            results = list(fz.map(lambda r: subprocess.run(
+                [prog, r[1]], env=env, capture_output=True, text=True,
+                timeout=120), runs))
+        for (label, _, name), r in zip(runs, results):
+            blob = r.stdout + r.stderr
+            require(r.returncode >= 0 and r.returncode != 99
+                    and "AddressSanitizer" not in blob
+                    and "runtime error" not in blob,
+                    f"[corrupt] fuzz_accessor, {label}: exit "
+                    f"{r.returncode}\n{blob[-2000:]}")
+            if name is not None:
+                n = CORRUPT_RECORDS
+                require(r.returncode == 0 and f"done records={n}" in r.stdout,
+                        f"[corrupt] fuzz_accessor, {label}: {r.stdout}")
+        secs["asan_fuzz_accessor"] = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(CORRUPT_WORK, ignore_errors=True)
+        shutil.rmtree(WIDE_WORK, ignore_errors=True)
+    secs["phase"] = time.perf_counter() - t_phase
+    errors = sorted(set(outcomes.values()))
+    print(f"[corrupt] {len(outcomes)} corrupt containers through -x "
+          f"--device {DEVICE}, each exit 0 or 1 with one line, a good "
+          f"container bit-exact after each; outcomes {json.dumps(errors)}; "
+          f"{streams['stream_cases']} corrupt streams through the decode "
+          f"kernels equal to their plain versions; fuzz_accessor (ASan, "
+          f"UBSan) clean on {len(runs)} containers; launches "
+          f"{json.dumps(launches)}; seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in secs.items()})} "
+          f"({card})")
+    return {"cases": len(outcomes), "outcomes": outcomes,
+            "launches": launches, "asan_runs": len(runs), **streams,
+            "asan_build_seconds": native.last_build_seconds,
+            "seconds": secs}
+
+
 def main() -> int:
     phases = {}
 
@@ -3133,8 +3457,9 @@ def main() -> int:
                                    "file-missing", 0.01, True),
              "file-wide": phase("file-wide", file_phase, card, "file-wide",
                                 0.01, True, TOPMED_SAMPLES,
-                                WIDE_FILE_RECORDS)}
+                                WIDE_FILE_RECORDS, WIDE_WORK)}
     nat = phase("native", native_phase, card)
+    bad = phase("corrupt", corrupt_phase, card)
     tools = phase("tools", tools_phase, card)
     scale = phase("scale", scale_phase, card)
     bench = phase("bench", bench_phase, card)
@@ -3156,7 +3481,7 @@ def main() -> int:
                                      if x != "launches"}
                                  for k, b in blocks.items()},
                       "files": files, "native": nat,
-                      "native_build": native_build,
+                      "native_build": native_build, "corrupt": bad,
                       "tools": tools, "scale": scale,
                       "bench": bench,
                       "phase_seconds": phases,

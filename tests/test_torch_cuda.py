@@ -675,7 +675,7 @@ def test_track_block_roundtrip_on_card(dev):
     pairs = [torch.from_numpy(x).to(dev) for s, f in (
         (m.missing_sparse, m.line_has_missing), (m.eov_sparse, m.line_has_eov))
         for x in decoder_torch.track_carriers(s, np.flatnonzero(f),
-                                              np.uint16)]
+                                              np.uint16, dec.line_width)]
     fused = decoder_torch._decode_block_full_gt_tracks(*args, 1, *pairs, H, W)
     np.testing.assert_array_equal(fused.cpu().numpy(), gt)
 
@@ -1019,3 +1019,33 @@ def test_pool_of_two_devices_on_card(dev, tmp_path, devices):
                                        "decode_run_flush"))
     assert records(str(tmp_path / "p.bcf")) == records(str(tmp_path / "h.bcf"))
     assert len(records(vcf)) == 700
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wah_expand_kernels_on_corrupt_streams(dev, seed):
+    """The expand kernels on corrupt streams (bench/corrupt.wah_streams:
+    random words, a stream cut short, counters run past their line) equal
+    the plain versions, which read them by the same rule
+    (tests/test_torch_robustness.py), on both line routes; the chain
+    decode of the expansion equals its plain one."""
+    from xsqueezeit_tpu_torch.bench import corrupt
+
+    rng = np.random.default_rng(seed)
+    n_lines, h = 48, 512
+    w = wah_torch.n_words_for(h)
+    hap = np.arange(n_lines) % 3 == 2
+    goff = torch.from_numpy(np.concatenate([[0], np.cumsum(
+        np.where(hap, wah_torch.n_words_for(h // 2), w))]))
+    for s in corrupt.wah_streams(rng, n_lines, w).values():
+        st = torch.from_numpy(s.astype(np.int32)).to(torch.uint16)
+        want = wah_torch.wah_expand_stream_bits(st, n_lines, w, h)
+        want_v = wah_torch.wah_expand_stream_varw_bits(st, goff, w, h)
+        for lt in (32, 256):
+            got = wah_kernels.wah_expand_bits(st.to(dev), n_lines, w, h,
+                                              line_threads=lt)
+            assert _equal(got, want)
+            assert _equal(wah_kernels.wah_expand_varw_bits(
+                st.to(dev), goff.to(dev), w, h, line_threads=lt), want_v)
+        sorts = torch.ones(n_lines, dtype=torch.bool)
+        assert _equal(pbwt_torch.pbwt_decode_chunked(got, sorts.to(dev))[0],
+                      pbwt_torch.pbwt_decode_chunked(want, sorts)[0])

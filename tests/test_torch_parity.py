@@ -311,6 +311,28 @@ DECLARED = {
              "corrupt or\n  // truncated input must not read as a clean end "
              "of file\n  if (read_error) return -2;\n"),
     ],
+    "fuzz_enc.c": [
+        (" *   var  file.bcf skip gt_key       \u2014 xsi_var_pass over a "
+         "(possibly\n *                                     corrupt) BCF\n",
+         " *   var  file.bcf skip gt_key out   \u2014 xsi_var_pass over a "
+         "(possibly\n *                                     corrupt) BCF, "
+         "writing to out\n"),
+        ("static int run_var(const char *path, uint64_t skip, int gt_key) "
+         "{\n",
+         "static int run_var(const char *path, uint64_t skip, int gt_key,\n"
+         "                   const char *out) {\n"),
+        ('  int64_t n = xsi_var_pass(path, skip, "/tmp/fuzz_var_out.bcf", '
+         'hdr, 4, 1,\n',
+         "  int64_t n = xsi_var_pass(path, skip, out, hdr, 4, 1,\n"),
+        ('  if (argc >= 5 && strcmp(argv[1], "var") == 0)\n    return '
+         "run_var(argv[2], strtoull(argv[3], NULL, 10), atoi(argv[4]));\n",
+         '  if (argc >= 6 && strcmp(argv[1], "var") == 0)\n    return '
+         "run_var(argv[2], strtoull(argv[3], NULL, 10), atoi(argv[4]),\n"
+         "                   argv[5]);\n"),
+        ('                  "var file.bcf skip gt_key\\n", argv[0]);\n',
+         '                  "var file.bcf skip gt_key out.bcf\\n", '
+         "argv[0]);\n"),
+    ],
 }
 
 
@@ -323,19 +345,22 @@ def _tree(root):
 
 def test_native_copies_equal_the_originals_but_the_declared_changes():
     """The port's copy of native/ (its C++ sources and headers, the htslib
-    shim and the two C API test programs) is byte-equal to the JAX
-    package's but for the declared changes (DECLARED): zstd only where
-    zstd.h is found, the line tracks of a block with no binary lines at
-    the payload's end, sparse streams read from aligned copies where the
-    block does not align them, and the C API's gzip read error reported
-    as an error.  Its
-    comments name the xSqueezeIt reference's files without the directory
-    the originals give for the reference tree."""
+    shim, the two C API test programs and the four sanitizer programs:
+    fuzz_accessor.c, fuzz_gtb.c, fuzz_enc.c, tsan_extract.c) is byte-equal
+    to the JAX package's but for the declared changes (DECLARED): zstd
+    only where zstd.h is found, the line tracks of a block with no binary
+    lines at the payload's end, sparse streams read from aligned copies
+    where the block does not align them, the C API's gzip read error
+    reported as an error, and fuzz_enc's variant pass writing to the path
+    its caller gives in place of one fixed path that every run shares.
+    Its comments name the xSqueezeIt reference's files without the
+    directory the originals give for the reference tree."""
     orig_dir = os.path.join(REPO, "native")
     port_dir = os.path.join(REPO, "xsqueezeit_tpu_torch", "native")
     want = {f for f in _tree(orig_dir)
             if f.endswith((".cpp", ".h")) or f.startswith("hts_shim")
-            or f in ("c_api_test.c", "c_xcf_test.c")}
+            or f in ("c_api_test.c", "c_xcf_test.c", "fuzz_accessor.c",
+                     "fuzz_gtb.c", "fuzz_enc.c", "tsan_extract.c")}
     assert _tree(port_dir) == want
     for rel in sorted(want):
         a, b = (_read(os.path.join(d, rel)).decode()

@@ -130,7 +130,8 @@ def test_fused_track_decode_matches_jax(dp):
     assert dev.eligible
     *args, H, W, L = dev.device_inputs()
     m = dev.meta
-    tracks = [decoder_torch.track_carriers(s, np.flatnonzero(f), np.uint16)
+    tracks = [decoder_torch.track_carriers(s, np.flatnonzero(f), np.uint16,
+                                           dev.line_width)
               for s, f in ((m.missing_sparse, m.line_has_missing),
                            (m.eov_sparse, m.line_has_eov))]
     pairs = [torch.from_numpy(x) for tr in tracks for x in tr]

@@ -282,7 +282,7 @@ def run(n_samples: int = N_SAMPLES, n_lines: int = N_LINES,
         hi = dec_m.host_inputs()
         return hi, decoder_torch.track_carriers(
             meta.missing_sparse, np.flatnonzero(meta.line_has_missing),
-            np.uint16)
+            np.uint16, dec_m.line_width, "missing")
 
     def missing_decode(h):
         hi, (mrec, midx) = h

@@ -24,7 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..format.constants import INT32_VECTOR_END, WeirdnessStrategy
+from ..format.constants import (
+    INT32_VECTOR_END,
+    GTDict,
+    WeirdnessStrategy,
+)
+from ..format.dictionary import read_dictionary
 from ..ops import pbwt_np, pbwt_torch, wah_kernels, wah_np
 from ..ops import wah_torch
 from ..ops.sparse_np import msb as _msb, sparse_line_offsets
@@ -139,22 +144,81 @@ def _decode_block_mixed(stream, group_off, sorts, hap_w, rank, is_wah, neg,
     return vals ^ neg[:, None]
 
 
+def host_decoder(payload, n_samples: int, n_haps: int,
+                 aet_dtype) -> GtBlockDecoder:
+    """GtBlockDecoder of a GT block: its dictionary and line tracks parsed
+    by the JAX package's host decoder, copied.  Where the copy raises
+    KeyError (a dictionary without its line counts) or IndexError (a line
+    track that runs past its stream) on a corrupt block, this raises
+    ValueError, in the native accessor's words where it has them."""
+    d, _ = read_dictionary(memoryview(payload), 0)
+    if GTDict.KEY_BCF_LINES not in d or GTDict.KEY_BINARY_LINES not in d:
+        raise ValueError("block dictionary missing line counts")
+    try:
+        return GtBlockDecoder(payload, n_samples, n_haps, aet_dtype)
+    except IndexError as exc:
+        raise ValueError(f"corrupt line track ({exc})") from exc
+
+
+def line_offsets(stream: np.ndarray, n_lines: int, what: str) -> np.ndarray:
+    """sparse_line_offsets (each line's head in a sparse stream, and the
+    stream's end); head counts that run past the stream raise the native
+    accessor's ValueError ("<what> count exceeds stream") where the host
+    copy raises IndexError or returns an end past the stream."""
+    try:
+        offs = sparse_line_offsets(stream, n_lines)
+    except IndexError:
+        offs = None
+    if offs is None or int(offs[-1]) > stream.shape[0]:
+        raise ValueError(f"{what} count exceeds stream")
+    return offs
+
+
+def check_indices(line: np.ndarray, idx: np.ndarray, widths: np.ndarray,
+                  what: str) -> None:
+    """Raise the native accessor's ValueError ("<what> index out of
+    range") unless every stored index idx (any integer type, as stored)
+    is below widths[line], the width of its line (n_samples for a
+    haploid line, n_haps else); every line < len(widths).  One max over
+    the stored values, no device sync; each index's own width is read
+    only where one reaches the narrowest line's width."""
+    if idx.size and int(idx.max()) >= int(widths.min()) and bool(
+            (idx >= widths[line]).any()):
+        raise ValueError(f"{what} index out of range")
+
+
 def track_carriers(stream: np.ndarray, flagged_lines: np.ndarray,
-                   aet_dtype) -> tuple[np.ndarray, np.ndarray]:
+                   aet_dtype, widths: np.ndarray,
+                   what: str = "track") -> tuple[np.ndarray, np.ndarray]:
     """Flat (line, haplotype) carrier pairs of a WS_SPARSE exception-track
-    stream (rows in flagged-line order, heads [count] with no negation)."""
+    stream (rows in flagged-line order, heads [count] with no negation).
+    widths: int64[L] each line's width (TorchBlockDecoder.line_width); a
+    pair outside the block raises ValueError("<what> index out of
+    range")."""
     msb = _msb(np.dtype(aet_dtype))
-    offs = sparse_line_offsets(stream, len(flagged_lines))
+    flagged_lines = np.asarray(flagged_lines, np.int64)
+    if flagged_lines.size and int(flagged_lines.max()) >= widths.shape[0]:
+        raise ValueError(f"{what} index out of range")
+    offs = line_offsets(stream, len(flagged_lines), what)
     heads = stream[offs[:-1]].astype(np.int64)
     counts = heads & (msb - 1)
-    car_line = np.repeat(np.asarray(flagged_lines, np.int64), counts)
+    car_line = np.repeat(flagged_lines, counts)
     take = np.ones(int(offs[-1]), bool)
     take[offs[:-1]] = False
-    return car_line, stream[:offs[-1]][take].astype(np.int64)
+    stored = stream[:offs[-1]][take]
+    check_indices(car_line, stored, widths, what)
+    return car_line, stored.astype(np.int64)
 
 
 class TorchBlockDecoder:
-    """Decodes a whole GT block into per-record allele matrices."""
+    """Decodes a whole GT block into per-record allele matrices.
+
+    A corrupt block raises ValueError on every device, before any tensor
+    is built from it: a line track that does not cover the block's lines,
+    or a stored index (sparse carrier, missing or EOV track) past its
+    line's width, in the native accessor's words ("sparse index out of
+    range").  The JAX package's device route drops such an index instead
+    and its NumPy route raises IndexError."""
 
     def __init__(self, payload: memoryview | bytes, n_samples: int,
                  n_haps: int, aet_dtype=np.uint32,
@@ -164,7 +228,19 @@ class TorchBlockDecoder:
         self.aet_dtype = np.dtype(aet_dtype)
         self.device = torch.device(device)
         # header/metadata parsing and the random-access fallback
-        self.meta = GtBlockDecoder(payload, n_samples, n_haps, aet_dtype)
+        self.meta = m = host_decoder(payload, n_samples, n_haps, aet_dtype)
+        if m.line_is_wah is None:
+            raise ValueError("block missing line-select track")
+        if any(v is not None and v.shape[0] != m.binary_lines
+               for v in (m.line_is_wah, m.line_is_sorting, m.haploid_line,
+                         m.line_has_missing, m.line_has_eov,
+                         m.line_has_nup)):
+            raise ValueError("corrupt block payload: a line track is "
+                             "shorter than the block's lines")
+        #: each binary line's width: n_samples for a haploid line
+        self.line_width = np.where(m.haploid_line.astype(bool), n_samples,
+                                   n_haps).astype(np.int64)
+        self._tracks: dict = {}                # track_pairs, parsed once
         self._vals: np.ndarray | None = None   # natural-order bits
         self._neg: np.ndarray | None = None
         # Uniformly-haploid blocks are an N-element PBWT over samples: the
@@ -183,11 +259,28 @@ class TorchBlockDecoder:
                 and bool(np.array_equal(self.meta.line_is_sorting,
                                         self.meta.line_is_wah)))
 
+    def track_pairs(self, what: str) -> tuple[np.ndarray, np.ndarray]:
+        """The (line, haplotype) carrier pairs of the block's WS_SPARSE
+        "missing" or "EOV" track (track_carriers: each index checked
+        against its line's width), parsed once."""
+        if what not in self._tracks:
+            m = self.meta
+            flags, stream = ((m.line_has_missing, m.missing_sparse)
+                             if what == "missing"
+                             else (m.line_has_eov, m.eov_sparse))
+            if stream is None:
+                raise ValueError(f"{what} track absent")
+            self._tracks[what] = track_carriers(
+                stream, np.flatnonzero(flags), self.aet_dtype,
+                self.line_width, what)
+        return self._tracks[what]
+
     def host_inputs(self) -> tuple:
         """Parse the payload streams into the decode inputs (numpy):
         (stream u16[N], sorts bool[Lw], rank i64[L], is_wah bool[L],
         neg u8[L], car_line i64[Nc], car_idx i64[Nc], H, W, L, n_wah).
-        Nothing is padded: the carriers are exactly the stored ones."""
+        Nothing is padded: the carriers are exactly the stored ones
+        (sparse_carriers)."""
         m = self.meta
         H = self.n_eff
         W = wah_torch.n_words_for(H)
@@ -198,14 +291,27 @@ class TorchBlockDecoder:
         n_wah = int(is_wah.sum())
         sorts = np.ones(n_wah, bool)
         rank = np.clip(np.cumsum(is_wah) - 1, 0, None).astype(np.int64)
-        neg = np.zeros(L, np.uint8)
+        neg, car_line, car_idx = self.sparse_carriers()
+        return (np.array(stream), sorts, rank, is_wah, neg,
+                car_line, car_idx, H, W, L, n_wah)
+
+    def sparse_carriers(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The block's sparse lines: (neg u8[L] 1 for a negated line,
+        car_line i64[Nc], car_idx i64[Nc] every stored index that is not
+        a head, with its line), each index checked against its line's
+        width."""
+        m = self.meta
+        is_wah = m.line_is_wah.astype(bool)
+        neg = np.zeros(m.binary_lines, np.uint8)
         car_line = np.zeros(0, np.int64)
         car_idx = np.zeros(0, np.int64)
         if (~is_wah).any():
             sp = m.sparse_stream
+            if sp is None:
+                raise ValueError("sparse stream truncated")
             msb = _msb(self.aet_dtype)
             sparse_lines = np.flatnonzero(~is_wah)
-            offs = sparse_line_offsets(sp, len(sparse_lines))
+            offs = line_offsets(sp, len(sparse_lines), "sparse")
             heads = sp[offs[:-1]].astype(np.int64)
             counts = heads & (msb - 1)
             neg[sparse_lines] = (heads & msb) != 0
@@ -214,9 +320,10 @@ class TorchBlockDecoder:
                 car_line = np.repeat(sparse_lines, counts).astype(np.int64)
                 take = np.ones(int(offs[-1]), bool)
                 take[offs[:-1]] = False
-                car_idx = sp[:offs[-1]][take].astype(np.int64)
-        return (np.array(stream), sorts, rank, is_wah, neg,
-                car_line, car_idx, H, W, L, n_wah)
+                stored = sp[:offs[-1]][take]
+                check_indices(car_line, stored, self.line_width, "sparse")
+                car_idx = stored.astype(np.int64)
+        return neg, car_line, car_idx
 
     def device_inputs(self) -> tuple:
         """host_inputs moved to the decoder's device, plus (H, W, L)."""
@@ -256,6 +363,8 @@ class TorchBlockDecoder:
         group_off = np.zeros(n_wah + 1, np.int64)
         np.cumsum(np.where(hap_w, w_hap, w_dip), out=group_off[1:])
         car_idx = np.where(hap[car_line], car_idx * 2, car_idx)
+        # a corrupt header's n_haps may be below 2 * n_samples
+        check_indices(car_line, car_idx, np.full(L, H, np.int64), "sparse")
         return (stream, group_off, np.ones(n_wah, bool), hap_w, rank,
                 is_wah, neg, car_line, car_idx, H, max(w_dip, w_hap), L)
 
@@ -427,7 +536,10 @@ def decode_block_records(payload, n_samples, n_haps, aet_dtype,
     `offsets` gives each record's first binary line (BM & 0x7FFF) for
     region/target-filtered runs where the records are a non-contiguous
     subset of the block; omitted, records are consecutive from line 0.
-    `predecoded` supplies a decoder whose bits were already produced."""
+    `predecoded` supplies a decoder whose bits were already produced.
+    Every stored index of the block is checked against its line's width
+    before any route reads it (sparse_carriers, track_pairs): a corrupt
+    block raises ValueError in the native accessor's words."""
     contiguous = True
     if offsets is not None:
         pos = 0
@@ -440,8 +552,14 @@ def decode_block_records(payload, n_samples, n_haps, aet_dtype,
     dev = predecoded or TorchBlockDecoder(payload, n_samples, n_haps,
                                           aet_dtype, device=device)
     m = dev.meta
+    if m.weirdness_strat == WeirdnessStrategy.WS_SPARSE:
+        for flags, what in ((m.line_has_missing, "missing"),
+                            (m.line_has_eov, "EOV")):
+            if flags is not None and flags.any():
+                dev.track_pairs(what)
 
     def numpy_random_access():
+        dev.sparse_carriers()       # its checks: GtBlockDecoder has none
         out = []
         pos = 0
         for i, na in enumerate(n_alleles_per_record):
@@ -500,15 +618,12 @@ def decode_block_records(payload, n_samples, n_haps, aet_dtype,
         gt_all = ((dev._vals[:n].astype(np.int32) + 1) << 1) \
             | phase_term[None, :]
         if m.line_has_missing is not None and m.line_has_missing.any():
-            car_rec, car_idx = track_carriers(
-                m.missing_sparse, np.flatnonzero(m.line_has_missing),
-                aet_dtype)
+            car_rec, car_idx = dev.track_pairs("missing")
             keep = car_rec < n
             gt_all[car_rec[keep], car_idx[keep]] = \
                 phase_term[car_idx[keep]]
         if m.line_has_eov is not None and m.line_has_eov.any():
-            car_rec, car_idx = track_carriers(
-                m.eov_sparse, np.flatnonzero(m.line_has_eov), aet_dtype)
+            car_rec, car_idx = dev.track_pairs("EOV")
             keep = car_rec < n
             gt_all[car_rec[keep], car_idx[keep]] = np.int32(INT32_VECTOR_END)
         return list(gt_all)

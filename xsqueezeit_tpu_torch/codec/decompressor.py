@@ -33,9 +33,11 @@ import numpy as np
 from ..format.constants import (
     BM_BLOCK_BITS,
     XSI_BCF_VAR_EXTENSION,
+    BlockDict,
     WeirdnessStrategy,
 )
 from ..format.container import XsiReader, XsiWriter
+from ..format.dictionary import read_dictionary
 from ..format.header import XsiHeader
 from ..interop import native
 from ..io.bcf import (
@@ -63,6 +65,7 @@ from .compressor import (
 from .decoder_torch import (
     TorchBlockDecoder,
     decode_block_records,
+    host_decoder,
     mesh_decode_all,
 )
 from .gt_block_decoder import GtBlockDecoder
@@ -200,13 +203,25 @@ class Decompressor:
         return out
 
     # ------------------------------------------------------------- decode
+    def _gt_payload(self, block_id: int) -> memoryview:
+        """The block's GT payload.  A block id past the block index, or a
+        block dictionary without its GT entry, raises the native
+        accessor's ValueError (XsiReader, the JAX package's, copied,
+        raises IndexError and KeyError)."""
+        if not 0 <= block_id < len(self.xsi.indices):
+            raise ValueError("block id out of range (bad BM / mismatched "
+                             "variant file)")
+        d, _ = read_dictionary(self.xsi.block_bytes(block_id), 0)
+        if BlockDict.KEY_GT_ENTRY not in d:
+            raise ValueError("block has no GT entry")
+        return self.xsi.gt_block_payload(block_id)
+
     def _decoder_for(self, block_id: int) -> GtBlockDecoder:
         dec = self._decoders.get(block_id)
         if dec is None:
             self._decoders.clear()  # keep at most one block resident
-            dec = GtBlockDecoder(self.xsi.gt_block_payload(block_id),
-                                 self.n_samples, self.n_haps,
-                                 aet_dtype=self.xsi.aet_dtype)
+            dec = host_decoder(self._gt_payload(block_id), self.n_samples,
+                               self.n_haps, self.xsi.aet_dtype)
             self._decoders[block_id] = dec
         return dec
 
@@ -724,8 +739,7 @@ class Decompressor:
         def decode_batch(groups):
             """groups: [(block_id, [(rec, offset), ...]), ...] consecutive.
             Returns [gts_list_per_group]."""
-            payloads = [self.xsi.gt_block_payload(block_id)
-                        for block_id, _ in groups]
+            payloads = [self._gt_payload(block_id) for block_id, _ in groups]
             decs = [TorchBlockDecoder(p, self.n_samples, self.n_haps,
                                       self.xsi.aet_dtype,
                                       device=self.torch_device)

@@ -59,6 +59,19 @@ TARGETS = {
                                                            "hts_shim"))),
 }
 
+#: sanitizer -> (its compile and link flags, the test programs that are
+#: built against its library), native/Makefile's sanitize, fuzz_*_asan and
+#: tsan_extract targets.  ASan and TSan cannot share a process.  -O1 (the
+#: sanitizers' own advice, and the programs' level in native/Makefile) in
+#: place of -O3: with ASan and UBSan, xsi_accessor.cpp compiles in less
+#: than half the time.
+SANITIZERS = {
+    "asan": (("-O1", "-fsanitize=address,undefined",
+              "-fno-omit-frame-pointer", "-g"),
+             ("fuzz_accessor", "fuzz_gtb", "fuzz_enc")),
+    "tsan": (("-O1", "-fsanitize=thread", "-g"), ("tsan_extract",)),
+}
+
 _OFF = ("0", "off", "no")
 _lock = threading.Lock()
 _probes: dict = {}
@@ -115,13 +128,16 @@ def build_flags(zstd: bool | None = None,
 
 def library_path(stem: str = "libxsqueezeit_tpu",
                  zstd: bool | None = None,
-                 libdeflate: bool | None = None) -> str:
+                 libdeflate: bool | None = None,
+                 sanitize: str | None = None) -> str:
     """Where a build goes: the probed build under its own name; a build
-    with zstd or libdeflate fixed by the caller under a separate name."""
+    with zstd or libdeflate fixed by the caller under a separate name; a
+    sanitized build (SANITIZERS) with the sanitizer in its name."""
     tag = "".join(f"-{'' if on else 'no'}{name}" for on, name in
                   ((zstd, "zstd"), (libdeflate, "deflate"))
                   if on is not None)
-    return os.path.join(BUILD_DIR, f"{stem}{tag}.so")
+    san = f"_{sanitize}" if sanitize else ""
+    return os.path.join(BUILD_DIR, f"{stem}{san}{tag}.so")
 
 
 def _run_all(cmds: list[list[str]]) -> None:
@@ -144,16 +160,19 @@ def _deps() -> list[str]:
     return out
 
 
-def _build(stem: str, force: bool, zstd, libdeflate) -> str:
+def _build(stem: str, force: bool, zstd, libdeflate,
+           sanitize: str | None = None) -> str:
     """Compile `stem` if it is missing or stale; returns its path.  Each
     source compiles to an object in its own process, all at once, and one
-    more links them."""
+    more links them.  `sanitize` adds a sanitizer's flags (SANITIZERS)."""
     global last_build_seconds
-    path = library_path(stem, zstd, libdeflate)
+    path = library_path(stem, zstd, libdeflate, sanitize)
     try:
         flags, libs = build_flags(zstd, libdeflate)
     except OSError as exc:          # no compiler at all
         raise NativeBuildError(f"{CXX}: {exc}") from exc
+    if sanitize:
+        flags += SANITIZERS[sanitize][0]
     sources, extra = TARGETS[stem]
     # -march=native targets the building host: another host rebuilds
     stamp = " ".join([platform.node(), CXX, *flags, *extra, *libs])
@@ -235,6 +254,45 @@ def build_c_api_tests(out_dir: str, zstd: bool | None = None,
     return out
 
 
+def build_sanitized(sanitize: str, out_dir: str, zstd: bool | None = None,
+                    libdeflate: bool | None = None) -> dict[str, str]:
+    """A sanitized libxsqueezeit_tpu and its test programs (SANITIZERS:
+    "asan", ASan and UBSan with the three fuzz programs; "tsan", TSan with
+    tsan_extract).  The library is built as the production one is, into
+    BUILD_DIR under the file lock with build_flags(zstd, libdeflate), under
+    a name of its own; the programs are compiled into `out_dir` with CC,
+    as native/Makefile does.  Returns name -> executable.  No Python
+    process loads the library (load_path refuses it)."""
+    san_flags, programs = SANITIZERS[sanitize]
+    lib = _build("libxsqueezeit_tpu", False, zstd, libdeflate, sanitize)
+    _, libs = build_flags(zstd, libdeflate)
+    out = {name: os.path.join(out_dir, name) for name in programs}
+    try:
+        _run_all([[CC, *san_flags, "-I" + SRC_DIR, "-o", out[name],
+                   os.path.join(SRC_DIR, name + ".c"),
+                   "-L" + os.path.dirname(lib), "-l:" + os.path.basename(lib),
+                   "-Wl,-rpath," + os.path.dirname(lib), *libs]
+                  for name in programs])
+    except FileNotFoundError as exc:
+        raise NativeBuildError(f"{CC}: {exc}") from exc
+    return out
+
+
+def load_path(path: str) -> ctypes.CDLL:
+    """ctypes-load the library at `path`.  A sanitized build is refused:
+    its runtime must start before the process does, and a Python process
+    that loads it dies."""
+    with open(path, "rb") as f:
+        image = f.read()
+    if b"__asan_init" in image or b"__tsan_init" in image:
+        raise NativeBuildError(f"{path} is a sanitized build: it runs only "
+                               "in its test programs (build_sanitized)")
+    try:
+        return ctypes.CDLL(path)
+    except OSError as exc:
+        raise NativeBuildError(f"cannot load {path}: {exc}") from exc
+
+
 def load_library(zstd: bool | None = None,
                  libdeflate: bool | None = None) -> ctypes.CDLL:
     """The loaded libxsqueezeit_tpu.so of this build (built at first use;
@@ -243,10 +301,7 @@ def load_library(zstd: bool | None = None,
         path = build_native(False, zstd, libdeflate)
         lib = _libs.get(path)
         if lib is None:
-            try:
-                lib = ctypes.CDLL(path)
-            except OSError as exc:
-                raise NativeBuildError(f"cannot load {path}: {exc}") from exc
+            lib = load_path(path)
             lib.xsi_last_error.restype = ctypes.c_char_p
             _libs[path] = lib
     return lib

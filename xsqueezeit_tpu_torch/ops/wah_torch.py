@@ -124,38 +124,49 @@ def wah_line_offsets(stream: torch.Tensor, w: int,
         n_lines + 1, dtype=torch.int64, device=stream.device) * w)
 
 
+def _covered_groups(z: torch.Tensor, pos_row: torch.Tensor) -> torch.Tensor:
+    """The 15-bit groups of rows z (int64[n, w], per row the cumulative
+    max of (word's end in its row << 16) | word planted at each word's
+    first group in the row) at positions pos_row: a group takes the last
+    word starting at or before it if that word still covers it, else 0."""
+    word = torch.where((z >> 16) > pos_row, z & 0xFFFF, 0)
+    fill = torch.where((word & ONE) != 0, ALL_SET, 0)
+    return torch.where((word & HIGH) != 0, fill, word)
+
+
 def wah_expand_stream(stream: torch.Tensor, n_lines: int,
                       w: int) -> torch.Tensor:
     """Expand a concatenated uniform-width WAH stream to 15-bit groups.
 
     stream: uint16/int32[N] -- the WAH words of `n_lines` lines back to
-    back, each line spanning exactly `w` groups (fill counters never
-    straddle a line).  Words whose groups fall past n_lines*w are dropped,
-    so zero-padded tails and short streams give all-zero rows.
+    back, each line spanning exactly `w` groups.  Words whose groups fall
+    past n_lines*w are dropped, so zero-padded tails and short streams
+    give all-zero rows.  A corrupt stream decodes as csrc/wah.cu's expand
+    reads it: a group takes the word covering it if that word ends within
+    the group's line, else 0 (a counter that runs past its line counts
+    only in the line it ends in).
 
-    Returns int32[n_lines, w] (counters resolved to 0 / 0x7FFF fills).
-    Same formulation as wah_jax.wah_expand_stream: a global cumsum of the
-    spans places every word, a scatter plants ((pos_in_row+1) << 16 | word)
-    at its first group and a per-row cumulative max forward-fills the
-    counters.
+    Returns int32[n_lines, w] (counters resolved to 0 / 0x7FFF fills), as
+    wah_jax.wah_expand_stream does for a well-formed stream.  A global
+    cumsum of the spans places every word, a scatter plants ((its end in
+    its row) << 16 | word) at its first group in the row it ends in, and
+    a per-row cumulative max forward-fills it up to its end.
     """
     if w >= (1 << 15):
-        # the forward-fill key packs (pos_in_row + 1) into bits 16-30
         raise ValueError(
             f"wah_expand_stream supports at most 32767 words per line "
             f"(got {w}); shard the haplotype axis")
     dev = stream.device
     s = stream.to(torch.int64)
     span = torch.where((s & HIGH) != 0, s & MAXC, 1)
-    start = torch.cumsum(span, 0) - span      # global 15-bit-group slot
+    end = torch.cumsum(span, 0)
+    lo = torch.div(end - 1, w, rounding_mode="floor") * w
     cap = n_lines * w
-    packed = (((start % w) + 1) << 16) | s
+    dest = torch.where(span > 0, torch.maximum(end - span, lo), cap)
     z = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
-    z.scatter_(0, torch.clamp(start, max=cap), packed)
+    z.scatter_(0, torch.clamp(dest, max=cap), ((end - lo) << 16) | s)
     z = torch.cummax(z[:cap].reshape(n_lines, w), 1).values
-    word = z & 0xFFFF
-    fill = torch.where((word & ONE) != 0, ALL_SET, 0)
-    return torch.where((word & HIGH) != 0, fill, word).to(torch.int32)
+    return _covered_groups(z, torch.arange(w, device=dev)).to(torch.int32)
 
 
 def wah_expand_stream_varw(stream: torch.Tensor, group_off: torch.Tensor,
@@ -165,9 +176,9 @@ def wah_expand_stream_varw(stream: torch.Tensor, group_off: torch.Tensor,
 
     group_off: int64[n_lines + 1] cumulative group offsets of the lines.
     Returns int32[n_lines, w_max]; groups past a line's own width are
-    zero.  Same formulation as wah_jax.wah_expand_stream_varw: each word's
-    global slot maps to (line, position) by a searchsorted on group_off,
-    then the scatter and row cummax of wah_expand_stream.
+    zero.  wah_jax.wah_expand_stream_varw for a well-formed stream, and
+    the kernel's reading of a corrupt one, as wah_expand_stream: each
+    word's row is found by a searchsorted on group_off.
     """
     if w_max >= (1 << 15):
         raise ValueError(
@@ -178,21 +189,22 @@ def wah_expand_stream_varw(stream: torch.Tensor, group_off: torch.Tensor,
     group_off = group_off.to(torch.int64)
     s = stream.to(torch.int64)
     span = torch.where((s & HIGH) != 0, s & MAXC, 1)
-    start = torch.cumsum(span, 0) - span
-    line_of = torch.searchsorted(group_off, start, right=True) - 1
+    end = torch.cumsum(span, 0)
+    line_of = torch.searchsorted(group_off, end - 1, right=True) - 1
     line_c = torch.clamp(line_of, 0, max(n_lines - 1, 0))
-    pos = start - group_off[line_c]
+    lo = group_off[line_c]
+    pos = torch.maximum(end - span, lo) - lo
     cap = n_lines * w_max
-    valid = (line_of >= 0) & (line_of < n_lines) & (pos < w_max)
+    valid = ((span > 0) & (line_of >= 0) & (line_of < n_lines)
+             & (pos < w_max))
     dest = torch.where(valid, line_c * w_max + pos, cap)
     z = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
-    z.scatter_(0, dest, ((pos + 1) << 16) | s)
+    z.scatter_(0, dest, (torch.clamp(end - lo, max=w_max) << 16) | s)
     z = torch.cummax(z[:cap].reshape(n_lines, w_max), 1).values
-    word = z & 0xFFFF
-    fill = torch.where((word & ONE) != 0, ALL_SET, 0)
-    out = torch.where((word & HIGH) != 0, fill, word)
+    pos_row = torch.arange(w_max, device=dev)
+    out = _covered_groups(z, pos_row)
     widths = group_off[1:] - group_off[:-1]
-    keep = torch.arange(w_max, device=dev)[None, :] < widths[:, None]
+    keep = pos_row[None, :] < widths[:, None]
     return torch.where(keep, out, 0).to(torch.int32)
 
 
