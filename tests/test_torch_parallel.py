@@ -42,8 +42,8 @@ from xsqueezeit_tpu_torch.format.constants import WeirdnessStrategy
 from xsqueezeit_tpu_torch.format.container import XsiReader
 from xsqueezeit_tpu_torch.io.bgzf import BGZF_EOF
 from xsqueezeit_tpu_torch.io.unified import GtInput
-from xsqueezeit_tpu_torch.ops import _build
 from xsqueezeit_tpu_torch.parallel import shard
+from xsqueezeit_tpu_torch.utils import trace
 from tests import fixtures
 
 
@@ -173,7 +173,8 @@ def test_launch_counter_is_thread_safe():
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda: [_build.count(counts, "r") for _ in range(per)])
+            target=lambda: [trace.count("r", into=counts)
+                            for _ in range(per)])
             for _ in range(n_threads)]
         for t in threads:
             t.start()

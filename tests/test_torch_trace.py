@@ -1,0 +1,296 @@
+"""The port's spans and counters (xsqueezeit_tpu_torch/utils/trace.py) on
+the CPU: nothing recorded and no torch call while tracing is off; the
+spans of dot_prod and of the decompressor's batches nested as named, on
+the worker threads too, each with its operation's id; the record counter;
+the spans' cover of an operation; their marks in a torch.profiler trace
+and in the CLI's --profile trace; the kernel launch counters."""
+import json
+import os
+import threading
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from xsqueezeit_tpu_torch.bench import tools
+from xsqueezeit_tpu_torch.cli import main as torch_cli
+from xsqueezeit_tpu_torch.codec.decompressor import (
+    Decompressor,
+    DecompressorOptions,
+)
+from xsqueezeit_tpu_torch.io.bcf import BcfReader
+from xsqueezeit_tpu_torch.ops import pbwt_kernels, wah_kernels
+from xsqueezeit_tpu_torch.utils import trace
+from tests import fixtures
+
+#: Records, and records a block: three blocks.
+N_RECORDS, BLOCK = 120, 40
+
+
+@pytest.fixture(scope="module")
+def container(tmp_path_factory):
+    """A 3-block container of 30 samples, 15 % multi-allelic records."""
+    td = tmp_path_factory.mktemp("trace")
+    vcf = fixtures.random_vcf(str(td / "in.vcf"), n_samples=30,
+                              n_records=N_RECORDS, seed=9, p_multi=0.15)
+    xsi = str(td / "o.xsi")
+    assert torch_cli(["-c", "-f", vcf, "-o", xsi, "--device", "numpy",
+                      "--variant-block-length", str(BLOCK)]) == 0
+    return xsi
+
+
+@pytest.fixture
+def tracing():
+    """Tracing on for the test, off and emptied after it."""
+    trace.collect()
+    trace.enable()
+    yield
+    trace.disable()
+    trace.collect()
+
+
+def _no_record_function(monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("record_function called")
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+
+
+def _children(spans, parent):
+    return [s for s in spans if s.parent == parent.id]
+
+
+def test_off_records_nothing_and_calls_no_torch(container, monkeypatch):
+    trace.disable()
+    trace.collect()
+    _no_record_function(monkeypatch)
+    assert trace.span("a") is trace.span("b", parent=None, block=1)
+    assert trace.current() is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity
+                                            .CPU]):
+        got = tools.dot_prod(container, device="cpu")
+    assert got["device_blocks"] == 3
+    trace.count("c", 2)
+    assert trace.collect() == {"spans": [], "counters": {}}
+
+
+def test_spans_nest_as_named(container, tracing):
+    got = tools.dot_prod(container, device="cpu")
+    spans = trace.collect()["spans"]
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["dot_prod"]
+    root = roots[0]
+    assert all(s.op == root.id for s in spans)
+    assert all(s.thread == threading.get_ident() for s in spans)
+    kids = _children(spans, root)
+    assert [s.name for s in kids] == ["dot_prod.open", "dot_prod.walk"] + \
+        ["dot_prod.block"] * 3
+    blocks = kids[2:]
+    assert [b.attrs for b in blocks] == [
+        {"block": k, "route": "device"} for k in range(3)]
+    for b in blocks:
+        names = [s.name for s in _children(spans, b)]
+        assert names == ["decode.parse", "decode.parse", "decode.upload",
+                         "decode.device", "dot_prod.product",
+                         "dot_prod.readback"]
+        upload = [s for s in _children(spans, b)
+                  if s.name == "decode.upload"][0]
+        assert upload.attrs["bytes"] > 0
+    for s in spans:
+        up = next((p for p in spans if p.id == s.parent), None)
+        if up is not None:
+            assert up.start <= s.start <= s.end <= up.end
+    assert got["device_blocks"] == 3
+
+
+def test_host_blocks_take_their_own_span(container, tracing, monkeypatch):
+    from xsqueezeit_tpu_torch.codec import decoder_torch
+    for name in ("eligible", "mixed_device_ok"):
+        monkeypatch.setattr(decoder_torch.TorchBlockDecoder, name,
+                            property(lambda self: False))
+    got = tools.dot_prod(container, device="cpu")
+    spans = trace.collect()["spans"]
+    blocks = [s for s in spans if s.name == "dot_prod.block"]
+    assert [b.attrs["route"] for b in blocks] == ["host"] * 3
+    for b in blocks:
+        assert [s.name for s in _children(spans, b)] == [
+            "decode.parse", "dot_prod.host_block"]
+    assert got["host_blocks"] == 3
+
+
+def test_records_counter_counts_the_variant_file(container, tracing):
+    tools.dot_prod(container, device="cpu")
+    got = trace.collect()
+    reader = BcfReader(container + "_var.bcf")
+    n = sum(1 for _ in reader)
+    reader.close()
+    assert n == N_RECORDS
+    assert got["counters"] == {"dot_prod.records": n}
+    walk = [s for s in got["spans"] if s.name == "dot_prod.walk"]
+    assert [s.counts for s in walk] == [{"dot_prod.records": n}]
+
+
+def test_child_spans_cover_the_operation(container, tracing):
+    for _ in range(3):
+        tools.dot_prod(container, device="cpu")
+    spans = trace.collect()["spans"]
+    roots = [s for s in spans if s.name == "dot_prod"]
+    assert len(roots) == 3
+    for root in roots:
+        kids = sorted((s.start, s.end) for s in _children(spans, root))
+        covered = sum(b - a for a, b in kids)     # children do not overlap
+        assert all(b1 <= a2 for (_, b1), (a2, _) in zip(kids, kids[1:]))
+        assert covered >= 0.95 * root.seconds, (covered, root.seconds)
+
+
+def test_spans_are_profiler_marks(container, tracing, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tools.dot_prod(container, device="cpu")
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    marks = {e["name"] for e in events
+             if e.get("cat") == "user_annotation"}
+    names = {s.name for s in trace.collect()["spans"]}
+    assert names == {"dot_prod", "dot_prod.open", "dot_prod.walk",
+                     "dot_prod.block", "decode.parse", "decode.upload",
+                     "decode.device", "dot_prod.product",
+                     "dot_prod.readback"}
+    assert names <= marks
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_launch_counts_are_unchanged(container, on):
+    """The CPU runs the kernels' plain versions: no launch is counted,
+    tracing on or off, and the trace's counters hold no launch."""
+    before = {**pbwt_kernels.launches, **wah_kernels.launches}
+    trace.collect()
+    if on:
+        trace.enable()
+    try:
+        tools.dot_prod(container, device="cpu")
+    finally:
+        trace.disable()
+    assert {**pbwt_kernels.launches, **wah_kernels.launches} == before
+    assert set(trace.collect()["counters"]) <= {"dot_prod.records"}
+    counts = {"r": 0}
+    trace.count("r", 3, into=counts)
+    assert counts == {"r": 3}
+
+
+def _extract_spans(xsi, devices, stop_after=None):
+    dec = Decompressor(xsi, DecompressorOptions(device="cpu",
+                                                devices=devices))
+    n = 0
+    it = dec.iter_decoded_records()
+    for n, _ in enumerate(it, 1):
+        if n == stop_after:
+            break
+    it.close()
+    dec.close()
+    return n, trace.collect()["spans"]
+
+
+@pytest.mark.parametrize("devices", [None, ("cpu", "cpu")])
+def test_extract_batches_take_their_caller_as_parent(container, tracing,
+                                                     devices):
+    n, spans = _extract_spans(container, devices)
+    assert n == N_RECORDS
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["extract"]
+    root = roots[0]
+    assert all(s.op == root.id for s in spans)
+    batches = [s for s in spans if s.name == "extract.batch"]
+    assert [b.attrs["blocks"] for b in batches] == (
+        [[0], [1], [2]] if devices is None else [[0, 1], [2]])
+    main = threading.get_ident()
+    assert all(b.thread != main for b in batches)
+    for b in batches:
+        up = next(s for s in spans if s.id == b.parent)
+        assert up.thread == main
+        kids = [s.name for s in _children(spans, b)]
+        assert set(kids) == {"decode.parse", "decode.block", "decode.fold"}
+    blocks = [s for s in spans if s.name == "decode.block"]
+    assert len(blocks) == 3
+    for s in blocks:
+        assert next(p for p in spans if p.id == s.parent).name == \
+            "extract.batch"
+        assert {k.name for k in _children(spans, s)} == {
+            "decode.parse", "decode.upload", "decode.device"}
+    assert {s.name for s in spans if s.thread == main} == {
+        "extract", "extract.wait", "extract.emit"}
+
+
+def test_extract_spans_close_when_the_consumer_stops(container, tracing):
+    n, spans = _extract_spans(container, None, stop_after=5)
+    assert n == 5
+    names = [s.name for s in spans]
+    assert "extract" in names and "extract.emit" in names
+    assert all(s.end is not None for s in spans)
+    assert trace.current() is None
+
+
+def test_cli_profile_traces_the_extract_worker(container, tmp_path):
+    prof = tmp_path / "prof"
+    out = str(tmp_path / "o.bcf")
+    assert torch_cli(["--profile", str(prof), "-x", "-f", container,
+                      "-o", out, "--device", "cpu"]) == 0
+    assert not trace.enabled()
+    assert trace.collect() == {"spans": [], "counters": {}}
+    traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+    assert len(traces) == 1
+    with open(prof / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    marks = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("ph") == "X"]
+    main = {e["tid"] for e in marks if e["name"] == "extract"}
+    assert len(main) == 1
+    batches = [e for e in marks if e["name"] == "extract.batch"]
+    assert len(batches) == 3
+    assert all(e["tid"] not in main for e in batches)
+    parses = [e for e in marks if e["name"] == "decode.parse"]
+    for b in batches:
+        t0, t1 = float(b["ts"]), float(b["ts"]) + float(b["dur"])
+        assert any(p["tid"] == b["tid"] and t0 <= float(p["ts"]) <= t1
+                   for p in parses)
+    assert os.path.getsize(out) > 0
+
+
+def test_spans_from_many_threads_are_all_kept(tracing):
+    """Threads open spans side by side, each under a parent handed over
+    from the main thread: no span is lost and each nests under its own
+    thread's span (more threads than cores, a short switch interval)."""
+    import sys
+    n_threads, per = 16, 300
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with trace.span("root") as root:
+            def work(k):
+                with trace.span("worker", parent=root, k=k):
+                    for _ in range(per):
+                        with trace.span("leaf"):
+                            trace.count("leaves")
+            threads = [threading.Thread(target=work, args=(k,))
+                       for k in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    got = trace.collect()
+    spans = got["spans"]
+    assert got["counters"] == {"leaves": n_threads * per}
+    assert len(spans) == 1 + n_threads * (1 + per)
+    assert len({s.id for s in spans}) == len(spans)
+    workers = {s.id: s for s in spans if s.name == "worker"}
+    assert all(w.parent == root.id and w.op == root.id
+               for w in workers.values())
+    leaves = [s for s in spans if s.name == "leaf"]
+    assert all(workers[s.parent].thread == s.thread for s in leaves)
+    assert all(s.op == root.id and s.counts == {"leaves": 1}
+               for s in leaves)

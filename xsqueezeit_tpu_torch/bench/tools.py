@@ -35,6 +35,7 @@ from ..accessor import Accessor
 from ..io.bcf import BcfReader
 from ..io.unified import GtInput
 from ..ops import pbwt_np, wah_np
+from ..utils import trace
 
 
 def _is_xsi(path: str) -> bool:
@@ -201,70 +202,84 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
 
     dev = torch_device(device)
     t0 = time.perf_counter()
-    acc = Accessor(path)
-    n_samples = acc.n_samples
-    rng = np.random.default_rng(seed)
-    y = rng.random(n_samples)
-    y32 = torch.from_numpy(y.astype(np.float32)).to(dev)
-    y_dip = y32.repeat_interleave(2)                    # y[h >> 1]
-    y_even = torch.zeros_like(y_dip)
-    y_even[0::2] = y32                                  # haploid rows
-    w_mixed = torch.stack([y_dip, y_even], dim=1)       # [H, 2]
+    with trace.span("dot_prod", device=str(dev)):
+        with trace.span("dot_prod.open"):
+            acc = Accessor(path)
+            n_samples = acc.n_samples
+            rng = np.random.default_rng(seed)
+            y = rng.random(n_samples)
+            y32 = torch.from_numpy(y.astype(np.float32)).to(dev)
+            y_dip = y32.repeat_interleave(2)                # y[h >> 1]
+            y_even = torch.zeros_like(y_dip)
+            y_even[0::2] = y32                              # haploid rows
+            w_mixed = torch.stack([y_dip, y_even], dim=1)   # [H, 2]
 
-    # per block: each record's n_allele, and each bi-allelic record's
-    # index among the file's variants
-    reader = BcfReader(acc.variant_filename())
-    blocks: dict[int, tuple[list[int], list[int]]] = {}
-    n = 0
-    for rec in reader:
-        blk = acc.split_bm(acc.position_from_bm_entry(rec))[0]
-        n_alleles, variants = blocks.setdefault(blk, ([], []))
-        n_alleles.append(rec.n_allele)
-        if rec.n_allele == 2:
-            variants.append(n)
-            n += 1
-    reader.close()
+        # per block: each record's n_allele, and each bi-allelic record's
+        # index among the file's variants
+        with trace.span("dot_prod.walk"):
+            reader = BcfReader(acc.variant_filename())
+            blocks: dict[int, tuple[list[int], list[int]]] = {}
+            n = 0
+            for rec in reader:
+                blk = acc.split_bm(acc.position_from_bm_entry(rec))[0]
+                n_alleles, variants = blocks.setdefault(blk, ([], []))
+                n_alleles.append(rec.n_allele)
+                if rec.n_allele == 2:
+                    variants.append(n)
+                    n += 1
+            reader.close()
+            trace.count("dot_prod.records",
+                        sum(len(na) for na, _ in blocks.values()))
 
-    dots = np.zeros(n, np.float64)
-    checksum = 0.0
-    # haploid_blocks: the device blocks that are uniformly haploid
-    routes = {"device_blocks": 0, "haploid_blocks": 0, "mixed_blocks": 0,
-              "host_blocks": 0}
-    for blk, (n_alleles, variants) in blocks.items():
-        if not variants:
-            continue
-        # binary line of each bi-allelic record (one line each)
-        firsts = np.cumsum([0] + [max(na - 1, 0) for na in n_alleles])
-        keep = [int(f) for f, na in zip(firsts, n_alleles) if na == 2]
-        dec = TorchBlockDecoder(acc.xsi.gt_block_payload(blk), n_samples,
-                                acc.n_haps, acc.xsi.aet_dtype, device=dev)
-        m = dec.meta
-        if not (dec.eligible or dec.mixed_device_ok):
-            routes["host_blocks"] += 1
-            for v, first in zip(variants, keep):
-                m.seek(first)
-                gt = m.fill_genotype_array_advance(2)
-                shift = 0 if m.haploid_line[first] else 1
-                dots[v] = y[_carriers(gt) >> shift].sum()
-                checksum += float(dots[v])
-            continue
-        vals, route = dec.decode_bits()
-        rows = vals.index_select(
-            0, torch.as_tensor(keep, dtype=torch.int64, device=dev)
-        ).to(torch.float32)
-        if route == "mixed":
-            routes["mixed_blocks"] += 1
-            both = rows @ w_mixed
-            hap = torch.from_numpy(
-                m.haploid_line[keep].astype(bool)).to(dev)
-            block_dots = torch.where(hap, both[:, 1], both[:, 0])
-        else:
-            routes["device_blocks"] += 1
-            routes["haploid_blocks"] += int(dec.uniform_haploid)
-            block_dots = rows @ (y32 if dec.uniform_haploid else y_dip)
-        got = block_dots.cpu().numpy().astype(np.float64)
-        dots[variants] = got
-        checksum += float(got.sum())
+        dots = np.zeros(n, np.float64)
+        checksum = 0.0
+        # haploid_blocks: the device blocks that are uniformly haploid
+        routes = {"device_blocks": 0, "haploid_blocks": 0, "mixed_blocks": 0,
+                  "host_blocks": 0}
+        for blk, (n_alleles, variants) in blocks.items():
+            if not variants:
+                continue
+            with trace.span("dot_prod.block", block=blk) as span:
+                # binary line of each bi-allelic record (one line each)
+                firsts = np.cumsum([0] + [max(na - 1, 0) for na in n_alleles])
+                keep = [int(f) for f, na in zip(firsts, n_alleles) if na == 2]
+                with trace.span("decode.parse"):
+                    dec = TorchBlockDecoder(acc.xsi.gt_block_payload(blk),
+                                            n_samples, acc.n_haps,
+                                            acc.xsi.aet_dtype, device=dev)
+                m = dec.meta
+                if not (dec.eligible or dec.mixed_device_ok):
+                    span.set(route="host")
+                    routes["host_blocks"] += 1
+                    with trace.span("dot_prod.host_block"):
+                        for v, first in zip(variants, keep):
+                            m.seek(first)
+                            gt = m.fill_genotype_array_advance(2)
+                            shift = 0 if m.haploid_line[first] else 1
+                            dots[v] = y[_carriers(gt) >> shift].sum()
+                            checksum += float(dots[v])
+                    continue
+                vals, route = dec.decode_bits()
+                span.set(route=route)
+                with trace.span("dot_prod.product"):
+                    rows = vals.index_select(
+                        0, torch.as_tensor(keep, dtype=torch.int64, device=dev)
+                    ).to(torch.float32)
+                    if route == "mixed":
+                        routes["mixed_blocks"] += 1
+                        both = rows @ w_mixed
+                        hap = torch.from_numpy(
+                            m.haploid_line[keep].astype(bool)).to(dev)
+                        block_dots = torch.where(hap, both[:, 1], both[:, 0])
+                    else:
+                        routes["device_blocks"] += 1
+                        routes["haploid_blocks"] += int(dec.uniform_haploid)
+                        block_dots = rows @ (y32 if dec.uniform_haploid
+                                             else y_dip)
+                with trace.span("dot_prod.readback"):
+                    got = block_dots.cpu().numpy().astype(np.float64)
+                dots[variants] = got
+                checksum += float(got.sum())
     return {"variants": n, "checksum": round(float(checksum), 6),
             "seconds": time.perf_counter() - t0, "device": str(dev),
             "dots": dots, **routes}

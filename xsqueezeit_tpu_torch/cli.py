@@ -12,7 +12,8 @@ Port of xsqueezeit_tpu/cli.py (compress, extract, info):
     python -m xsqueezeit_tpu_torch.cli --count-xcf -f in.{vcf,bcf}
 
 --profile DIR (with any mode) writes a torch.profiler Chrome trace of the
-run into DIR, with the card's activity on --device cuda.
+run into DIR, every thread's host activity with the program's spans as
+its marks, and the card's activity on --device cuda.
 --distributed HOST:PORT --dist-nproc N --dist-procid I (with -c, or -x to
 -O b) runs one of N processes of a torch.distributed (gloo) job: launch N
 with the same arguments and I = 0..N-1; process 0 listens at HOST:PORT
@@ -27,6 +28,7 @@ files are byte-identical across devices, and to the JAX package's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import struct
 import sys
@@ -136,25 +138,39 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
 
+@contextlib.contextmanager
 def _profiler(args):
     """torch.profiler over the run when --profile DIR is given (the
-    counterpart of the JAX package's jax.profiler.trace): host activity,
+    counterpart of the JAX package's jax.profiler.trace): host activity on
+    every thread, with the program's spans (utils/trace.py) as its marks,
     plus the card's on --device cuda; the trace is written into DIR when
     the run ends."""
-    import contextlib
     if not args.profile:
-        return contextlib.nullcontext()
+        yield
+        return
     import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import (
         ProfilerActivity,
         profile,
         tensorboard_trace_handler,
     )
+
+    from .utils import trace
     activities = [ProfilerActivity.CPU]
     if args.device == "cuda" and torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(args.profile))
+    # the decompressor decodes its batches on a worker thread
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(args.profile),
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)):
+        trace.enable()
+        try:
+            yield
+        finally:
+            trace.disable()
+            trace.collect()
 
 
 def _read_regions_file(path: str) -> list[str]:

@@ -33,6 +33,7 @@ from ..format.dictionary import read_dictionary
 from ..ops import pbwt_np, pbwt_torch, wah_kernels, wah_np
 from ..ops import wah_torch
 from ..ops.sparse_np import msb as _msb, sparse_line_offsets
+from ..utils import trace
 from .gt_block_decoder import GtBlockDecoder
 
 
@@ -376,21 +377,31 @@ class TorchBlockDecoder:
         lines slot-duplicated: fold the even slots).  Any other block
         decodes record by record on the host (GtBlockDecoder)."""
         if self.eligible:
-            *arrays, H, W, _L, _n_wah = self.host_inputs()
+            with trace.span("decode.parse"):
+                *arrays, H, W, _L, _n_wah = self.host_inputs()
             neg = arrays[4]
-            t = [torch.from_numpy(x).to(self.device) for x in arrays]
-            vals, route = _decode_block_vals(*t, H, W), "device"
+            t = self._upload(arrays)
+            with trace.span("decode.device"):
+                vals, route = _decode_block_vals(*t, H, W), "device"
         elif self.mixed_device_ok:
-            *arrays, H, w_max, _L = self.host_inputs_mixed()
+            with trace.span("decode.parse"):
+                *arrays, H, w_max, _L = self.host_inputs_mixed()
             neg = arrays[6]
-            t = [torch.from_numpy(x).to(self.device) for x in arrays]
-            vals = _decode_block_mixed(*t, arrays[3], H, w_max)
+            t = self._upload(arrays)
+            with trace.span("decode.device"):
+                vals = _decode_block_mixed(*t, arrays[3], H, w_max)
             route = "mixed"
         else:
             raise ValueError("the block takes no device route: decode it "
                              "record by record on the host")
         self._neg = neg.astype(bool)
         return vals, route
+
+    def _upload(self, arrays: list) -> list:
+        """The decode's host arrays copied to the decoder's device."""
+        with trace.span("decode.upload",
+                        bytes=sum(x.nbytes for x in arrays)):
+            return [torch.from_numpy(x).to(self.device) for x in arrays]
 
     def decode_all(self) -> np.ndarray:
         """decode_bits copied to the host (cached; record_alleles folds
@@ -516,9 +527,12 @@ def mesh_decode_all(decoders: list[TorchBlockDecoder], devices: list
     eligible or mixed_device_ok."""
     from ..parallel.shard import map_blocks
 
+    parent = trace.current()
+
     def decode(dec, device):
-        dec.device = torch.device(device)
-        dec.decode_all()
+        with trace.span("decode.block", parent=parent, device=str(device)):
+            dec.device = torch.device(device)
+            dec.decode_all()
 
     map_blocks(decode, decoders, devices)
 

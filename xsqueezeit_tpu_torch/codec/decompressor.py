@@ -55,6 +55,7 @@ from ..io.sites import (
     render_vcf_cols,
 )
 from ..io.vcf import VcfWriter
+from ..utils import trace
 from ..utils.devprobe import torch_device
 from .compressor import (
     CompressorOptions,
@@ -736,20 +737,27 @@ class Decompressor:
         mesh = self._local_mesh()
         batch_target = len(mesh)
 
-        def decode_batch(groups):
+        def decode_batch(groups, parent):
             """groups: [(block_id, [(rec, offset), ...]), ...] consecutive.
-            Returns [gts_list_per_group]."""
-            payloads = [self._gt_payload(block_id) for block_id, _ in groups]
-            decs = [TorchBlockDecoder(p, self.n_samples, self.n_haps,
-                                      self.xsi.aet_dtype,
-                                      device=self.torch_device)
-                    for p in payloads]
-            mesh_decode_all([d for d in decs if d.eligible], mesh)
-            return [decode_block_records(
-                p, self.n_samples, self.n_haps, self.xsi.aet_dtype,
-                [r.n_allele for r, _ in recs], [off for _, off in recs],
-                predecoded=d)
-                for p, d, (_, recs) in zip(payloads, decs, groups)]
+            Returns [gts_list_per_group].  `parent`: the span that
+            submitted the batch (this runs on the worker thread)."""
+            with trace.span("extract.batch", parent=parent,
+                            blocks=[b for b, _ in groups]):
+                payloads = [self._gt_payload(b) for b, _ in groups]
+                with trace.span("decode.parse"):
+                    decs = [TorchBlockDecoder(p, self.n_samples, self.n_haps,
+                                              self.xsi.aet_dtype,
+                                              device=self.torch_device)
+                            for p in payloads]
+                mesh_decode_all([d for d in decs if d.eligible], mesh)
+                out = []
+                for p, d, (block_id, recs) in zip(payloads, decs, groups):
+                    with trace.span("decode.fold", block=block_id):
+                        out.append(decode_block_records(
+                            p, self.n_samples, self.n_haps,
+                            self.xsi.aet_dtype, [r.n_allele for r, _ in recs],
+                            [off for _, off in recs], predecoded=d))
+                return out
 
         pending: list = []        # (rec, offset) of the current block
         pending_block = -1
@@ -757,15 +765,21 @@ class Decompressor:
         in_flight = None          # (groups, Future[list[gts]])
 
         def emit(done):
-            for (_, recs), gts in zip(done[0], done[1].result()):
-                yield from zip((r for r, _ in recs), gts)
+            groups, future = done
+            with trace.span("extract.wait"):
+                gts = future.result()
+            with trace.span("extract.emit"):
+                for (_, recs), block_gts in zip(groups, gts):
+                    yield from zip((r for r, _ in recs), block_gts)
 
-        with ThreadPoolExecutor(max_workers=1) as executor:
+        with trace.span("extract"), \
+                ThreadPoolExecutor(max_workers=1) as executor:
             def flush_batch():
                 nonlocal in_flight, batch
                 groups, batch = batch, []
                 prev = in_flight
-                in_flight = (groups, executor.submit(decode_batch, groups))
+                in_flight = (groups, executor.submit(decode_batch, groups,
+                                                     trace.current()))
                 return prev
 
             for rec, bm in self.iter_variant_records():

@@ -50,7 +50,6 @@ ENTRY_POINTS = {
 }
 
 _lock = threading.Lock()
-_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: Seconds the last nvcc run of this process took (None: no build ran).
 last_build_seconds: float | None = None
@@ -134,13 +133,6 @@ def library() -> ctypes.CDLL:
             lib.xsi_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
-
-
-def count(launches: dict, route: str) -> None:
-    """Add one to ``launches[route]``: the device pool's worker threads
-    launch side by side, and ``+=`` on a shared dict is not atomic."""
-    with _count_lock:
-        launches[route] += 1
 
 
 def launch(device, name: str, *args) -> None:

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..utils import trace
 
 #: Shared memory one CTA may use on an H100, less 1 KiB kept for the
 #: kernels' static arrays.
@@ -300,7 +301,7 @@ def chain_encode(q0: torch.Tensor, ss: torch.Tensor,
         _build.launch(q0.device, f"xsi_{name}", *args)
     else:
         _build.launch(q0.device, f"xsi_{name}_cluster", *args, K)
-    _build.count(launches, chain_route(name, K))
+    trace.count(chain_route(name, K), into=launches)
     return y
 
 
@@ -345,7 +346,7 @@ def chain_decode(yc: torch.Tensor, ss: torch.Tensor,
         _build.launch(yc.device, "xsi_chain_decode_rows", yc.data_ptr(),
                       flags.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                       n_ch, H, C, shift, K)
-    _build.count(launches, chain_route("chain_decode", K))
+    trace.count(chain_route("chain_decode", K), into=launches)
     return out.to(torch.int64) & 0xFFFFFFFF if widen else out
 
 
@@ -474,7 +475,7 @@ def rank_chain(T: torch.Tensor, r0: torch.Tensor, r_bits: int = 16
     _build.launch(T.device, "xsi_rank_chain", T32.data_ptr(), r0.data_ptr(),
                   r_starts.data_ptr(), r_fin.data_ptr(), scratch.data_ptr(),
                   scratch.numel(), n_ch, H)
-    _build.count(launches, "rank_chain")
+    trace.count("rank_chain", into=launches)
     return r_fin, r_starts
 
 
@@ -593,7 +594,7 @@ def decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
                   flags[0].data_ptr(), flags[1].data_ptr(), vals.data_ptr(),
                   a_fin.data_ptr(), None if a0 is None else a0.data_ptr(),
                   None if scratch is None else scratch.data_ptr(), Lw, H)
-    _build.count(launches, "decode_scan_mixed")
+    trace.count("decode_scan_mixed", into=launches)
     return vals, a_fin
 
 
@@ -705,6 +706,6 @@ def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
                   start.data_ptr(), flags.data_ptr(), rows.data_ptr(),
                   None if T is None else T.data_ptr(), last.data_ptr(),
                   n_ch, C, W, H, n, int(haploid), decode_chunk(W))
-    _build.count(launches, name if flush_cluster(W) == 1
-                 else f"{name}_cluster")
+    trace.count(name if flush_cluster(W) == 1 else f"{name}_cluster",
+                into=launches)
     return rows, T, last

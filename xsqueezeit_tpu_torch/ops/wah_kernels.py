@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..utils import trace
 from .wah_torch import (
     n_words_for,
     wah_compress_words as wah_compress_plain,
@@ -100,7 +101,7 @@ def _expand(name: str, stream: torch.Tensor, n_lines: int, w: int,
                   out.data_ptr(), n_lines, w, w if h is None else h,
                   int(group_off is not None), int(h is not None),
                   line_threads)
-    _build.count(launches, name)
+    trace.count(name, into=launches)
     return out
 
 
@@ -179,7 +180,7 @@ def _compress(name: str, src: torch.Tensor, ld: int, L: int, w: int,
     n_out = torch.empty(L, dtype=torch.int32, device=src.device)
     _build.launch(src.device, "xsi_wah_compress", src.data_ptr(), ld,
                   out.data_ptr(), n_out.data_ptr(), L, w, h, int(bits))
-    _build.count(launches, name)
+    trace.count(name, into=launches)
     return out, n_out
 
 
