@@ -616,6 +616,20 @@ def test_build_is_serialised_and_follows_its_sources(tmp_path,
     assert os.path.getmtime(lib) > before
 
 
+def test_a_loaded_library_is_not_checked_again(tmp_path, monkeypatch):
+    """Once a process has loaded a build, load_library hands it back
+    without looking at the sources or the build again; another build
+    directory is a build of its own."""
+    lib = native.load_library()
+    monkeypatch.setattr(native, "_deps", lambda: pytest.fail("checked"))
+    monkeypatch.setattr(native, "build_native",
+                        lambda *a, **kw: pytest.fail("built"))
+    assert native.load_library() is lib
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(pytest.fail.Exception, match="built"):
+        native.load_library()
+
+
 def test_a_failed_build_raises_with_the_compiler_output(tmp_path,
                                                        monkeypatch):
     cxx = tmp_path / "g++"

@@ -311,12 +311,11 @@ def test_bitmap_variants(tmp_path):
         np.testing.assert_array_equal(np.sort(row), np.arange(H))
 
 
-def test_native_scan_records_corrupt_var_file(tmp_path):
-    """The port's native accessor walks the variant file: a record frame
-    word pointing past its end is a clean OSError."""
+def _corrupt_var_frame(tmp_path) -> str:
+    """A container whose variant file's first record frame word points
+    past the file's end."""
     import gzip
 
-    from xsqueezeit_tpu_torch.interop.native import NativeAccessor
     from xsqueezeit_tpu_torch.io import bgzf
 
     vcf = fixtures.micro_basic(str(tmp_path / "m.vcf"))
@@ -330,12 +329,43 @@ def test_native_scan_records_corrupt_var_file(tmp_path):
     w = bgzf.BgzfWriter(var)
     w.write(bytes(blob))
     w.close()
+    return xsi
+
+
+def test_native_scan_records_corrupt_var_file(tmp_path):
+    """The port's native accessor walks the variant file: a record frame
+    word pointing past its end is a clean OSError."""
+    from xsqueezeit_tpu_torch.interop.native import NativeAccessor
+
+    xsi = _corrupt_var_frame(tmp_path)
     acc = NativeAccessor(xsi)
     try:
         with pytest.raises(OSError):
             acc.scan_records()
     finally:
         acc.close()
+
+
+def test_dot_prod_corrupt_var_file(tmp_path, monkeypatch):
+    """dot_prod on the card walks the variant file natively: a record
+    frame word pointing past its end is a clean OSError, and the native
+    accessor it opened is closed."""
+    from xsqueezeit_tpu_torch.bench import tools
+    from xsqueezeit_tpu_torch.interop import native
+
+    xsi = _corrupt_var_frame(tmp_path)
+    opened = []
+
+    class Recorded(native.NativeAccessor):
+        def __init__(self, path):
+            super().__init__(path)
+            opened.append(self)
+
+    monkeypatch.delenv("XSI_NATIVE", raising=False)
+    monkeypatch.setattr(native, "NativeAccessor", Recorded)
+    with pytest.raises(OSError):
+        tools.dot_prod(xsi, device="cpu")
+    assert len(opened) == 1 and opened[0]._f is None
 
 
 # ------------------------------------------- counterparts: test_cli_errors

@@ -201,6 +201,103 @@ def test_dot_prod_device_host_walk(micro, monkeypatch):
     assert got["host_blocks"] > 0
 
 
+#: dot_prod's walks of the variant file: the native scan, and the Python
+#: record reader XSI_NATIVE=0 leaves.
+WALKS = ("native", "python")
+ROUTE_COUNTS = ("device_blocks", "haploid_blocks", "mixed_blocks",
+                "host_blocks")
+
+
+def _dot_prod_walk(xsi, walk, monkeypatch):
+    if walk == "python":
+        monkeypatch.setenv("XSI_NATIVE", "0")
+    else:
+        monkeypatch.delenv("XSI_NATIVE", raising=False)
+    got = tools.dot_prod(xsi, device="cpu")
+    assert got["walk"] == walk
+    return got
+
+
+def _walks_agree(xsi, walk, monkeypatch):
+    """dot_prod(device="cpu") by `walk` against the other walk: the same
+    dots element for element, the same variants, checksum and routes; and
+    the dots within relative 1e-6 of the host walk's."""
+    other = WALKS[1 - WALKS.index(walk)]
+    want = _dot_prod_walk(xsi, other, monkeypatch)
+    got = _dot_prod_walk(xsi, walk, monkeypatch)
+    np.testing.assert_array_equal(got["dots"], want["dots"])
+    for key in ("variants", "checksum") + ROUTE_COUNTS:
+        assert got[key] == want[key], key
+    host = tools.dot_prod(xsi, device="host")
+    np.testing.assert_allclose(got["dots"], host["dots"], rtol=1e-6, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("walk", WALKS)
+def test_dot_prod_device_walks_agree(micro, walk, monkeypatch):
+    """The native scan and the Python walk group the records alike on
+    every fixture: multi-allelic records and records with no ALT
+    (zero_alt) hold one line each but the first of none, so each block's
+    lines of its bi-allelic records are the same."""
+    name, _, xsi = micro
+    got = _walks_agree(xsi, walk, monkeypatch)
+    dev, mixed = ROUTES.get(name, (got["device_blocks"], 0))
+    assert (got["device_blocks"], got["mixed_blocks"]) == (dev, mixed)
+
+
+@pytest.mark.parametrize("walk", WALKS)
+def test_dot_prod_device_walks_agree_random(compressed, walk, monkeypatch):
+    _, xsi = compressed
+    got = _walks_agree(xsi, walk, monkeypatch)
+    assert (got["device_blocks"], got["mixed_blocks"],
+            got["host_blocks"]) == (3, 0, 0)
+
+
+@pytest.mark.parametrize("walk", WALKS)
+def test_dot_prod_device_walks_agree_on_host_blocks(compressed, walk,
+                                                   monkeypatch):
+    """The host route takes each block's variants and lines from either
+    walk alike."""
+    _, xsi = compressed
+    monkeypatch.setattr(decoder_torch.TorchBlockDecoder, "eligible",
+                        property(lambda self: False))
+    monkeypatch.setattr(decoder_torch.TorchBlockDecoder, "mixed_device_ok",
+                        property(lambda self: False))
+    got = _walks_agree(xsi, walk, monkeypatch)
+    assert got["host_blocks"] == 3 and got["device_blocks"] == 0
+
+
+@pytest.mark.parametrize("name", sorted(FAULT_REPRO))
+def test_dot_prod_device_walks_agree_on_small_blocks(tmp_path, name,
+                                                     monkeypatch):
+    """Blocks of three records, so many blocks: the native scan's grouping
+    against the Python walk's, blocks in file order."""
+    vcf = getattr(fixtures, name)(str(tmp_path / "in.vcf"))
+    xsi = str(tmp_path / "o.xsi")
+    assert jax_cli(["-c", "-f", vcf, "-o", xsi,
+                    "--variant-block-length", "3"]) == 0
+    _walks_agree(xsi, "native", monkeypatch)
+
+
+def test_group_by_block_keeps_first_appearance_and_file_order():
+    """Records of a block in file order, blocks in order of first
+    appearance, each variant's index counted over the whole file; a BM
+    with its sign bit set is read as unsigned, as Accessor.split_bm
+    reads it."""
+    from xsqueezeit_tpu_torch.format.constants import BM_BLOCK_BITS
+    blocks = np.array([2, 2, 0, 2, 0, 1, 0x1FFFF], np.int64)
+    bms = ((blocks << BM_BLOCK_BITS) + np.arange(7)).astype(np.uint32) \
+        .view(np.int32)
+    nas = np.array([2, 3, 2, 1, 2, 2, 2], np.int32)
+    groups, n = tools._group_by_block(bms, nas)
+    assert n == 5
+    assert [(b, na.tolist(), v.tolist()) for b, na, v in groups] == [
+        (2, [2, 3, 1], [0]), (0, [2, 2], [1, 2]), (1, [2], [3]),
+        (0x1FFFF, [2], [4])]
+    none = np.zeros(0, np.int32)
+    assert tools._group_by_block(none, none) == ([], 0)
+
+
 def test_dot_prod_device_refuses_numpy_and_a_missing_card(compressed):
     """numpy is no dot_prod device; a plain file is read on the host only;
     the default is the card, and without one it raises."""

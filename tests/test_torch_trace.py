@@ -130,6 +130,24 @@ def test_records_counter_counts_the_variant_file(container, tracing):
     assert [s.counts for s in walk] == [{"dot_prod.records": n}]
 
 
+@pytest.mark.parametrize("walk", ["native", "python"])
+def test_walk_span_names_its_route(container, tracing, monkeypatch, walk):
+    """The walk's span says which walk read the variant file, the native
+    scan or (XSI_NATIVE=0) the Python reader, and its record counter
+    counts the file's records either way."""
+    if walk == "python":
+        monkeypatch.setenv("XSI_NATIVE", "0")
+    else:
+        monkeypatch.delenv("XSI_NATIVE", raising=False)
+    got = tools.dot_prod(container, device="cpu")
+    assert got["walk"] == walk
+    collected = trace.collect()
+    walks = [s for s in collected["spans"] if s.name == "dot_prod.walk"]
+    assert [s.attrs for s in walks] == [{"route": walk}]
+    assert [s.counts for s in walks] == [{"dot_prod.records": N_RECORDS}]
+    assert collected["counters"] == {"dot_prod.records": N_RECORDS}
+
+
 def test_child_spans_cover_the_operation(container, tracing):
     for _ in range(3):
         tools.dot_prod(container, device="cpu")

@@ -19,11 +19,12 @@ The port's copy of xsqueezeit_tpu/bench/tools.py:
                   modelled dedicated-host wall clock broken out
 
 `loading_time --native` reads an XSI through the port's native accessor,
-and af_stats walks it natively (interop/native.py; XSI_NATIVE=0 takes
-the Python record reader; a native failure raises).  A haploid line
-stores sample indices and is n_samples bits wide: dot_prod maps its
-carriers to samples one to one (the JAX package's XSI walk halves them),
-and the device product takes y itself on a uniformly haploid block.
+and af_stats and dot_prod on a torch device walk its variant file natively
+(interop/native.py; XSI_NATIVE=0 takes the Python record reader; a native
+failure raises).  A haploid line stores sample indices and is n_samples
+bits wide: dot_prod maps its carriers to samples one to one (the JAX
+package's XSI walk halves them), and the device product takes y itself on
+a uniformly haploid block.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import time
 import numpy as np
 
 from ..accessor import Accessor
+from ..format.constants import BM_BLOCK_BITS
 from ..io.bcf import BcfReader
 from ..io.unified import GtInput
 from ..ops import pbwt_np, wah_np
@@ -181,13 +183,60 @@ def dot_prod(path: str, seed: int = 42, device: str = "cuda") -> dict:
             "dots": np.asarray(dots, np.float64)}
 
 
+def _scan_records(acc: Accessor) -> tuple[np.ndarray, np.ndarray, str]:
+    """Every record's BM entry and n_allele off an XSI's variant file, as
+    int32 arrays in file order, and the walk that read them: "native", one
+    xsi_scan_records crossing on a fresh native accessor, closed after it
+    (a native error raises), or with XSI_NATIVE=0 "python", the BcfReader
+    pass."""
+    nat = acc._native()
+    if nat is not None:
+        try:
+            bms, nas = nat.scan_records()
+        finally:
+            acc.close()
+        return bms, nas, "native"
+    reader = BcfReader(acc.variant_filename())
+    try:
+        recs = list(reader)
+    finally:
+        reader.close()
+    bms = np.fromiter((acc.position_from_bm_entry(r) for r in recs),
+                      np.int32, len(recs))
+    nas = np.fromiter((r.n_allele for r in recs), np.int32, len(recs))
+    return bms, nas, "python"
+
+
+def _group_by_block(bms: np.ndarray, nas: np.ndarray):
+    """The records of each block, blocks in order of first appearance:
+    (block id, the block's records' n_allele in file order, each of its
+    bi-allelic records' index among the file's variants), and the number
+    of variants."""
+    blk = bms.view(np.uint32) >> BM_BLOCK_BITS      # Accessor.split_bm
+    is_var = nas == 2
+    variant = np.cumsum(is_var, dtype=np.int32) - 1
+    order = np.argsort(blk, kind="stable")
+    ids = blk[order]
+    if not len(ids):
+        return [], 0
+    starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
+    ends = np.r_[starts[1:], len(ids)]
+    groups = []
+    for k in np.argsort(order[starts], kind="stable"):
+        idx = order[starts[k]:ends[k]]
+        groups.append((int(ids[starts[k]]), nas[idx],
+                       variant[idx][is_var[idx]]))
+    return groups, int(np.count_nonzero(is_var))
+
+
 def _dot_prod_device(path: str, seed: int, device: str) -> dict:
     """dot_prod of an XSI file with whole blocks decoded on a torch device.
 
-    Records are grouped by block.  A block TorchBlockDecoder.decode_bits
-    takes decodes on the device (on "cuda": wah_expand_bits, then
-    chain_decode and the run flush; a mixed-ploidy block through
-    wah_expand_varw_bits and the mixed scan);
+    The variant file's records are scanned in one native crossing
+    (_scan_records) and grouped by block in numpy.  A block
+    TorchBlockDecoder.decode_bits takes decodes on the device (on "cuda":
+    wah_expand_bits, then chain_decode and the run flush; a mixed-ploidy
+    block through wah_expand_varw_bits and the mixed scan);
     its bi-allelic records' lines are gathered there and multiplied in
     float32 with the phenotype weights, one product per block: y[h >> 1] on
     a diploid block, y on a uniformly haploid one (n_samples wide), and on
@@ -216,33 +265,24 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
 
         # per block: each record's n_allele, and each bi-allelic record's
         # index among the file's variants
-        with trace.span("dot_prod.walk"):
-            reader = BcfReader(acc.variant_filename())
-            blocks: dict[int, tuple[list[int], list[int]]] = {}
-            n = 0
-            for rec in reader:
-                blk = acc.split_bm(acc.position_from_bm_entry(rec))[0]
-                n_alleles, variants = blocks.setdefault(blk, ([], []))
-                n_alleles.append(rec.n_allele)
-                if rec.n_allele == 2:
-                    variants.append(n)
-                    n += 1
-            reader.close()
-            trace.count("dot_prod.records",
-                        sum(len(na) for na, _ in blocks.values()))
+        with trace.span("dot_prod.walk") as span:
+            bms, nas, walk = _scan_records(acc)
+            span.set(route=walk)
+            trace.count("dot_prod.records", len(bms))
+            blocks, n = _group_by_block(bms, nas)
 
         dots = np.zeros(n, np.float64)
         checksum = 0.0
         # haploid_blocks: the device blocks that are uniformly haploid
         routes = {"device_blocks": 0, "haploid_blocks": 0, "mixed_blocks": 0,
                   "host_blocks": 0}
-        for blk, (n_alleles, variants) in blocks.items():
-            if not variants:
+        for blk, n_alleles, variants in blocks:
+            if not len(variants):
                 continue
             with trace.span("dot_prod.block", block=blk) as span:
                 # binary line of each bi-allelic record (one line each)
-                firsts = np.cumsum([0] + [max(na - 1, 0) for na in n_alleles])
-                keep = [int(f) for f, na in zip(firsts, n_alleles) if na == 2]
+                lines = np.maximum(n_alleles.astype(np.int64) - 1, 0)
+                keep = (np.cumsum(lines) - lines)[n_alleles == 2]
                 with trace.span("decode.parse"):
                     dec = TorchBlockDecoder(acc.xsi.gt_block_payload(blk),
                                             n_samples, acc.n_haps,
@@ -252,7 +292,8 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
                     span.set(route="host")
                     routes["host_blocks"] += 1
                     with trace.span("dot_prod.host_block"):
-                        for v, first in zip(variants, keep):
+                        for v, first in zip(variants.tolist(),
+                                            keep.tolist()):
                             m.seek(first)
                             gt = m.fill_genotype_array_advance(2)
                             shift = 0 if m.haploid_line[first] else 1
@@ -263,7 +304,7 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
                 span.set(route=route)
                 with trace.span("dot_prod.product"):
                     rows = vals.index_select(
-                        0, torch.as_tensor(keep, dtype=torch.int64, device=dev)
+                        0, torch.from_numpy(keep).to(dev)
                     ).to(torch.float32)
                     if route == "mixed":
                         routes["mixed_blocks"] += 1
@@ -282,7 +323,7 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
                 checksum += float(got.sum())
     return {"variants": n, "checksum": round(float(checksum), 6),
             "seconds": time.perf_counter() - t0, "device": str(dev),
-            "dots": dots, **routes}
+            "walk": walk, "dots": dots, **routes}
 
 
 def af_stats(path: str, annotate_out: str | None = None) -> dict:

@@ -76,6 +76,9 @@ _OFF = ("0", "off", "no")
 _lock = threading.Lock()
 _probes: dict = {}
 _libs: dict = {}
+#: (SRC_DIR, BUILD_DIR, zstd, libdeflate) -> the library load_library
+#: loaded for them.
+_loaded: dict = {}
 #: Seconds the last library build of this process took (None: none ran).
 last_build_seconds: float | None = None
 
@@ -296,7 +299,13 @@ def load_path(path: str) -> ctypes.CDLL:
 def load_library(zstd: bool | None = None,
                  libdeflate: bool | None = None) -> ctypes.CDLL:
     """The loaded libxsqueezeit_tpu.so of this build (built at first use;
-    one load per process)."""
+    one load per process).  Once loaded, a build is not checked against
+    its sources again in this process: the process keeps the library it
+    loaded, and a later call costs a dict lookup."""
+    key = (SRC_DIR, BUILD_DIR, zstd, libdeflate)
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
     with _lock:
         path = build_native(False, zstd, libdeflate)
         lib = _libs.get(path)
@@ -304,6 +313,7 @@ def load_library(zstd: bool | None = None,
             lib = load_path(path)
             lib.xsi_last_error.restype = ctypes.c_char_p
             _libs[path] = lib
+        _loaded[key] = lib
     return lib
 
 
