@@ -2,24 +2,30 @@
 the CPU: nothing recorded and no torch call while tracing is off; the
 spans of dot_prod and of the decompressor's batches nested as named, on
 the worker threads too, each with its operation's id; the record counter;
-the spans' cover of an operation; their marks in a torch.profiler trace
+the spans' cover of an operation; the decode's chain and run flush
+spans with their shapes and routes, at 16-bit and 32-bit widths; their
+marks in a torch.profiler trace
 and in the CLI's --profile trace; the kernel launch counters."""
 import json
 import os
 import threading
+
+import numpy as np
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from xsqueezeit_tpu_torch.bench import tools
+from xsqueezeit_tpu_torch.codec.decoder_torch import TorchBlockDecoder
+from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu_torch.cli import main as torch_cli
 from xsqueezeit_tpu_torch.codec.decompressor import (
     Decompressor,
     DecompressorOptions,
 )
 from xsqueezeit_tpu_torch.io.bcf import BcfReader
-from xsqueezeit_tpu_torch.ops import pbwt_kernels, wah_kernels
+from xsqueezeit_tpu_torch.ops import pbwt_kernels, pbwt_torch, wah_kernels
 from xsqueezeit_tpu_torch.utils import trace
 from tests import fixtures
 
@@ -125,7 +131,9 @@ def test_records_counter_counts_the_variant_file(container, tracing):
     n = sum(1 for _ in reader)
     reader.close()
     assert n == N_RECORDS
-    assert got["counters"] == {"dot_prod.records": n}
+    assert got["counters"]["dot_prod.records"] == n
+    assert set(got["counters"]) == {"dot_prod.records", "decode.chunks",
+                                    "decode.carriers"}
     walk = [s for s in got["spans"] if s.name == "dot_prod.walk"]
     assert [s.counts for s in walk] == [{"dot_prod.records": n}]
 
@@ -145,7 +153,9 @@ def test_walk_span_names_its_route(container, tracing, monkeypatch, walk):
     walks = [s for s in collected["spans"] if s.name == "dot_prod.walk"]
     assert [s.attrs for s in walks] == [{"route": walk}]
     assert [s.counts for s in walks] == [{"dot_prod.records": N_RECORDS}]
-    assert collected["counters"] == {"dot_prod.records": N_RECORDS}
+    assert collected["counters"]["dot_prod.records"] == N_RECORDS
+    assert set(collected["counters"]) == {"dot_prod.records",
+                                          "decode.chunks", "decode.carriers"}
 
 
 def test_child_spans_cover_the_operation(container, tracing):
@@ -174,8 +184,8 @@ def test_spans_are_profiler_marks(container, tracing, tmp_path):
     names = {s.name for s in trace.collect()["spans"]}
     assert names == {"dot_prod", "dot_prod.open", "dot_prod.walk",
                      "dot_prod.block", "decode.parse", "decode.upload",
-                     "decode.device", "dot_prod.product",
-                     "dot_prod.readback"}
+                     "decode.device", "decode.chain", "decode.flush",
+                     "dot_prod.product", "dot_prod.readback"}
     assert names <= marks
 
 
@@ -192,10 +202,101 @@ def test_launch_counts_are_unchanged(container, on):
     finally:
         trace.disable()
     assert {**pbwt_kernels.launches, **wah_kernels.launches} == before
-    assert set(trace.collect()["counters"]) <= {"dot_prod.records"}
+    assert set(trace.collect()["counters"]) <= {
+        "dot_prod.records", "decode.chunks", "decode.carriers"}
     counts = {"r": 0}
     trace.count("r", 3, into=counts)
     assert counts == {"r": 3}
+
+
+def _diploid_block(n_samples: int, n_records: int = 40, seed: int = 3):
+    """A phased diploid block of biallelic records, rare, common and near
+    fixed, at the codec's default threshold (MAF 0.001): (payload, aet
+    dtype, stored sparse carriers).  16-bit streams up to 65,535
+    haplotypes, else 32-bit."""
+    rng = np.random.default_rng(seed)
+    H = 2 * n_samples
+    aet = np.uint16 if H <= 0xFFFF else np.uint32
+    enc = GtBlockEncoder(n_samples=n_samples, block_bcf_lines=10_000,
+                         mac_threshold=max(1, int(H * 0.001)),
+                         default_phasing=1, aet_dtype=aet)
+    ps = (0.0004, 0.3, 0.02, 0.9996, 0.6, 0.002)
+    stored = 0
+    mac = max(1, int(H * 0.001))
+    for i in range(n_records):
+        alt = rng.random(H) < ps[i % len(ps)]
+        gt = ((alt.astype(np.int32) + 1) << 1)
+        gt[1::2] |= 1
+        n_alt = int(alt.sum())
+        if min(n_alt, H - n_alt) < mac:   # a sparse line: its minority
+            stored += min(n_alt, H - n_alt)
+        enc.encode_record(gt, 2)
+    return enc.serialize(), aet, stored
+
+
+@pytest.mark.parametrize("n_samples", [2504, 32800], ids=["narrow", "wide"])
+def test_decode_spans_name_the_chain_and_the_flush(tracing, n_samples):
+    """decode.chain and decode.flush nest under decode.device with their
+    width, chunk and route; decode.chunks counts the chunks, decode.carriers
+    the stored sparse carriers, and decode.parse names the streams' bits."""
+    payload, aet, stored = _diploid_block(n_samples)
+    H = 2 * n_samples
+    dec = TorchBlockDecoder(payload, n_samples, H, aet, device="cpu")
+    assert dec.eligible
+    dec.decode_bits()
+    got = trace.collect()
+    spans = got["spans"]
+
+    def one(name):
+        found = [s for s in spans if s.name == name]
+        assert len(found) == 1, (name, found)
+        return found[0]
+    device, chain, flush = (one("decode.device"), one("decode.chain"),
+                            one("decode.flush"))
+    assert chain.parent == device.id and flush.parent == device.id
+    assert chain.end <= flush.start
+    C = pbwt_kernels.decode_chunk(H)
+    assert C == (16 if H <= 0xFFFF else 15)
+    Lw = int(dec.meta.line_is_wah.sum())
+    n_ch = -(-Lw // C)
+    assert chain.attrs == {"width": H, "chunk_lines": C, "route": "plain"}
+    assert chain.counts == {"decode.chunks": n_ch}
+    assert flush.attrs == {"route": "plain", "width": H, "chunk_lines": C,
+                           "chunks": n_ch, "lines": Lw, "haps": H,
+                           "history": False}
+    parse = [s for s in spans if s.name == "decode.parse"]
+    assert [s.attrs for s in parse] == [{"aet_bits": 16 if H <= 0xFFFF
+                                         else 32}]
+    assert stored > 0
+    assert parse[0].counts == {"decode.carriers": stored}
+    assert got["counters"] == {"decode.chunks": n_ch,
+                               "decode.carriers": stored}
+
+
+@pytest.mark.parametrize("n_samples", [2504, 32800], ids=["narrow", "wide"])
+def test_decode_spans_off_record_nothing(n_samples, monkeypatch):
+    trace.disable()
+    trace.collect()
+    _no_record_function(monkeypatch)
+    payload, aet, _ = _diploid_block(n_samples)
+    dec = TorchBlockDecoder(payload, n_samples, 2 * n_samples, aet,
+                            device="cpu")
+    dec.decode_bits()
+    assert trace.collect() == {"spans": [], "counters": {}}
+
+
+@pytest.mark.parametrize("W,routes", [
+    (5008, ("cta", "cta")), (28928, ("cta", "cta")),
+    (28929, ("rows", "cta")), (64976, ("rows", "cta")),
+    (65535, ("rows", "cta")), (65536, ("rows", "cluster")),
+    (194512, ("rows", "cluster"))])
+def test_decode_routes_by_width(W, routes):
+    """The routes the spans name on the card follow the kernels' own
+    choice: the chain on 16 CTAs above one CTA's 28,928 slots, the flush on
+    a cluster above 65,535; on the CPU both are the plain versions."""
+    assert pbwt_torch.decode_routes(W, torch.device("cuda")) == routes
+    assert pbwt_torch.decode_routes(W, torch.device("cpu")) == ("plain",
+                                                                "plain")
 
 
 def _extract_spans(xsi, devices, stop_after=None):

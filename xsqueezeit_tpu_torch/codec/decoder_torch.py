@@ -281,7 +281,7 @@ class TorchBlockDecoder:
         (stream u16[N], sorts bool[Lw], rank i64[L], is_wah bool[L],
         neg u8[L], car_line i64[Nc], car_idx i64[Nc], H, W, L, n_wah).
         Nothing is padded: the carriers are exactly the stored ones
-        (sparse_carriers)."""
+        (sparse_carriers), counted in decode.carriers."""
         m = self.meta
         H = self.n_eff
         W = wah_torch.n_words_for(H)
@@ -293,6 +293,7 @@ class TorchBlockDecoder:
         sorts = np.ones(n_wah, bool)
         rank = np.clip(np.cumsum(is_wah) - 1, 0, None).astype(np.int64)
         neg, car_line, car_idx = self.sparse_carriers()
+        trace.count("decode.carriers", len(car_idx))
         return (np.array(stream), sorts, rank, is_wah, neg,
                 car_line, car_idx, H, W, L, n_wah)
 
@@ -375,16 +376,19 @@ class TorchBlockDecoder:
         on the device, and the route taken: "device" for an eligible block
         (H = n_eff), "mixed" for a mixed-ploidy one (H = n_haps, haploid
         lines slot-duplicated: fold the even slots).  Any other block
-        decodes record by record on the host (GtBlockDecoder)."""
+        decodes record by record on the host (GtBlockDecoder).  The
+        decode.parse span carries aet_bits, the width of the block's sparse
+        and track values (16 up to 65,535 haplotypes, else 32)."""
+        aet_bits = 8 * self.aet_dtype.itemsize
         if self.eligible:
-            with trace.span("decode.parse"):
+            with trace.span("decode.parse", aet_bits=aet_bits):
                 *arrays, H, W, _L, _n_wah = self.host_inputs()
             neg = arrays[4]
             t = self._upload(arrays)
             with trace.span("decode.device"):
                 vals, route = _decode_block_vals(*t, H, W), "device"
         elif self.mixed_device_ok:
-            with trace.span("decode.parse"):
+            with trace.span("decode.parse", aet_bits=aet_bits):
                 *arrays, H, w_max, _L = self.host_inputs_mixed()
             neg = arrays[6]
             t = self._upload(arrays)

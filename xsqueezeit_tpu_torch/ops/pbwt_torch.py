@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import pbwt_kernels
+from ..utils import trace
 
 DECODE_CHUNK = 16
 #: Runs of one ploidy shorter than this many WAH lines take the mixed
@@ -322,6 +323,20 @@ def mixed_runs(hap: np.ndarray, H: int) -> list[tuple[int, int, str]]:
     return pieces
 
 
+def decode_routes(W: int, device: torch.device) -> tuple[str, str]:
+    """The routes a run of W slots takes on `device`, as the decode.chain
+    and decode.flush spans name them: the chain on one CTA ("cta") or on
+    16 CTAs with its rows in device memory ("rows"), the run flush on a CTA
+    a chunk ("cta") or a cluster of pbwt_kernels.FLUSH_CLUSTER CTAs
+    ("cluster"); ("plain", "plain") on the CPU, where the plain versions
+    run."""
+    if device.type == "cpu":
+        return "plain", "plain"
+    chain = ("cta" if pbwt_kernels.cluster_size("chain_decode", W) == 1
+             else "rows")
+    return chain, "cta" if pbwt_kernels.flush_cluster(W) == 1 else "cluster"
+
+
 def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
                 haploid: bool, out: torch.Tensor, end: bool
                 ) -> torch.Tensor | None:
@@ -332,7 +347,10 @@ def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
     slots by its stored bits), and its end arrangement is the rank chain of
     the histories the flush writes, from the ranks inverse(a).  Chunks
     hold pbwt_kernels.decode_chunk(W) lines, the chain states' shift (16
-    up to 65,536 slots)."""
+    up to 65,536 slots).  Spans (utils/trace.py): decode.chain around the
+    chains (width W, chunk_lines C, route; counter decode.chunks, the
+    chunks) and decode.flush around the run flush (route, and the shapes
+    its byte bound reads)."""
     n, H = ys.shape
     dev = ys.device
     W = (H + 1) // 2 if haploid else H
@@ -343,12 +361,21 @@ def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
     if pad:                      # whole chunks of zero rows
         y = torch.nn.functional.pad(y, (0, 0, 0, pad))
     ss = torch.nn.functional.pad(sorts.to(torch.bool), (0, pad)).view(n_ch, C)
-    p_fin = pbwt_kernels.chain_decode(y.view(n_ch, C, W), ss, widen=False)
+    chain_route, flush_route = decode_routes(W, dev)
+    with trace.span("decode.chain", width=W, chunk_lines=C,
+                    route=chain_route):
+        trace.count("decode.chunks", n_ch)
+        p_fin = pbwt_kernels.chain_decode(y.view(n_ch, C, W), ss,
+                                          widen=False)
     # the samples' start order: a stable parity sort, no host sync
     start = (a[torch.argsort(a & 1, stable=True)[:W]] >> 1 if haploid
              else a)
-    _, T, last = pbwt_kernels.decode_run_flush(
-        p_fin, start, ss, H, n, haploid, want_T=haploid and end, out=out)
+    want_T = haploid and end
+    with trace.span("decode.flush", route=flush_route, width=W,
+                    chunk_lines=C, chunks=n_ch, lines=n, haps=H,
+                    history=want_T):
+        _, T, last = pbwt_kernels.decode_run_flush(
+            p_fin, start, ss, H, n, haploid, want_T=want_T, out=out)
     if not end:
         return None
     if not haploid:
