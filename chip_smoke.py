@@ -74,9 +74,12 @@ exactly:
    just after, and each kernel route of that path must have launched
    (and no other); while it runs, wah_torch's plain pack_bits,
    unpack_bits and wah_word_offsets, pbwt_kernels' plain rank chain,
-   stepping scan, chain decode and run flush, and pbwt_torch's packed-key
-   scans (uniform and with the parity) and blocked decode raise (every
-   block, TOPMed's included).
+   stepping scan, chain decode and run flush, the plain sparse-line fill,
+   and pbwt_torch's packed-key scans (uniform and with the parity) and
+   blocked decode raise (every block, TOPMed's included).  The decode's
+   run flush as the path calls it (each WAH row at its line of the
+   block's plane) and the sparse-line kernel are held against their plain
+   versions at each block's own inputs and timed.
    Prints ms/block and
    GB/s in bench.py's unit (L * H * 4 logical gt bytes), the compression
    ratio, the device part of the decode alone, and the peak device memory
@@ -175,7 +178,7 @@ from xsqueezeit_tpu_torch.io.sites import (
 )
 from xsqueezeit_tpu_torch.io.unified import GtInput
 from xsqueezeit_tpu_torch.ops import _build, pbwt_kernels, pbwt_torch
-from xsqueezeit_tpu_torch.ops import wah_kernels, wah_torch
+from xsqueezeit_tpu_torch.ops import sparse_kernels, wah_kernels, wah_torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -201,7 +204,8 @@ WIDE_MIXED_BLOCK = "TOPMed-males-PAR"
 MIXED_BLOCKS = ((MIXED_BLOCK, MALES, SEED + 2),
                 (WIDE_MIXED_BLOCK, TOPMED_MALES, SEED + 4))
 ONE_CTA = ("chain_encode", "chain_decode", "wah_expand_bits",
-           "wah_compress_bits", "rank_chain", "decode_run_flush")
+           "wah_compress_bits", "rank_chain", "decode_run_flush",
+           "sparse_lines")
 #: Kernel routes each block's path must launch (the others must not: the
 #: int32-group WAH routes are the TPU kernels' contract, held and timed
 #: against their plain versions, but the codec calls the bits routes).
@@ -211,12 +215,12 @@ PATH_KERNELS = {
     # rows in device memory
     "HRC": ("chain_encode_cluster", "chain_decode_rows",
             "wah_expand_bits", "wah_compress_bits", "rank_chain",
-            "decode_run_flush"),
+            "decode_run_flush", "sparse_lines"),
     # above 65,535 haplotypes: the same chains, the decode's wide state,
     # the run flush on a cluster a chunk
     "TOPMed": ("chain_encode_cluster", "chain_decode_rows",
                "decode_run_flush_cluster", "wah_expand_bits",
-               "wah_compress_bits", "rank_chain"),
+               "wah_compress_bits", "rank_chain", "sparse_lines"),
     "1KGP3-missing": ONE_CTA,
     "1KGP3-chrX": ONE_CTA,
     # the encode on the chain with the parity payload; the mixed scan's
@@ -225,7 +229,7 @@ PATH_KERNELS = {
     # rank chain is skipped: the encode launches it)
     MIXED_BLOCK: ("chain_encode_parity", "wah_compress_bits",
                   "wah_expand_varw_bits", "rank_chain", "chain_decode",
-                  "decode_run_flush"),
+                  "decode_run_flush", "sparse_lines"),
     # the same at 97,256 haplotypes: the parity encode on 8 CTAs, both
     # runs (97,256 and 48,628 slots) on the decode's rows route, the
     # diploid run's flush on a cluster a chunk, the haploid one's on one
@@ -233,7 +237,7 @@ PATH_KERNELS = {
     WIDE_MIXED_BLOCK: ("chain_encode_parity_cluster", "rank_chain",
                        "wah_compress_bits", "wah_expand_varw_bits",
                        "chain_decode_rows", "decode_run_flush_cluster",
-                       "decode_run_flush"),
+                       "decode_run_flush", "sparse_lines"),
 }
 #: Plain passes that must not run on a block's card path (they are
 #: replaced by functions that raise while it runs), by module: the mixed
@@ -245,6 +249,7 @@ PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
                 (pbwt_kernels, ("rank_chain_plain", "decode_scan_mixed_plain",
                                 "chain_decode_plain",
                                 "decode_run_flush_plain")),
+                (sparse_kernels, ("sparse_lines_plain",)),
                 (pbwt_torch, ("pbwt_encode_scan", "pbwt_encode_scan_parity",
                               "pbwt_decode_blocked")))
 #: The plain passes a block's path takes by design: none (the rank chain
@@ -311,6 +316,10 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     # the same above 65,535 slots, a cluster a chunk: the uniform decode's
     # flush there takes the blocked decode's place (pbwt_jax.py:456)
     "decode_run_flush_cluster": ("pbwt_scan.cu", "pbwt_jax.py:456"),
+    # XLA glue of the JAX decoder (a zeros plane, the carriers' scatter, a
+    # where and an XOR over the block's plane), not a Pallas kernel
+    "sparse_lines": ("sparse_lines.cu",
+                     "xsqueezeit_tpu/codec/decoder_jax.py:58"),
 }
 
 
@@ -361,13 +370,16 @@ KERNEL_NAMES = {
     "decode_run_flush": (("compose_level_kernel", "decode_run_flush_kernel"),),
     "decode_run_flush_cluster": (("compose_level_kernel",
                                   "decode_run_flush_cluster_kernel"),),
+    # the sparse lines' fill, then their carriers: two launches a call
+    "sparse_lines": (("sparse_line_fill_kernel", "sparse_carrier_kernel"),),
 }
 
 
 #: Routes whose call launches its kernels several times (KERNEL_NAMES then
 #: names their common prefix): their device time is summed over a call and
 #: their launches per call printed.
-MULTI_LAUNCH = {"rank_chain", "decode_run_flush", "decode_run_flush_cluster"}
+MULTI_LAUNCH = {"rank_chain", "decode_run_flush", "decode_run_flush_cluster",
+                "sparse_lines"}
 
 
 def kernel_device_ms(route: str, fn, iters: int = 10) -> float | None:
@@ -603,7 +615,8 @@ def diff(a, b) -> int:
 
 
 def counters() -> tuple[dict, ...]:
-    return (pbwt_kernels.launches, wah_kernels.launches)
+    return (pbwt_kernels.launches, wah_kernels.launches,
+            sparse_kernels.launches)
 
 
 def reset_counts() -> None:
@@ -986,14 +999,18 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
 
 def flush_calls(fn) -> list:
     """fn() with the run flush's calls recorded: [(args, kwargs)], the
-    tensors copied and the output buffer left out."""
+    tensors copied and the output buffer left out (a line-mapped call's
+    kept as its row count, out_rows)."""
     calls = []
     orig = pbwt_kernels.decode_run_flush
 
     def call(*args, **kw):
+        rec = {k: v.clone() if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items() if k != "out"}
+        if kw.get("line_of") is not None:
+            rec["out_rows"] = kw["out"].shape[0]
         calls.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                            for a in args),
-                      {k: v for k, v in kw.items() if k != "out"}))
+                            for a in args), rec))
         return orig(*args, **kw)
     with swapped(pbwt_kernels, {"decode_run_flush": call}):
         fn()
@@ -1006,29 +1023,42 @@ def flush_bytes(args, kw) -> int:
     its end map (int64 a slot) written."""
     p_fin, start, ss, H, n, _haploid = args
     T = 4 * p_fin.shape[0] * H if kw.get("want_T") else 0
-    return p_fin.nbytes + 2 * start.nbytes + ss.nbytes + n * H + T
+    line_of = kw.get("line_of")
+    return (p_fin.nbytes + 2 * start.nbytes + ss.nbytes + n * H + T
+            + (0 if line_of is None else line_of.nbytes))
 
 
 def flush_check(label: str, args, kw, card: str) -> dict:
     """The run flush at one call's arguments against its plain version
-    (rows, the end map, and T if written), timed."""
+    (rows, the end map, and T if written), timed.  A line-mapped call
+    (line_of, out_rows in kw) writes into two zeroed planes of out_rows
+    rows, compared whole: the rows at their lines, the others untouched."""
     p_fin, _, _, H, n, haploid = args
     W = p_fin.shape[1]
     route = ("decode_run_flush" if pbwt_kernels.flush_cluster(W) == 1
              else "decode_run_flush_cluster")
+    kw = dict(kw)
+    out_rows = kw.pop("out_rows", None)
+    planes = [None, None]
+    if out_rows is not None:
+        planes = [torch.zeros((out_rows, H), dtype=torch.uint8,
+                              device=p_fin.device) for _ in range(2)]
 
     def kern():
-        return pbwt_kernels.decode_run_flush(*args, **kw)
+        return pbwt_kernels.decode_run_flush(*args, **kw, out=planes[0])
 
     def plain():
-        return pbwt_kernels.decode_run_flush_plain(*args, **kw)
+        return pbwt_kernels.decode_run_flush_plain(*args, **kw,
+                                                   out=planes[1])
     g, w = kern(), plain()
     torch.cuda.synchronize()
     err = max(diff(g[0], w[0]), diff(g[2], w[2]),
               diff(g[1], w[1]) if kw.get("want_T") else 0)
     shape = (f"{'haploid' if haploid else 'diploid'} run of {n} lines, "
              f"W={W} H={H} n_ch={p_fin.shape[0]} C={args[2].shape[1]}"
-             + (", T written" if kw.get("want_T") else ""))
+             + (", T written" if kw.get("want_T") else "")
+             + ("" if out_rows is None else
+                f", rows at their lines of {out_rows}"))
     require(err == 0, f"{route} at {label} ({shape}): kernel "
                       f"differs from its plain version (max abs err {err})")
     del g, w
@@ -1036,6 +1066,43 @@ def flush_check(label: str, args, kw, card: str) -> dict:
                     cuda_ms(plain, iters=3, warmup=1), flush_bytes(args, kw),
                     "", card, kernel_device_ms(route, kern), host_ms(kern))
     c["haploid"] = haploid
+    return c
+
+
+def sparse_check(label: str, staged, h: int, card: str) -> dict:
+    """The sparse-line kernel at a block's own inputs (the decode's staged
+    is_wah, neg and carriers) against its plain version, each writing a
+    zeroed plane of the block's shape, compared whole (the WAH rows left
+    as they were), timed.  Bound: the sparse lines' bytes written once,
+    the carriers read (16 B) and written (1 B), the flags read."""
+    is_wah, neg, car_line, car_idx = staged[3:7]
+    L = is_wah.shape[0]
+    planes = [torch.zeros((L, h), dtype=torch.uint8, device=is_wah.device)
+              for _ in range(2)]
+
+    def kern():
+        return sparse_kernels.sparse_lines(planes[0], is_wah, neg, car_line,
+                                           car_idx)
+
+    def plain():
+        return sparse_kernels.sparse_lines_plain(planes[1], is_wah, neg,
+                                                 car_line, car_idx)
+    kern(), plain()
+    torch.cuda.synchronize()
+    err = diff(planes[0], planes[1])
+    n_sparse = int((~is_wah).sum())
+    n_car = car_line.shape[0]
+    shape = f"{n_sparse} sparse lines of {L}, H={h}, {n_car} carriers"
+    require(err == 0, f"sparse_lines at {label} ({shape}): kernel differs "
+                      f"from its plain version (max abs err {err})")
+    c = timed_check("sparse_lines", label, shape, err, cuda_ms(kern),
+                    cuda_ms(plain, iters=3, warmup=1),
+                    n_sparse * h + 17 * n_car + 2 * L, "", card,
+                    kernel_device_ms("sparse_lines", kern), host_ms(kern))
+    del planes
+    c["default_route"] = label == "1KGP3"
+    if not c["default_route"]:
+        c["row"] = f"sparse_lines@{label}"
     return c
 
 
@@ -1175,7 +1242,8 @@ def kernel_row(check: dict) -> dict:
     library_ms is null."""
     src, replaces = ROUTES[check["name"]]
     row = {"name": check["name"], "route": "cuda", "source": SRC + src,
-           "replaces": PALLAS + replaces, "shape": check["shape"],
+           "replaces": replaces if "/" in replaces else PALLAS + replaces,
+           "shape": check["shape"],
            "max_abs_err": check["max_abs_err"], "ms": check["ms"],
            "plain_ms": check["plain_ms"], "kernel_ms": check["kernel_ms"],
            "bound_ms": check["bound_ms"], "bound_by": "bytes",
@@ -1275,10 +1343,30 @@ def old_pipeline():
     wk, wt = wah_kernels, wah_torch
     return swapped(wk, {
         "wah_compress_bits": lambda b: wk.wah_compress(wt.pack_bits(b)),
-        "wah_expand_bits": lambda s, n, w, h: wt.unpack_bits(
-            wk.wah_expand(s, n, w), h),
+        "wah_expand_bits": lambda s, n, w, h, out=None: into(
+            out, wt.unpack_bits(wk.wah_expand(s, n, w), h)),
         "wah_expand_varw_bits": lambda s, g, w, h: wt.unpack_bits(
             wk.wah_expand_varw(s, g, w), h)})
+
+
+def into(out, rows):
+    """rows, or rows copied into `out` where given."""
+    return rows if out is None else out.copy_(rows)
+
+
+def as_chunked(form):
+    """pbwt_torch.pbwt_decode_chunked's contract around an older decode
+    form `form(ys, sorts)` of the lines alone: whole-chunk rows cut to the
+    lines, and the rows stored at their lines of `out` (line_of) as the run
+    flush stores them, at the cost of one more copy of the rows."""
+    def call(ys, sorts, out=None, line_of=None):
+        vals, a = form(ys[:sorts.shape[0]], sorts)
+        if out is None:
+            return vals, a
+        if line_of is None:
+            return out.copy_(vals), a
+        return out.index_copy_(0, line_of.to(torch.int64), vals), a
+    return call
 
 
 def torch_flush_decode(ys, sorts):
@@ -1304,7 +1392,8 @@ def torch_flush_decode(ys, sorts):
 def torch_flush_ms(label: str, fn, want: np.ndarray, **loop) -> float:
     """fn's time (CUDA events) with torch_flush_decode in the uniform
     decode's place, after one call that must still give `want`."""
-    with swapped(pbwt_torch, {"pbwt_decode_chunked": torch_flush_decode}):
+    with swapped(pbwt_torch, {"pbwt_decode_chunked":
+                              as_chunked(torch_flush_decode)}):
         require(bool((fn().cpu().numpy() == want).all()),
                 f"{label}: the decode with the torch flush is not "
                 f"bit-exact")
@@ -1665,7 +1754,10 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
         torch form `old` (the wide blocks' comparison, same run)."""
         if not slots32:
             return None, None
-        with swapped(pbwt_torch, {route: getattr(pbwt_torch, old)}):
+        form = getattr(pbwt_torch, old)
+        if route == "pbwt_decode_chunked":
+            form = as_chunked(form)
+        with swapped(pbwt_torch, {route: form}):
             return cuda_ms(fn, iters=3, warmup=1), once_peak_gb(fn)
 
     staged = (t(prep["alleles_p"]), t(prep["alts_p"]),
@@ -1729,8 +1821,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
                               torch_flush_ms(name, decode_device, gt,
                                              **dev_loop))
     if slots32:        # the old torch form must still give the block's gt
-        with swapped(pbwt_torch, {"pbwt_decode_chunked":
-                                  pbwt_torch.pbwt_decode_blocked}):
+        with swapped(pbwt_torch, {"pbwt_decode_chunked": as_chunked(
+                pbwt_torch.pbwt_decode_blocked)}):
             require(bool((decode_device().cpu().numpy() == gt).all()),
                     f"{name}: the decode with the blocked decode is not "
                     f"bit-exact")
@@ -1749,10 +1841,22 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
                                      else dev_loop))
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the path's own inputs of each decode kernel (captured after the
-    # decode's peaks: the copies are not the path's memory)
+    # decode's peaks: the copies are not the path's memory); the run flush
+    # as the path calls it (its rows at their lines of the block's plane)
+    # and the sparse-line kernel, each against its plain version
     with captured_args() as seen_dec:
         decode_device()
     seen.update(seen_dec)
+    mapped = [c for c in flush_calls(decode_device)
+              if c[1].get("line_of") is not None]
+    require(len(mapped) == 1, f"{name}: the decode made {len(mapped)} "
+                              f"line-mapped run flush calls, want 1")
+    decode_checks = [sparse_check(name, dstaged, h, card)]
+    fm = flush_check(f"{name} block", *mapped[0], card)
+    fm["default_route"] = False
+    fm["row"] = f"{fm['name']}@{name} line map"
+    decode_checks.append(fm)
+    del mapped
     if slots32:
         ys = wah_kernels.wah_expand_bits(*seen["wah_expand_bits"])
         sorts = dstaged[1]
@@ -1800,7 +1904,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
           f"peak {dec_dev_peak:.3f} GB"
           f"{old(dec_dev_peak_old, ' GB')}{dec_blocked} ({card})")
     checks = (block_chain_checks(name, seen, card)
-              + wah_block_checks(name, seen, card) + list(scans.values()))
+              + wah_block_checks(name, seen, card) + list(scans.values())
+              + decode_checks)
     if "decode_run_flush" in seen:      # the uniform decode's flush
         fc = flush_check(f"{name} block", seen["decode_run_flush"], {}, card)
         fc["default_route"] = False
@@ -2402,7 +2507,8 @@ def tools_phase(card: str) -> dict:
     and in the checksum to 1e-6 (one unit of its sixth decimal); every
     launch counter is set to 0 just before each dot_prod on the card and
     read just after: wah_expand_bits, chain_decode and the run flush once
-    per block, nothing else.  The counts are the tools' own: they stay out of the
+    per block, the sparse-line kernel at most once (a block may hold no
+    sparse line), nothing else.  The counts are the tools' own: they stay out of the
     kernels line, which reads the block paths."""
     from xsqueezeit_tpu_torch.accessor import Accessor
     from xsqueezeit_tpu_torch.bench import tools
@@ -2447,6 +2553,9 @@ def tools_phase(card: str) -> dict:
             card_res = timed(f"{label}_dot_prod_cuda", tools.dot_prod, xsi)
             torch.cuda.synchronize()
             launches = read_counts()
+        sparse = launches.pop("sparse_lines")
+        require(sparse <= n_blocks, f"{label}: {sparse} sparse-line "
+                                    f"launches for {n_blocks} blocks")
         ran = {k: v for k, v in launches.items() if v}
         want = {"wah_expand_bits": n_blocks, "chain_decode": n_blocks,
                 "decode_run_flush": n_blocks}

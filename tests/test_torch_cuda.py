@@ -16,8 +16,8 @@ from xsqueezeit_tpu_torch.codec import decoder_torch, encoder_torch
 from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu_torch.codec.gt_block_decoder import GtBlockDecoder
 from xsqueezeit_tpu_torch.format.constants import INT32_VECTOR_END
-from xsqueezeit_tpu_torch.ops import (pbwt_kernels, pbwt_torch, wah_kernels,
-                                      wah_torch)
+from xsqueezeit_tpu_torch.ops import (pbwt_kernels, pbwt_torch,
+                                      sparse_kernels, wah_kernels, wah_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -441,6 +441,78 @@ def test_wide_run_flush_matches_plain(dev, H, n, haploid, shift,
     assert pbwt_kernels.launches[route] == n0 + 1
 
 
+@pytest.mark.parametrize("H,n,haploid,dtype", [
+    (5008, 4813, False, torch.int64),     # the 1KGP3 block's WAH lines
+    (64976, 5186, False, torch.int32),    # HRC's, one CTA a chunk
+    (194512, 512, False, torch.int64),    # TOPMed width: the cluster flush
+    (194512, 45, True, torch.int32), (2466, 477, True, torch.int64),
+    (9, 70, False, torch.int32)])
+def test_line_mapped_run_flush_matches_plain(dev, H, n, haploid, dtype):
+    """decode_run_flush with a line map (int32 or int64): each run row k at
+    out[line_of[k]] of a wider plane, the other rows untouched, against
+    the plain version, on one CTA a chunk and on a cluster a chunk."""
+    rng = np.random.default_rng(H + n + 1)
+    W = (H + 1) // 2 if haploid else H
+    C = pbwt_kernels.decode_chunk(W)
+    n_ch = -(-n // C)
+    slots = np.stack([rng.permutation(W) for _ in range(n_ch)])
+    p_fin = torch.from_numpy(((slots.astype(np.int64) << C)
+                              | rng.integers(0, 1 << C, (n_ch, W)))
+                             .astype(np.uint32).view(np.int32))
+    start = torch.from_numpy(rng.permutation(W))
+    ss = torch.from_numpy(rng.random((n_ch, C)) < 0.7)
+    L = n + n // 2 + 1
+    line_of = torch.from_numpy(np.sort(rng.choice(L, n, replace=False))
+                               ).to(dtype)
+    want_out = torch.full((L, H), 5, dtype=torch.uint8)
+    want = pbwt_kernels.decode_run_flush_plain(
+        p_fin, start, ss, H, n, haploid, want_T=haploid, out=want_out,
+        line_of=line_of)
+    route = ("decode_run_flush" if pbwt_kernels.flush_cluster(W) == 1
+             else "decode_run_flush_cluster")
+    n0 = pbwt_kernels.launches[route]
+    out = torch.full((L, H), 5, dtype=torch.uint8, device=dev)
+    got = pbwt_kernels.decode_run_flush(
+        p_fin.to(dev), start.to(dev), ss.to(dev), H, n, haploid,
+        want_T=haploid, out=out, line_of=line_of.to(dev))
+    torch.cuda.synchronize()
+    assert got[0] is out
+    assert all(g is None and w is None or _equal(g, w)
+               for g, w in zip(got, want))
+    assert pbwt_kernels.launches[route] == n0 + 1
+
+
+@pytest.mark.parametrize("L,H,wah_share", [
+    (8192, 5008, 0.59), (8192, 64976, 0.63), (8192, 194512, 0.63),
+    (300, 5009, 0.5),            # rows not 16-byte aligned
+    (5, 1, 0.0), (7, 17, 1.0), (64, 33, 0.0)])
+def test_sparse_lines_kernel_matches_plain(dev, L, H, wah_share):
+    """The sparse-line kernel against its plain version at the 1KGP3, HRC
+    and TOPMed blocks' shapes (8192 lines; the share of WAH lines near the
+    benchmark blocks'), at unaligned rows, with no WAH line and with no
+    sparse line: sparse rows filled with neg, carriers (slots 0 and H - 1
+    among them, in no order) set to 1 ^ neg, WAH rows untouched."""
+    rng = np.random.default_rng(L + H)
+    is_wah = torch.from_numpy(rng.random(L) < wah_share)
+    neg = torch.from_numpy((rng.random(L) < 0.3).astype(np.uint8))
+    sparse = np.flatnonzero(~is_wah.numpy())
+    n_car = 4 * len(sparse)
+    car_line = torch.from_numpy(rng.choice(sparse, n_car) if len(sparse)
+                                else np.zeros(0, np.int64))
+    car_idx = torch.from_numpy(rng.integers(0, H, n_car))
+    if n_car:
+        car_idx[:2] = torch.tensor([0, H - 1])
+    want = torch.full((L, H), 7, dtype=torch.uint8)
+    sparse_kernels.sparse_lines_plain(want, is_wah, neg, car_line, car_idx)
+    n0 = sparse_kernels.launches["sparse_lines"]
+    got = torch.full((L, H), 7, dtype=torch.uint8, device=dev)
+    out = sparse_kernels.sparse_lines(got, is_wah.to(dev), neg.to(dev),
+                                      car_line.to(dev), car_idx.to(dev))
+    torch.cuda.synchronize()
+    assert out is got and _equal(got, want)
+    assert sparse_kernels.launches["sparse_lines"] == n0 + 1
+
+
 @pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
                                  (6, 64976), (3, 16383 * 15 + 60)])
 def test_wah_kernels_match_plain(dev, L, H):
@@ -783,6 +855,7 @@ def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
         ref.encode_record(row, 2)
         enc.encode_record(row, 2)
     n0 = dict(pbwt_kernels.launches)
+    n_sparse = sparse_kernels.launches["sparse_lines"]
     payload = enc.serialize()
     assert payload == ref.serialize()
     out = decoder_torch.decode_block_records(
@@ -794,6 +867,7 @@ def test_block_roundtrip_on_card(dev, n_samples, L, mac, route):
         assert pbwt_kernels.launches[key] == n0[key] + 1
     for k in ("rank_chain", "decode_run_flush"):
         assert pbwt_kernels.launches[k] == n0[k] + 1
+    assert sparse_kernels.launches["sparse_lines"] == n_sparse + 1
 
 
 @pytest.mark.parametrize("missing", [False, True])

@@ -3,7 +3,8 @@ the CPU: nothing recorded and no torch call while tracing is off; the
 spans of dot_prod and of the decompressor's batches nested as named, on
 the worker threads too, each with its operation's id; the record counter;
 the spans' cover of an operation; the decode's chain and run flush
-spans with their shapes and routes, at 16-bit and 32-bit widths; their
+spans with their shapes and routes, at 16-bit and 32-bit widths, and
+the sparse lines the decode writes; their
 marks in a torch.profiler trace
 and in the CLI's --profile trace; the kernel launch counters."""
 import json
@@ -19,13 +20,19 @@ torch = pytest.importorskip("torch")
 from xsqueezeit_tpu_torch.bench import tools
 from xsqueezeit_tpu_torch.codec.decoder_torch import TorchBlockDecoder
 from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
+from xsqueezeit_tpu_torch.codec.gt_block_decoder import GtBlockDecoder
 from xsqueezeit_tpu_torch.cli import main as torch_cli
 from xsqueezeit_tpu_torch.codec.decompressor import (
     Decompressor,
     DecompressorOptions,
 )
 from xsqueezeit_tpu_torch.io.bcf import BcfReader
-from xsqueezeit_tpu_torch.ops import pbwt_kernels, pbwt_torch, wah_kernels
+from xsqueezeit_tpu_torch.ops import (
+    pbwt_kernels,
+    pbwt_torch,
+    sparse_kernels,
+    wah_kernels,
+)
 from xsqueezeit_tpu_torch.utils import trace
 from tests import fixtures
 
@@ -133,7 +140,7 @@ def test_records_counter_counts_the_variant_file(container, tracing):
     assert n == N_RECORDS
     assert got["counters"]["dot_prod.records"] == n
     assert set(got["counters"]) == {"dot_prod.records", "decode.chunks",
-                                    "decode.carriers"}
+                                    "decode.carriers", "decode.sparse_lines"}
     walk = [s for s in got["spans"] if s.name == "dot_prod.walk"]
     assert [s.counts for s in walk] == [{"dot_prod.records": n}]
 
@@ -155,7 +162,8 @@ def test_walk_span_names_its_route(container, tracing, monkeypatch, walk):
     assert [s.counts for s in walks] == [{"dot_prod.records": N_RECORDS}]
     assert collected["counters"]["dot_prod.records"] == N_RECORDS
     assert set(collected["counters"]) == {"dot_prod.records",
-                                          "decode.chunks", "decode.carriers"}
+                                          "decode.chunks", "decode.carriers",
+                                          "decode.sparse_lines"}
 
 
 def test_child_spans_cover_the_operation(container, tracing):
@@ -193,7 +201,8 @@ def test_spans_are_profiler_marks(container, tracing, tmp_path):
 def test_launch_counts_are_unchanged(container, on):
     """The CPU runs the kernels' plain versions: no launch is counted,
     tracing on or off, and the trace's counters hold no launch."""
-    before = {**pbwt_kernels.launches, **wah_kernels.launches}
+    before = {**pbwt_kernels.launches, **wah_kernels.launches,
+              **sparse_kernels.launches}
     trace.collect()
     if on:
         trace.enable()
@@ -201,26 +210,29 @@ def test_launch_counts_are_unchanged(container, on):
         tools.dot_prod(container, device="cpu")
     finally:
         trace.disable()
-    assert {**pbwt_kernels.launches, **wah_kernels.launches} == before
+    assert {**pbwt_kernels.launches, **wah_kernels.launches,
+            **sparse_kernels.launches} == before
     assert set(trace.collect()["counters"]) <= {
-        "dot_prod.records", "decode.chunks", "decode.carriers"}
+        "dot_prod.records", "decode.chunks", "decode.carriers",
+        "decode.sparse_lines"}
     counts = {"r": 0}
     trace.count("r", 3, into=counts)
     assert counts == {"r": 3}
 
 
-def _diploid_block(n_samples: int, n_records: int = 40, seed: int = 3):
-    """A phased diploid block of biallelic records, rare, common and near
-    fixed, at the codec's default threshold (MAF 0.001): (payload, aet
-    dtype, stored sparse carriers).  16-bit streams up to 65,535
-    haplotypes, else 32-bit."""
+def _diploid_block(n_samples: int, n_records: int = 40, seed: int = 3,
+                   ps=(0.0004, 0.3, 0.02, 0.9996, 0.6, 0.002)):
+    """A phased diploid block of biallelic records, by default rare, common
+    and near fixed (record i's ALT frequency ps[i % len(ps)]), at the
+    codec's default threshold (MAF 0.001): (payload, aet dtype, stored
+    sparse carriers).  16-bit streams up to 65,535 haplotypes, else
+    32-bit."""
     rng = np.random.default_rng(seed)
     H = 2 * n_samples
     aet = np.uint16 if H <= 0xFFFF else np.uint32
     enc = GtBlockEncoder(n_samples=n_samples, block_bcf_lines=10_000,
                          mac_threshold=max(1, int(H * 0.001)),
                          default_phasing=1, aet_dtype=aet)
-    ps = (0.0004, 0.3, 0.02, 0.9996, 0.6, 0.002)
     stored = 0
     mac = max(1, int(H * 0.001))
     for i in range(n_records):
@@ -238,7 +250,9 @@ def _diploid_block(n_samples: int, n_records: int = 40, seed: int = 3):
 def test_decode_spans_name_the_chain_and_the_flush(tracing, n_samples):
     """decode.chain and decode.flush nest under decode.device with their
     width, chunk and route; decode.chunks counts the chunks, decode.carriers
-    the stored sparse carriers, and decode.parse names the streams' bits."""
+    the stored sparse carriers, and decode.parse names the streams' bits;
+    decode.device names the sparse lines it writes, which
+    decode.sparse_lines counts."""
     payload, aet, stored = _diploid_block(n_samples)
     H = 2 * n_samples
     dec = TorchBlockDecoder(payload, n_samples, H, aet, device="cpu")
@@ -269,8 +283,13 @@ def test_decode_spans_name_the_chain_and_the_flush(tracing, n_samples):
                                          else 32}]
     assert stored > 0
     assert parse[0].counts == {"decode.carriers": stored}
+    n_sparse = dec.meta.binary_lines - Lw
+    assert n_sparse > 0
+    assert device.attrs == {"sparse_lines": n_sparse}
+    assert device.counts == {"decode.sparse_lines": n_sparse}
     assert got["counters"] == {"decode.chunks": n_ch,
-                               "decode.carriers": stored}
+                               "decode.carriers": stored,
+                               "decode.sparse_lines": n_sparse}
 
 
 @pytest.mark.parametrize("n_samples", [2504, 32800], ids=["narrow", "wide"])
@@ -283,6 +302,37 @@ def test_decode_spans_off_record_nothing(n_samples, monkeypatch):
                             device="cpu")
     dec.decode_bits()
     assert trace.collect() == {"spans": [], "counters": {}}
+
+
+@pytest.mark.parametrize("ps,kind", [((0.3, 0.6), "wah"),
+                                     ((0.0004, 0.9996), "sparse")])
+def test_decode_device_counts_its_sparse_lines(tracing, ps, kind):
+    """A block of WAH lines only writes no sparse line: decode.device says
+    0 and decode.sparse_lines counts nothing (no launch); a block of sparse
+    lines only (negated ones too) runs no chain or flush, and every line
+    is the sparse kernel's."""
+    payload, aet, stored = _diploid_block(2504, ps=ps)
+    dec = TorchBlockDecoder(payload, 2504, 5008, aet, device="cpu")
+    m = dec.meta
+    vals, _ = dec.decode_bits()
+    want = GtBlockDecoder(payload, 2504, 5008, aet)
+    for line in range(m.binary_lines):
+        want.seek(line)
+        gt = want.fill_genotype_array_advance(2)
+        assert np.array_equal(vals[line].numpy(), (gt >> 1) - 1)
+    got = trace.collect()
+    names = [s.name for s in got["spans"]]
+    device = [s for s in got["spans"] if s.name == "decode.device"]
+    n_sparse = int((~m.line_is_wah.astype(bool)).sum())
+    if kind == "wah":
+        assert n_sparse == 0 and stored == 0
+        assert "decode.sparse_lines" not in got["counters"]
+        assert "decode.flush" in names
+    else:
+        assert n_sparse == m.binary_lines > 0
+        assert got["counters"]["decode.sparse_lines"] == n_sparse
+        assert "decode.chain" not in names and "decode.flush" not in names
+    assert [s.attrs for s in device] == [{"sparse_lines": n_sparse}]
 
 
 @pytest.mark.parametrize("W,routes", [

@@ -30,20 +30,49 @@ from ..format.constants import (
     WeirdnessStrategy,
 )
 from ..format.dictionary import read_dictionary
-from ..ops import pbwt_np, pbwt_torch, wah_kernels, wah_np
+from ..ops import pbwt_np, pbwt_torch, sparse_kernels, wah_kernels, wah_np
 from ..ops import wah_torch
 from ..ops.sparse_np import msb as _msb, sparse_line_offsets
 from ..utils import trace
 from .gt_block_decoder import GtBlockDecoder
 
 
-def _decode_wah_and_scan(stream, sorts, h: int, w: int) -> torch.Tensor:
+def _decode_wah_and_scan(stream, sorts, h: int, w: int, out=None,
+                         line_of=None) -> torch.Tensor:
     """Decode a block's WAH lines (compacted: WAH lines only) to
-    natural-order bits uint8[Lw, h].  stream: uint16[N] the lines' words
-    back to back; sorts: bool[Lw]."""
-    ys = wah_kernels.wah_expand_bits(stream, sorts.shape[0], w, h)
-    vals, _ = pbwt_torch.pbwt_decode_chunked(ys, sorts)
+    natural-order bits uint8[Lw, h], or into the block's plane `out` with
+    WAH row k at out[line_of[k]].  stream: uint16[N] the lines' words back
+    to back; sorts: bool[Lw].  The expand writes into whole chunks of the
+    decode's rows (pbwt_torch.chunk_rows), the trailing ones zeroed, so
+    the decode pads nothing."""
+    Lw = sorts.shape[0]
+    ys = torch.empty((pbwt_torch.chunk_rows(Lw, h), h), dtype=torch.uint8,
+                     device=stream.device)
+    if ys.shape[0] > Lw:
+        ys[Lw:].zero_()
+    wah_kernels.wah_expand_bits(stream, Lw, w, h, out=ys[:Lw])
+    vals, _ = pbwt_torch.pbwt_decode_chunked(ys, sorts, out, line_of)
     return vals
+
+
+def _wah_line_map(rank, is_wah, n_wah: int) -> torch.Tensor:
+    """int64[n_wah]: the block line of each WAH row, on the device with no
+    host sync: arange(L) scattered at each WAH line's rank, every sparse
+    line into a sink slot n_wah that is dropped."""
+    L = is_wah.shape[0]
+    slots = torch.empty(n_wah + 1, dtype=torch.int64, device=is_wah.device)
+    slots.scatter_(0, torch.where(is_wah, rank, n_wah),
+                   torch.arange(L, device=is_wah.device))
+    return slots[:n_wah]
+
+
+def _sparse_lines(vals, is_wah, neg, car_line, car_idx, n_wah: int) -> None:
+    """The sparse lines of the plane vals (sparse_kernels.sparse_lines),
+    counted in decode.sparse_lines; none to write, no launch."""
+    n_sparse = is_wah.shape[0] - n_wah
+    if n_sparse:
+        trace.count("decode.sparse_lines", n_sparse)
+        sparse_kernels.sparse_lines(vals, is_wah, neg, car_line, car_idx)
 
 
 def _decode_block_vals(stream, sorts, rank, is_wah, neg, car_line, car_idx,
@@ -55,17 +84,19 @@ def _decode_block_vals(stream, sorts, rank, is_wah, neg, car_line, car_idx,
     uint8[L] 1 for negated sparse lines; car_line/car_idx: int64[Nc] the
     sparse carriers (no padding pairs).  Returns uint8[L, h].
 
-    The stored indices of a negated line are its REF positions: they
-    scatter as 1s and the row XOR turns them into 0s, everything else 1s.
+    Every line of the one plane is written once: the run flush stores each
+    WAH row at its line (through _wah_line_map), the sparse-line kernel
+    fills each other line with its negation byte and sets its carriers to
+    1 ^ neg (the stored indices of a negated line are its REF positions).
     """
     L = is_wah.shape[0]
-    vals = torch.zeros((L, h), dtype=torch.uint8, device=is_wah.device)
-    if sorts.shape[0]:
-        vals_w = _decode_wah_and_scan(stream, sorts, h, w)
-        vals = torch.where(is_wah[:, None], vals_w.index_select(0, rank),
-                           vals)
-    vals[car_line, car_idx] = 1
-    return vals ^ neg[:, None]
+    n_wah = sorts.shape[0]
+    vals = torch.empty((L, h), dtype=torch.uint8, device=is_wah.device)
+    if n_wah:
+        _decode_wah_and_scan(stream, sorts, h, w, vals,
+                             _wah_line_map(rank, is_wah, n_wah))
+    _sparse_lines(vals, is_wah, neg, car_line, car_idx, n_wah)
+    return vals
 
 
 def _fold_biallelic_impl(vals: torch.Tensor,
@@ -129,20 +160,21 @@ def _decode_block_mixed(stream, group_off, sorts, hap_w, rank, is_wah, neg,
     even-parity bits, run by run (pbwt_torch.pbwt_decode_scan_mixed).
     group_off: int64[Lw + 1]; hap_w: bool[Lw]; hap_host: hap_w on the host
     (NumPy), which cuts the runs without a device sync.  Haploid rows come
-    back slot-duplicated in natural order; the carriers of haploid sparse
-    lines arrive mapped to even slots (host_inputs_mixed).  The scan's
-    final arrangement is not needed, so it is not computed.
+    back slot-duplicated in natural order and are copied to their lines;
+    the sparse lines are written as in _decode_block_vals, the carriers of
+    haploid sparse lines mapped to even slots (host_inputs_mixed).  The
+    scan's final arrangement is not needed, so it is not computed.
     """
     L = is_wah.shape[0]
-    vals = torch.zeros((L, h), dtype=torch.uint8, device=is_wah.device)
-    if sorts.shape[0]:
+    n_wah = sorts.shape[0]
+    vals = torch.empty((L, h), dtype=torch.uint8, device=is_wah.device)
+    if n_wah:
         ys = wah_kernels.wah_expand_varw_bits(stream, group_off, w_max, h)
         vals_w, _ = pbwt_torch.pbwt_decode_scan_mixed(
             ys, sorts, hap_w, hap_host, keep_final=False)
-        vals = torch.where(is_wah[:, None], vals_w.index_select(0, rank),
-                           vals)
-    vals[car_line, car_idx] = 1
-    return vals ^ neg[:, None]
+        vals.index_copy_(0, _wah_line_map(rank, is_wah, n_wah), vals_w)
+    _sparse_lines(vals, is_wah, neg, car_line, car_idx, n_wah)
+    return vals
 
 
 def host_decoder(payload, n_samples: int, n_haps: int,
@@ -378,21 +410,24 @@ class TorchBlockDecoder:
         lines slot-duplicated: fold the even slots).  Any other block
         decodes record by record on the host (GtBlockDecoder).  The
         decode.parse span carries aet_bits, the width of the block's sparse
-        and track values (16 up to 65,535 haplotypes, else 32)."""
+        and track values (16 up to 65,535 haplotypes, else 32); the
+        decode.device span sparse_lines, the lines the sparse-line kernel
+        writes (counted in decode.sparse_lines)."""
         aet_bits = 8 * self.aet_dtype.itemsize
         if self.eligible:
             with trace.span("decode.parse", aet_bits=aet_bits):
-                *arrays, H, W, _L, _n_wah = self.host_inputs()
+                *arrays, H, W, L, n_wah = self.host_inputs()
             neg = arrays[4]
             t = self._upload(arrays)
-            with trace.span("decode.device"):
+            with trace.span("decode.device", sparse_lines=L - n_wah):
                 vals, route = _decode_block_vals(*t, H, W), "device"
         elif self.mixed_device_ok:
             with trace.span("decode.parse", aet_bits=aet_bits):
-                *arrays, H, w_max, _L = self.host_inputs_mixed()
+                *arrays, H, w_max, L = self.host_inputs_mixed()
             neg = arrays[6]
             t = self._upload(arrays)
-            with trace.span("decode.device"):
+            with trace.span("decode.device",
+                            sparse_lines=L - arrays[2].shape[0]):
                 vals = _decode_block_mixed(*t, arrays[3], H, w_max)
             route = "mixed"
         else:

@@ -37,7 +37,9 @@
 //   the haplotype (diploid) or sample
 //   (haploid) at run-start position p; the chunks' sort flags.
 //   Out: rows l = C t + k < n of vals, rows[l][h] = bit k of beta of h's
-//   slot (a haploid sample's bit at both of its slots 2s, 2s + 1 < H); for
+//   slot (a haploid sample's bit at both of its slots 2s, 2s + 1 < H),
+//   each stored at its block line line_of[l] where a line map is given (the
+//   uniform decode writes its WAH rows straight into the block's plane); for
 //   a haploid run also T[t][h], the bits of h's sorting lines in chunk t,
 //   latest highest (the rank chain's histories, pbwt_encode_chunked's T);
 //   last[j], the haplotype (sample) at end slot j of the run.
@@ -286,6 +288,7 @@ template <bool HAP>
 __device__ __forceinline__ void flush_rows(const uint16_t* X, int c0, int c1,
                                            const uint8_t* __restrict__ ss,
                                            uint8_t* __restrict__ rows,
+                                           const int64_t* __restrict__ line_of,
                                            int32_t* __restrict__ T, int t,
                                            int C, int H, int n) {
     const int h0 = HAP ? 2 * c0 : c0;
@@ -293,7 +296,8 @@ __device__ __forceinline__ void flush_rows(const uint16_t* X, int c0, int c1,
     const int l0 = t * C;
     const int nl = min(C, n - l0);
     for (int k = 0; k < nl; ++k) {
-        uint8_t* row = rows + (size_t)(l0 + k) * H;
+        const int64_t l = line_of != nullptr ? line_of[l0 + k] : l0 + k;
+        uint8_t* row = rows + (size_t)l * H;
         for (int h = h0 + threadIdx.x; h < h1; h += blockDim.x)
             row[h] = (uint8_t)((X[(HAP ? h >> 1 : h) - c0] >> k) & 1);
     }
@@ -318,6 +322,7 @@ __global__ void __launch_bounds__(FLUSH_THREADS)
                             const int64_t* __restrict__ start,
                             const uint8_t* __restrict__ ss,
                             uint8_t* __restrict__ rows,
+                            const int64_t* __restrict__ line_of,
                             int32_t* __restrict__ T,
                             int64_t* __restrict__ last, int C, int W, int H,
                             int n, int sh) {
@@ -334,7 +339,7 @@ __global__ void __launch_bounds__(FLUSH_THREADS)
         if (final_chunk) last[j] = s;
     }
     __syncthreads();
-    flush_rows<HAP>(X, 0, W, ss, rows, T, t, C, H, n);
+    flush_rows<HAP>(X, 0, W, ss, rows, line_of, T, t, C, H, n);
 }
 
 // A chunk on a cluster of K CTAs (W > FLUSH_ONE_CTA_W): CTA r reads the end
@@ -347,6 +352,7 @@ __global__ void __launch_bounds__(FLUSH_THREADS)
                                     const int64_t* __restrict__ start,
                                     const uint8_t* __restrict__ ss,
                                     uint8_t* __restrict__ rows,
+                                    const int64_t* __restrict__ line_of,
                                     int32_t* __restrict__ T,
                                     int64_t* __restrict__ last, int C, int W,
                                     int H, int n, int sh) {
@@ -371,7 +377,7 @@ __global__ void __launch_bounds__(FLUSH_THREADS)
         if (final_chunk) last[j] = s;
     }
     cluster.sync();  // every beta is in its owner's shared memory
-    flush_rows<HAP>(X, c0, c1, ss, rows, T, t, C, H, n);
+    flush_rows<HAP>(X, c0, c1, ss, rows, line_of, T, t, C, H, n);
 }
 
 // The composition (ceil(log2 n_ch) launches of compose_level_kernel through
@@ -379,13 +385,16 @@ __global__ void __launch_bounds__(FLUSH_THREADS)
 // (W <= FLUSH_ONE_CTA_W) or a cluster of FLUSH_CLUSTER CTAs a chunk (wider;
 // ops/pbwt_kernels.py flush_cluster mirrors the choice):
 // p_fin u32[n_ch, W], states (slot << sh) | beta; start int64[W]; ss
-// u8[n_ch, C]; rows u8[n, H] (the run's rows of vals); T int32[n_ch, H] or
+// u8[n_ch, C]; rows u8[n, H] (the run's rows of vals), or with line_of
+// (int64[n], null for contiguous rows) u8[L, H], the run's row k stored at
+// rows[line_of[k]] (each row still H contiguous bytes); T int32[n_ch, H] or
 // null; last int64[W], the haplotype (sample) at each of the run's end
 // slots.  W = ceil(H / 2) for a haploid run (hap != 0), else H; C <= sh <=
 // 16 lines a chunk, n in all, (n_ch - 1) C < n <= n_ch C.
 extern "C" int xsi_decode_run_flush(const void* p_fin, void* scratch,
                                     const void* start, const void* ss,
-                                    void* rows, void* T, void* last,
+                                    void* rows, const void* line_of, void* T,
+                                    void* last,
                                     int n_ch, int C, int W, int H, int n,
                                     int hap, int sh, void* stream) {
     if (n_ch < 1 || C < 1 || C > sh || sh > 16 || H < 1 ||
@@ -420,8 +429,8 @@ extern "C" int xsi_decode_run_flush(const void* p_fin, void* scratch,
         if (e != cudaSuccess) return (int)e;
         kernel<<<n_ch, FLUSH_THREADS, smem, st>>>(
             (const uint32_t*)p_fin, inc, (const int64_t*)start,
-            (const uint8_t*)ss, (uint8_t*)rows, (int32_t*)T, (int64_t*)last,
-            C, W, H, n, sh);
+            (const uint8_t*)ss, (uint8_t*)rows, (const int64_t*)line_of,
+            (int32_t*)T, (int64_t*)last, C, W, H, n, sh);
         return (int)cudaGetLastError();
     }
     auto kernel = hap ? decode_run_flush_cluster_kernel<true>
@@ -447,8 +456,8 @@ extern "C" int xsi_decode_run_flush(const void* p_fin, void* scratch,
     if (n_clusters < 1) return XSI_ERR_NO_CLUSTER;
     e = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)p_fin, inc,
                            (const int64_t*)start, (const uint8_t*)ss,
-                           (uint8_t*)rows, (int32_t*)T, (int64_t*)last, C, W,
-                           H, n, sh);
+                           (uint8_t*)rows, (const int64_t*)line_of,
+                           (int32_t*)T, (int64_t*)last, C, W, H, n, sh);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

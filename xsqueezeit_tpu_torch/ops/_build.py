@@ -45,8 +45,9 @@ ENTRY_POINTS = {
     "xsi_wah_compress": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "xsi_rank_chain": (_P, _P, _P, _P, _P, _S, _I, _I, _P),
     "xsi_decode_scan_mixed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "xsi_decode_run_flush": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _P),
+    "xsi_decode_run_flush": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
+    "xsi_sparse_lines": (_P, _P, _P, _P, _P, _I, _I, _S, _P),
 }
 
 _lock = threading.Lock()

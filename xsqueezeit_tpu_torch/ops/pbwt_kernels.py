@@ -536,12 +536,17 @@ def mixed_scratch_bytes(H: int) -> int:
 
 
 def _check_out(name: str, out: torch.Tensor | None, shape: tuple,
-               device: torch.device) -> None:
-    if out is not None and (out.dtype != torch.uint8
-                            or tuple(out.shape) != shape
+               device: torch.device, min_rows: bool = False) -> None:
+    """out None, or a contiguous uint8 plane of `shape` on `device` (with
+    min_rows, of at least shape[0] rows)."""
+    if out is not None and (out.dtype != torch.uint8 or out.dim() != 2
+                            or out.shape[1] != shape[1]
+                            or (out.shape[0] < shape[0] if min_rows
+                                else out.shape[0] != shape[0])
                             or out.device != device
                             or not out.is_contiguous()):
-        raise ValueError(f"{name}: out must be a contiguous uint8{list(shape)}"
+        rows = f"[>= {shape[0]}, {shape[1]}]" if min_rows else list(shape)
+        raise ValueError(f"{name}: out must be a contiguous uint8{rows}"
                          f" on {device}, got {out.dtype} {tuple(out.shape)} "
                          f"on {out.device}")
 
@@ -601,7 +606,8 @@ def decode_scan_mixed(ys: torch.Tensor, sorts: torch.Tensor,
 def decode_run_flush_plain(p_fin: torch.Tensor, start: torch.Tensor,
                            ss: torch.Tensor, H: int, n: int, haploid: bool,
                            want_T: bool = False,
-                           out: torch.Tensor | None = None
+                           out: torch.Tensor | None = None,
+                           line_of: torch.Tensor | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor | None,
                                       torch.Tensor]:
     """The run flush of the mixed scan's run route: a run's chunk-chain
@@ -615,7 +621,9 @@ def decode_run_flush_plain(p_fin: torch.Tensor, start: torch.Tensor,
     (n_ch - 1) C < n <= n_ch C.  The chunks compose (_compose_prefix) into
     the run-start position at each end slot.  Returns (rows uint8[n, H],
     written into `out` if given: row C t + k holds bit k of beta at each
-    haplotype, a haploid sample's bit at both of its slots; T int32[n_ch,
+    haplotype, a haploid sample's bit at both of its slots; with a line map
+    line_of (int32 or int64[n]) `out` is a uint8[L, H] plane, L >= n, row
+    k is stored at out[line_of[k]] and out is returned; T int32[n_ch,
     H] if want_T, else None: each haplotype's bits on its chunk's sorting
     lines, latest highest, the rank chain's histories; last int64[W]: the
     haplotype (sample) at each end slot of the run, a diploid run's end
@@ -633,9 +641,13 @@ def decode_run_flush_plain(p_fin: torch.Tensor, start: torch.Tensor,
     full = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
     for k in range(C):       # one line at a time: temporaries [n_ch, H]
         full[:, k] = (X >> k) & 1
-    rows = torch.empty((n, H), dtype=torch.uint8, device=dev) \
-        if out is None else out
-    rows.copy_(full.reshape(n_ch * C, H)[:n])
+    if line_of is not None:
+        rows = out.index_copy_(0, line_of.to(torch.int64),
+                               full.reshape(n_ch * C, H)[:n])
+    else:
+        rows = torch.empty((n, H), dtype=torch.uint8, device=dev) \
+            if out is None else out
+        rows.copy_(full.reshape(n_ch * C, H)[:n])
     T = None
     if want_T:
         ssi = ss.to(torch.int64)
@@ -657,7 +669,8 @@ def flush_cluster(W: int) -> int:
 
 def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
                      ss: torch.Tensor, H: int, n: int, haploid: bool,
-                     want_T: bool = False, out: torch.Tensor | None = None
+                     want_T: bool = False, out: torch.Tensor | None = None,
+                     line_of: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor | None,
                                 torch.Tensor]:
     """The run flush (see decode_run_flush_plain for the contract) in one
@@ -667,7 +680,10 @@ def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
     CTA a chunk, beta scattered to natural order in its shared memory (W
     <= 65,535), or above that decode_run_flush_cluster_kernel, a cluster
     of FLUSH_CLUSTER CTAs a chunk, each holding W / 8 columns (counted as
-    decode_run_flush_cluster)."""
+    decode_run_flush_cluster).  With a line map (line_of, int32 or
+    int64[n], each a row of `out`, which it then needs) each row is stored
+    at its own line of `out`, still H contiguous bytes; the map's values
+    are not read back, so they must lie below out's rows."""
     name = "decode_run_flush"
     if p_fin.dim() != 2 or p_fin.dtype != torch.int32:
         raise ValueError(f"{name}: p_fin must be int32[n_ch, W], got "
@@ -687,10 +703,19 @@ def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
     if not (n_ch - 1) * C < n <= n_ch * C:
         raise ValueError(f"{name}: {n} lines in {n_ch} chunks of {C}")
     _check_chunk(name, W, C)
-    _check_out(name, out, (n, H), p_fin.device)
+    if line_of is not None:
+        if out is None or line_of.dtype not in (torch.int32, torch.int64) \
+                or tuple(line_of.shape) != (n,) \
+                or line_of.device != p_fin.device:
+            raise ValueError(f"{name}: line_of must be int32 or int64[{n}] "
+                             f"on {p_fin.device}, with out, got "
+                             f"{line_of.dtype} {tuple(line_of.shape)} on "
+                             f"{line_of.device}")
+        line_of = line_of.to(torch.int64).contiguous()
+    _check_out(name, out, (n, H), p_fin.device, min_rows=line_of is not None)
     if p_fin.device.type == "cpu":
         return decode_run_flush_plain(p_fin, start, ss, H, n, haploid,
-                                      want_T, out)
+                                      want_T, out, line_of)
     _check(name, p_fin, torch.int32, 2)
     dev = p_fin.device
     p_fin, start = p_fin.contiguous(), start.contiguous()
@@ -704,6 +729,7 @@ def decode_run_flush(p_fin: torch.Tensor, start: torch.Tensor,
     _build.launch(dev, "xsi_decode_run_flush", p_fin.data_ptr(),
                   None if scratch is None else scratch.data_ptr(),
                   start.data_ptr(), flags.data_ptr(), rows.data_ptr(),
+                  None if line_of is None else line_of.data_ptr(),
                   None if T is None else T.data_ptr(), last.data_ptr(),
                   n_ch, C, W, H, n, int(haploid), decode_chunk(W))
     trace.count(name if flush_cluster(W) == 1 else f"{name}_cluster",

@@ -224,24 +224,39 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
     return ys.bitwise_and_(1), par, _inverse(r_fin)
 
 
-def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor
+def chunk_rows(n: int, W: int) -> int:
+    """Rows of the whole chunks n lines fill in the decode at W slots
+    (chunks of pbwt_kernels.decode_chunk(W) lines)."""
+    C = pbwt_kernels.decode_chunk(W)
+    return -(-n // C) * C
+
+
+def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor,
+                        out: torch.Tensor | None = None,
+                        line_of: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked PBWT decode, at every width up to pbwt_kernels.MAX_RANK_H =
     491,505: bits back to natural order, block start at the identity.  A
     diploid run of the mixed scan's run route from the identity
     (_decode_run): the chunk chains, then the run flush.
 
-    ys: uint8[L, H] bits in arrangement order; sorts: bool[L].  Returns
-    (vals uint8[L, H] natural-order bits, a_final int64[H]).
+    ys: uint8[n, H] bits in arrangement order, or uint8[chunk_rows(n, H),
+    H] with zero rows past the n lines (whole chunks: nothing is then
+    copied); sorts: bool[n].  out: None, or the uint8[L, H] plane to write
+    the rows into, row k at out[line_of[k]] with a line map line_of (int32
+    or int64[n]), else at row k (L = n).  Returns (vals uint8[n, H]
+    natural-order bits, or `out`; a_final int64[H]).
     """
-    L, H = ys.shape
+    H = ys.shape[1]
+    n = sorts.shape[0]
     if H > pbwt_kernels.MAX_RANK_H:
         raise ValueError(f"pbwt_decode_chunked takes at most "
                          f"{pbwt_kernels.MAX_RANK_H} haplotypes (got {H})")
-    vals = torch.empty((L, H), dtype=torch.uint8, device=ys.device)
+    vals = (torch.empty((n, H), dtype=torch.uint8, device=ys.device)
+            if out is None else out)
     a_fin = _decode_run(ys.to(torch.uint8), sorts,
                         torch.arange(H, device=ys.device), False, vals,
-                        end=True)
+                        end=True, line_of=line_of)
     return vals, a_fin
 
 
@@ -338,11 +353,14 @@ def decode_routes(W: int, device: torch.device) -> tuple[str, str]:
 
 
 def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
-                haploid: bool, out: torch.Tensor, end: bool
-                ) -> torch.Tensor | None:
+                haploid: bool, out: torch.Tensor, end: bool,
+                line_of: torch.Tensor | None = None) -> torch.Tensor | None:
     """One run of a ploidy as a uniform chunked decode from the
-    arrangement a: its rows into `out`; returns the arrangement after it
-    (None where `end` is false).  A haploid run decodes over the samples,
+    arrangement a: its n = len(sorts) rows into `out` (row k at
+    out[line_of[k]] with a line map); returns the arrangement after it
+    (None where `end` is false).  ys holds the n lines, or whole chunks of
+    rows with zero rows past them (then nothing is copied; a run of fewer
+    lines is padded to whole chunks here).  A haploid run decodes over the samples,
     from their order E = a[a even] >> 1 (a line stably partitions the even
     slots by its stored bits), and its end arrangement is the rank chain of
     the histories the flush writes, from the ranks inverse(a).  Chunks
@@ -351,14 +369,18 @@ def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
     chains (width W, chunk_lines C, route; counter decode.chunks, the
     chunks) and decode.flush around the run flush (route, and the shapes
     its byte bound reads)."""
-    n, H = ys.shape
+    rows, H = ys.shape
+    n = sorts.shape[0]
     dev = ys.device
     W = (H + 1) // 2 if haploid else H
     C = pbwt_kernels.decode_chunk(W)
     n_ch = -(-n // C)
     pad = n_ch * C - n
+    if rows not in (n, n_ch * C):
+        raise ValueError(f"{rows} rows for a run of {n} lines: give the "
+                         f"lines, or whole chunks of {C} lines")
     y = ys[:, :W]
-    if pad:                      # whole chunks of zero rows
+    if rows != n_ch * C:         # whole chunks of zero rows
         y = torch.nn.functional.pad(y, (0, 0, 0, pad))
     ss = torch.nn.functional.pad(sorts.to(torch.bool), (0, pad)).view(n_ch, C)
     chain_route, flush_route = decode_routes(W, dev)
@@ -375,7 +397,8 @@ def _decode_run(ys: torch.Tensor, sorts: torch.Tensor, a: torch.Tensor,
                     chunk_lines=C, chunks=n_ch, lines=n, haps=H,
                     history=want_T):
         _, T, last = pbwt_kernels.decode_run_flush(
-            p_fin, start, ss, H, n, haploid, want_T=want_T, out=out)
+            p_fin, start, ss, H, n, haploid, want_T=want_T, out=out,
+            line_of=line_of)
     if not end:
         return None
     if not haploid:

@@ -70,11 +70,24 @@ def _check_stream(name: str, stream: torch.Tensor, w: int,
     return stream.contiguous()
 
 
+def _check_bits_out(name: str, out: torch.Tensor | None, n_lines: int,
+                    h: int, device: torch.device) -> None:
+    if out is not None and (out.dtype != torch.uint8
+                            or tuple(out.shape) != (n_lines, h)
+                            or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous uint8"
+                         f"[{n_lines}, {h}] on {device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+
+
 def _expand(name: str, stream: torch.Tensor, n_lines: int, w: int,
             group_off: torch.Tensor | None, h: int | None,
-            line_threads: int | None) -> torch.Tensor:
+            line_threads: int | None,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the span scan and the expand kernel of one route: int32
-    groups [n_lines, w] (h None) or uint8 bits [n_lines, h]."""
+    groups [n_lines, w] (h None) or uint8 bits [n_lines, h], into `out`
+    where given (bits routes)."""
     stream = _check_stream(name, stream, w, n_lines)
     if line_threads is None:
         line_threads = 32 if w <= WARP_LINE_MAX_W else 256
@@ -93,7 +106,7 @@ def _expand(name: str, stream: torch.Tensor, n_lines: int, w: int,
                          device=dev)
     if h is None:
         out = torch.empty((n_lines, w), dtype=torch.int32, device=dev)
-    else:
+    elif out is None:
         out = torch.empty((n_lines, h), dtype=torch.uint8, device=dev)
     _build.launch(dev, "xsi_wah_expand", stream.data_ptr(), n,
                   cum.data_ptr(), status.data_ptr(),
@@ -130,14 +143,18 @@ def wah_expand(stream: torch.Tensor, n_lines: int, w: int,
 
 
 def wah_expand_bits(stream: torch.Tensor, n_lines: int, w: int, h: int,
-                    line_threads: int | None = None) -> torch.Tensor:
+                    line_threads: int | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """wah_expand and unpack_bits in one kernel: uint8[n_lines, h] bits
     (wah_torch.wah_expand_stream_bits; the JAX package's
-    wah_decode_lines)."""
+    wah_decode_lines), written into `out` (a contiguous uint8[n_lines, h],
+    such as the leading rows of a larger buffer) where given."""
+    _check_bits_out("wah_expand_bits", out, n_lines, h, stream.device)
     if stream.device.type == "cpu":
-        return wah_expand_bits_plain(stream, n_lines, w, h)
+        bits = wah_expand_bits_plain(stream, n_lines, w, h)
+        return bits if out is None else out.copy_(bits)
     return _expand("wah_expand_bits", stream, n_lines, w, None, h,
-                   line_threads)
+                   line_threads, out)
 
 
 def wah_expand_varw(stream: torch.Tensor, group_off: torch.Tensor,
