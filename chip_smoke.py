@@ -26,11 +26,10 @@ exactly:
    above the chains' 16-bit slot field, a CTA per line, at TOPMed width
    (w = 12,968) and at the format's widest line (w = 32,767); every WAH
    route twice, as the int32-group contract of the TPU kernels and as the bits
-   route the codec calls (unpack_bits / pack_bits fused in), the fused
-   ones beside their old pipeline (torch pack_bits + the int32 compress,
-   the int32 expand + torch unpack_bits) and the expands with a warp and
-   with a CTA per line; after the 1KGP3, HRC and chrX PAR blocks below,
-   the chains and the WAH routes again at the block's own shapes,
+   route the codec calls (unpack_bits / pack_bits fused in), and the
+   expands with a warp and with a CTA per line; after the 1KGP3, HRC and
+   chrX PAR blocks below, the chains and the WAH routes again at the
+   block's own shapes,
    registers, sort flags, bit grids and streams (1KGP3: 301 chunks; HRC:
    325 chunks, on the default and the other cluster sizes); the PBWT device
    scans against their plain versions: the rank chain (csrc/rank_chain.cu,
@@ -63,27 +62,23 @@ exactly:
    threshold 194, the same mix; 32-bit sparse and track streams, the
    encode chain on 8 CTAs, the decode chain on 16 with its rows in device
    memory, its state (slot << 14) | beta in chunks of 14 lines, the run
-   flush on a cluster of 8 CTAs a chunk; each PBWT
-   route also timed alone, and the encode core and device decode timed
-   again with the old torch forms, the packed-key scan and the blocked
-   decode, in their place): TorchBlockEncoder's payload must be byte-equal
-   to
-   the host GtBlockEncoder's and decode_block_records bit-exact on every
+   flush on a cluster of 8 CTAs a chunk; each PBWT route also timed
+   alone): TorchBlockEncoder's payload must be byte-equal to the host
+   GtBlockEncoder's and decode_block_records bit-exact on every
    line;
    every launch counter is set to 0 just before each block's run and read
    just after, and each kernel route of that path must have launched
    (and no other); while it runs, wah_torch's plain pack_bits,
    unpack_bits and wah_word_offsets, pbwt_kernels' plain rank chain,
-   stepping scan, chain decode and run flush, the plain sparse-line fill,
-   and pbwt_torch's packed-key scans (uniform and with the parity) and
-   blocked decode raise (every block, TOPMed's included).  The decode's
+   stepping scan, chain decode and run flush, and the plain sparse-line
+   fill raise (every block, TOPMed's included).  The decode's
    run flush as the path calls it (each WAH row at its line of the
    block's plane) and the sparse-line kernel are held against their plain
    versions at each block's own inputs and timed.
    Prints ms/block and
    GB/s in bench.py's unit (L * H * 4 logical gt bytes), the compression
    ratio, the device part of the decode alone, and the peak device memory
-   of encode and decode, each also with the old WAH pipeline;
+   of encode and decode;
 5. the exception-track and mixed-ploidy blocks, checked the same way:
    1KGP3-missing (the 1KGP3 block with 1 % of entries missing, as
    bench.py's missing regime: every record carries a missing track),
@@ -95,9 +90,8 @@ exactly:
    launch) and TOPMed-males-PAR (the same layout at 48,628 males, H =
    97,256, MAF 0.001, 32-bit streams: the parity encode on 8 CTAs, both
    runs on the decode's rows route, the diploid run's flush on a cluster
-   a chunk; the encode core also with the packed-key parity scan in the
-   chains' place, its peak both ways).  The track blocks also hold the
-   fused decode (_decode_block_full_gt_tracks) against the input;
+   a chunk).  The track blocks also hold the fused decode
+   (_decode_block_full_gt_tracks) against the input;
 6. the file level: a synthetic 1KGP3-width BCF of two blocks through
    `cli -c --device cuda` and `--device numpy` (byte-identical .xsi) and
    `cli -x --device cuda` back to BCF (the input's genotypes on every
@@ -242,16 +236,12 @@ PATH_KERNELS = {
 #: Plain passes that must not run on a block's card path (they are
 #: replaced by functions that raise while it runs), by module: the mixed
 #: scan's run route on the CPU is its pieces' plain versions (the chains,
-#: the run flush, the rank chain, the stepping scan); the packed-key scans
-#: (their batched row sort: uniform and with the parity) and the blocked
-#: decode are the chains' plain forms.
+#: the run flush, the rank chain, the stepping scan).
 PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
                 (pbwt_kernels, ("rank_chain_plain", "decode_scan_mixed_plain",
                                 "chain_decode_plain",
                                 "decode_run_flush_plain")),
-                (sparse_kernels, ("sparse_lines_plain",)),
-                (pbwt_torch, ("pbwt_encode_scan", "pbwt_encode_scan_parity",
-                              "pbwt_decode_blocked")))
+                (sparse_kernels, ("sparse_lines_plain",)))
 #: The plain passes a block's path takes by design: none (the rank chain
 #: and the chains run their kernels at every width).
 PLAIN_ROUTES: dict = {}
@@ -711,7 +701,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
     cases = []    # (route, width, shape, kernel fn, plain fn, extra check,
-    #              bytes moved, the old pipeline's fn or None)
+    #              bytes moved[, meta])
     for label, s in (("1KGP3", KERNEL_SHAPES), ("HRC", HRC_SHAPES)):
         ss, q0, yc = chain_inputs(rng, s, dev)
         bits, words_cpu, words, stream = wah_inputs(rng, s, dev)
@@ -726,20 +716,19 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             (enc, label, shape,
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode(q0, ss),
              lambda q0=q0, ss=ss: pbwt_kernels.chain_encode_plain(q0, ss),
-             None, chain_bytes("chain_encode", (q0, ss)), None),
+             None, chain_bytes("chain_encode", (q0, ss))),
             (dec, label, shape,
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode(yc, ss),
              lambda yc=yc, ss=ss: pbwt_kernels.chain_decode_plain(yc, ss),
-             None, chain_bytes("chain_decode", (yc, ss)), None),
+             None, chain_bytes("chain_decode", (yc, ss))),
             ("wah_compress", label, wshape,
              lambda wd=words: wah_kernels.wah_compress(wd),
              lambda wd=words: wah_kernels.wah_compress_plain(wd), None,
-             words.nbytes + n * w * 2 + n * 4, None),
+             words.nbytes + n * w * 2 + n * 4),
             ("wah_compress_bits", label, f"{wshape} h={h}",
              lambda b=bits: wah_kernels.wah_compress_bits(b),
              lambda b=bits: wah_kernels.wah_compress_bits_plain(b), None,
-             bits.nbytes + n * w * 2 + n * 4,
-             lambda b=bits: wah_kernels.wah_compress(wah_torch.pack_bits(b))),
+             bits.nbytes + n * w * 2 + n * 4),
         ]
         # the expands with each line width route (a warp or a CTA per
         # line); the default route first
@@ -753,16 +742,14 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                      st, n, w),
                  ("the encoded words", lambda got, wc=words_cpu: diff(
                      got.cpu(), wc)),
-                 stream.nbytes + n * w * 4, None),
+                 stream.nbytes + n * w * 4),
                 ("wah_expand_bits", label, f"{wshape} h={h}{sfx}",
                  lambda st=stream, n=n, w=w, h=h, lt=lt:
                  wah_kernels.wah_expand_bits(st, n, w, h, line_threads=lt),
                  lambda st=stream, n=n, w=w, h=h:
                  wah_kernels.wah_expand_bits_plain(st, n, w, h),
                  ("the encoded bits", lambda got, b=bits: diff(got, b)),
-                 stream.nbytes + n * h,
-                 None if lt else lambda st=stream, n=n, w=w, h=h:
-                 wah_torch.unpack_bits(wah_kernels.wah_expand(st, n, w), h)),
+                 stream.nbytes + n * h),
             ]
         if label == "1KGP3":
             # the cluster route forced at 1KGP3 width, against the plain
@@ -778,7 +765,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                     lambda f=plain, a=args: f(*a),
                     ("the one-CTA route", lambda got, f=kern, a=args:
                      diff(got, f(*a, cluster=1))),
-                    chain_bytes(name, args), None))
+                    chain_bytes(name, args)))
 
     # the per-line-width expand at a chrX PAR block's widths (its own
     # generator: the draws of the cases above stay as they were)
@@ -794,8 +781,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                                                       line_threads=lt),
             lambda: wah_kernels.wah_expand_varw_plain(vstream, voff, vw),
             ("the encoded words", lambda got: diff(got.cpu(), vwords)),
-            vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vw * 4,
-            None), (
+            vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vw * 4), (
             "wah_expand_varw_bits", "chrX-PAR", f"{vshape} h={vh}{sfx}",
             lambda lt=lt: wah_kernels.wah_expand_varw_bits(
                 vstream, voff, vw, vh, line_threads=lt),
@@ -803,9 +789,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                                                            vh),
             ("the encoded words", lambda got: diff(
                 got.cpu(), wah_torch.unpack_bits(vwords, vh))),
-            vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vh,
-            None if lt else lambda: wah_torch.unpack_bits(
-                wah_kernels.wah_expand_varw(vstream, voff, vw), vh))]
+            vstream.nbytes + voff.nbytes + (voff.shape[0] - 1) * vh)]
 
     # the WAH routes above the 16-bit slot field (their own generator), a
     # CTA per line: the expand's shared memory holds w <= 32,767
@@ -818,21 +802,21 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             ("wah_compress_bits", label, f"{wshape} h={h}",
              lambda b=bits: wah_kernels.wah_compress_bits(b),
              lambda b=bits: wah_kernels.wah_compress_bits_plain(b), None,
-             bits.nbytes + n * w * 2 + n * 4, None),
+             bits.nbytes + n * w * 2 + n * 4),
             ("wah_expand", label, wshape,
              lambda st=stream, n=n, w=w: wah_kernels.wah_expand(st, n, w),
              lambda st=stream, n=n, w=w: wah_kernels.wah_expand_plain(
                  st, n, w),
              ("the encoded words", lambda got, wc=words_cpu: diff(
                  got.cpu(), wc)),
-             stream.nbytes + n * w * 4, None),
+             stream.nbytes + n * w * 4),
             ("wah_expand_bits", label, f"{wshape} h={h}",
              lambda st=stream, n=n, w=w, h=h:
              wah_kernels.wah_expand_bits(st, n, w, h),
              lambda st=stream, n=n, w=w, h=h:
              wah_kernels.wah_expand_bits_plain(st, n, w, h),
              ("the encoded bits", lambda got, b=bits: diff(got, b)),
-             stream.nbytes + n * h, None),
+             stream.nbytes + n * h),
         ]
         del words_cpu
 
@@ -857,7 +841,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
             lambda f=getattr(pbwt_kernels, name), a=args, K=K: f(
                 *a, cluster=K),
             lambda f=getattr(pbwt_kernels, f"{name}_plain"), a=args: f(*a),
-            None, chain_bytes(name, args), None))
+            None, chain_bytes(name, args)))
 
     # the encode with the parity payload on each route (its own generator):
     # registers of 15 lines and a random bit 15, the slot parity
@@ -874,7 +858,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                 *a, cluster=K, parity=True),
             lambda a=(q0, ss): pbwt_kernels.chain_encode_plain(
                 *a, parity=True),
-            None, chain_bytes("chain_encode", (q0, ss)), None))
+            None, chain_bytes("chain_encode", (q0, ss))))
 
     # the PBWT device scans (their own generator): the rank chain on both
     # routes at the main path's widths, the chrX PAR mixed encode's, the
@@ -902,7 +886,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                 T, r0, b),
             ("its log-depth form", lambda got, T=T, r0=r0: diff(
                 got, pbwt_kernels.rank_chain_levels_plain(T, r0))),
-            rank_bytes(T), None,
+            rank_bytes(T),
             {"plain_iters": 3, "floor": rank_floor(T),
              "yardstick": lambda T=T, r0=r0:
                  pbwt_kernels.rank_chain_levels_plain(T, r0)}))
@@ -929,7 +913,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
                 *a, a0=a0),
             lambda a=(ys, so, hp), a0=a0:
             pbwt_kernels.decode_scan_mixed_plain(*a, a0=a0),
-            None, mixed_bytes(ys, hp), None,
+            None, mixed_bytes(ys, hp),
             {"plain_iters": 1, "floor": mixed_floor(so, hp)}))
         mixed.append((label, kind, ys, so, hp, hnp))
 
@@ -937,7 +921,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
     wide_labels = ({label for label, _ in WIDE_WAH}
                    | {f"H={H}" for _, H, *_ in WIDE_CHAINS}
                    | {label for label, *_ in PARITY_CHAINS})
-    for name, label, shape, kern, plain, extra, nbytes, old, *meta in cases:
+    for name, label, shape, kern, plain, extra, nbytes, *meta in cases:
         meta = meta[0] if meta else {}
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -959,9 +943,7 @@ def check_kernels(card: str) -> tuple[dict, list[dict]]:
         plain_ms = cuda_ms(plain, iters=p_iters, warmup=min(3, p_iters))
         check = timed_check(name, label, shape, err, ms, plain_ms, nbytes,
                             note, card, kernel_device_ms(name, kern),
-                            host_ms(kern),
-                            old and cuda_ms(old, iters=iters),
-                            meta.get("floor"))
+                            host_ms(kern), meta.get("floor"))
         if "yardstick" in meta:
             check["levels_plain_ms"] = cuda_ms(meta["yardstick"],
                                                iters=p_iters, warmup=1)
@@ -1209,29 +1191,24 @@ def mixed_crossover(card: str) -> list[dict]:
 
 
 def timed_check(name, label, shape, err, ms, plain_ms, nbytes, note,
-                card, kernel_ms, enqueue_ms, old_ms=None, floor=None) -> dict:
+                card, kernel_ms, enqueue_ms, floor=None) -> dict:
     """Print one kernel check and return its record (with the bound).
     ms: the wrapper per call by CUDA events; kernel_ms: the kernel alone
     (profiler; None: not measured); enqueue_ms: the host's time per call;
-    old_ms: a fused WAH route's old pipeline (torch pack_bits + the int32
-    compress, or the int32 expand + torch unpack_bits) by CUDA events;
     floor: a scan's sequential steps on these inputs (rank_floor,
     mixed_floor), printed beside the byte bound."""
     b_ms = bound_ms(nbytes)
     alone = ("not measured" if kernel_ms is None else
              f"{kernel_ms:.4f} ms (share {b_ms / kernel_ms:.4f})")
-    old = "" if old_ms is None else f"; the old pipeline {old_ms:.4f} ms"
     seq = "" if floor is None else f"; sequential floor {floor}"
     print(f"kernel {name} [{label}: {shape}]: bit-exact vs plain{note}; "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
           f"({nbytes} B), roofline share {b_ms / ms:.4f}{seq}; the kernel "
-          f"alone {alone}; host enqueue {enqueue_ms:.4f} ms/call{old} "
-          f"({card})")
+          f"alone {alone}; host enqueue {enqueue_ms:.4f} ms/call ({card})")
     return {"name": name, "width": label, "shape": shape, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
             "host_enqueue_ms": enqueue_ms, "bytes": nbytes,
-            "bound_ms": b_ms, "old_pipeline_ms": old_ms,
-            "sequential_floor": floor}
+            "bound_ms": b_ms, "sequential_floor": floor}
 
 
 def kernel_row(check: dict) -> dict:
@@ -1247,7 +1224,7 @@ def kernel_row(check: dict) -> dict:
            "max_abs_err": check["max_abs_err"], "ms": check["ms"],
            "plain_ms": check["plain_ms"], "kernel_ms": check["kernel_ms"],
            "bound_ms": check["bound_ms"], "bound_by": "bytes",
-           "library_ms": None, "old_pipeline_ms": check["old_pipeline_ms"]}
+           "library_ms": None}
     if check.get("sequential_floor"):
         row["sequential_floor"] = check["sequential_floor"]
     if check.get("levels_plain_ms") is not None:
@@ -1334,70 +1311,6 @@ def no_plain_passes(allow=()):
             stack.enter_context(swapped(mod, {
                 n: refuse(mod, n) for n in names if n not in allow}))
         yield
-
-
-def old_pipeline():
-    """The bits WAH routes as the earlier unfused path ran them, for
-    comparison on the same card: torch pack_bits + the int32 wah_compress,
-    the int32 expand + torch unpack_bits (with today's int32 kernels)."""
-    wk, wt = wah_kernels, wah_torch
-    return swapped(wk, {
-        "wah_compress_bits": lambda b: wk.wah_compress(wt.pack_bits(b)),
-        "wah_expand_bits": lambda s, n, w, h, out=None: into(
-            out, wt.unpack_bits(wk.wah_expand(s, n, w), h)),
-        "wah_expand_varw_bits": lambda s, g, w, h: wt.unpack_bits(
-            wk.wah_expand_varw(s, g, w), h)})
-
-
-def into(out, rows):
-    """rows, or rows copied into `out` where given."""
-    return rows if out is None else out.copy_(rows)
-
-
-def as_chunked(form):
-    """pbwt_torch.pbwt_decode_chunked's contract around an older decode
-    form `form(ys, sorts)` of the lines alone: whole-chunk rows cut to the
-    lines, and the rows stored at their lines of `out` (line_of) as the run
-    flush stores them, at the cost of one more copy of the rows."""
-    def call(ys, sorts, out=None, line_of=None):
-        vals, a = form(ys[:sorts.shape[0]], sorts)
-        if out is None:
-            return vals, a
-        if line_of is None:
-            return out.copy_(vals), a
-        return out.index_copy_(0, line_of.to(torch.int64), vals), a
-    return call
-
-
-def torch_flush_decode(ys, sorts):
-    """pbwt_torch.pbwt_decode_chunked with its flush in torch, as the
-    uniform decode ran before the run flush kernel took its place:
-    chain_decode, then the composition, the scatter to natural order and
-    16 shifts as torch ops.  A yardstick, timed beside the path."""
-    L, H = ys.shape
-    C = pbwt_torch.DECODE_CHUNK
-    pad = (-L) % C
-    y = torch.nn.functional.pad(ys, (0, 0, 0, pad))
-    ss = torch.nn.functional.pad(sorts.to(torch.bool), (0, pad))
-    n_ch = (L + pad) // C
-    p_fin = pbwt_kernels.chain_decode(y.view(n_ch, C, H), ss.view(n_ch, C))
-    inc = pbwt_kernels._compose_prefix(p_fin >> 16)
-    X = torch.empty_like(p_fin).scatter_(1, inc, p_fin & 0xFFFF)
-    vals = torch.empty((n_ch, C, H), dtype=torch.uint8, device=ys.device)
-    for j in range(C):
-        vals[:, j] = (X >> j) & 1
-    return vals.reshape(n_ch * C, H)[:L], inc[-1]
-
-
-def torch_flush_ms(label: str, fn, want: np.ndarray, **loop) -> float:
-    """fn's time (CUDA events) with torch_flush_decode in the uniform
-    decode's place, after one call that must still give `want`."""
-    with swapped(pbwt_torch, {"pbwt_decode_chunked":
-                              as_chunked(torch_flush_decode)}):
-        require(bool((fn().cpu().numpy() == want).all()),
-                f"{label}: the decode with the torch flush is not "
-                f"bit-exact")
-        return cuda_ms(fn, **loop)
 
 
 def once_peak_gb(fn) -> float:
@@ -1523,22 +1436,16 @@ def scan_block_checks(label: str, seen: dict, card: str) -> list[dict]:
     return out
 
 
-def plain_rank_chain(T, r0, r_bits=16):
-    """The rank chain's plain version in the wrapper's place: the encode as
-    it ran before the kernel, for comparison on the same card."""
-    return pbwt_kernels.rank_chain_plain(T, r0, r_bits)
-
-
 def wah_block_checks(label: str, seen: dict, card: str) -> list[dict]:
     """Each WAH route at its block's own bit grid or stream (the first
     bits-route calls the block's path made), bit-exact against its plain
-    version and timed, the fused routes beside their old pipeline and the
-    expands on both line widths (a warp and a CTA per line).  The checks of
+    version and timed, the expands on both line widths (a warp and a CTA
+    per line).  The checks of
     the 1KGP3 and chrX PAR blocks' default routes fill the kernels line."""
     wk, wt = wah_kernels, wah_torch
     out = []
 
-    def check(route, shape, kern, plain, nbytes, old=None, lt=None):
+    def check(route, shape, kern, plain, nbytes, lt=None):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = diff(got, want)
@@ -1549,8 +1456,7 @@ def wah_block_checks(label: str, seen: dict, card: str) -> list[dict]:
         c = timed_check(route, f"{label} block", shape, err,
                         cuda_ms(kern, iters=10, warmup=2),
                         cuda_ms(plain, iters=3, warmup=1), nbytes, "", card,
-                        kernel_device_ms(route, kern), host_ms(kern),
-                        old and cuda_ms(old, iters=10, warmup=2))
+                        kernel_device_ms(route, kern), host_ms(kern))
         c["default_route"] = lt is None and label in ("1KGP3", MIXED_BLOCK)
         out.append(c)
 
@@ -1562,8 +1468,7 @@ def wah_block_checks(label: str, seen: dict, card: str) -> list[dict]:
         shape = f"{R} rows x {H} bits (w={W})"
         check("wah_compress_bits", shape, lambda: wk.wah_compress_bits(bits),
               lambda: wt.wah_encode_lines(bits),
-              bits.nbytes + R * W * 2 + R * 4,
-              old=lambda: wk.wah_compress(wt.pack_bits(bits)))
+              bits.nbytes + R * W * 2 + R * 4)
         check("wah_compress", shape, lambda: wk.wah_compress(words),
               lambda: wt.wah_compress_words(words),
               words.nbytes + R * W * 2 + R * 4)
@@ -1595,9 +1500,7 @@ def wah_block_checks(label: str, seen: dict, card: str) -> list[dict]:
             sfx = "" if lt is None else f" line_threads={lt}"
             check(route, shape + sfx,
                   lambda lt=lt: bits_k(*a, w, h, line_threads=lt),
-                  lambda: bits_p(*a, w, h), head + n * h,
-                  old=None if lt else lambda: wt.unpack_bits(int_k(*a, w),
-                                                             h), lt=lt)
+                  lambda: bits_p(*a, w, h), head + n * h, lt=lt)
             check(route[:-len("_bits")], shape + sfx,
                   lambda lt=lt: int_k(*a, w, line_threads=lt),
                   lambda: int_p(*a, w), head + n * w * 4, lt=lt)
@@ -1692,10 +1595,7 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     blocks' host loops (serialize, decode_block_records) run once, the
     path's own run being their warm-up.  Above 65,535 haplotypes (TOPMed)
     the chains take the decode's wide state and the run flush a cluster a
-    chunk; each PBWT route is timed alone, the encode core and device
-    decode again with the old torch forms (the packed-key scan, the
-    blocked decode) in their place, with their peaks; the old WAH pipeline
-    and the flush in torch are not timed there."""
+    chunk, and each PBWT route is timed alone."""
     H = 2 * n_samples
     mac = int(H * 0.001)
     aet = aet_dtype_for(H)
@@ -1741,25 +1641,6 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype=dtype)
 
-    def old_wah(fn):
-        """fn's time and peak with the old WAH pipeline (None above the
-        slot field, where that comparison is not repeated)."""
-        if slots32:
-            return None, None
-        with old_pipeline():
-            return cuda_ms(fn, **dev_loop), once_peak_gb(fn)
-
-    def old_torch(fn, route: str, old: str):
-        """fn's time and peak with pbwt_torch's `route` replaced by its old
-        torch form `old` (the wide blocks' comparison, same run)."""
-        if not slots32:
-            return None, None
-        form = getattr(pbwt_torch, old)
-        if route == "pbwt_decode_chunked":
-            form = as_chunked(form)
-        with swapped(pbwt_torch, {route: form}):
-            return cuda_ms(fn, iters=3, warmup=1), once_peak_gb(fn)
-
     staged = (t(prep["alleles_p"]), t(prep["alts_p"]),
               t(prep["wah_rows_p"], torch.int64), t(prep["sorts_w"]),
               t(prep["sparse_rows_p"], torch.int64), t(prep["negated_s"]))
@@ -1773,16 +1654,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     enc_ms = cuda_ms(encode_core, **dev_loop)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_core_peak = once_peak_gb(encode_core)
-    enc_old_ms, enc_core_peak_old = old_wah(encode_core)
-    enc_scan_ms, enc_core_peak_scan = old_torch(
-        encode_core, "pbwt_encode_chunked", "pbwt_encode_scan")
-    # the encode core with the plain rank chain in the kernel's place (as
-    # it ran before the kernel), then the path's own inputs of each kernel
-    # (captured after the peaks: the copies are not the path's memory) and
-    # the rank chain alone
-    with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
-        enc_plain_chain_ms = cuda_ms(encode_core, **dev_loop)
-        enc_core_peak_plain_chain = once_peak_gb(encode_core)
+    # the path's own inputs of each kernel (captured after the peaks: the
+    # copies are not the path's memory) and the rank chain alone
     with captured_args() as seen:
         encode_core()
     scans = scan_block_checks(name, seen, card)
@@ -1795,11 +1668,11 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
         at = staged[1].index_select(0, staged[2])
         sw = staged[3]
         # reads the WAH lines' alleles and flags, writes their bits and
-        # the final arrangement: the chains' route, then the old scan
-        for route in ("pbwt_encode_chunked", "pbwt_encode_scan"):
-            parts[route] = alone(
-                name, lambda f=getattr(pbwt_torch, route): f(aw, at, sw),
-                2 * aw.numel() + at.nbytes + sw.nbytes + 8 * H, route, card)
+        # the final arrangement
+        parts["pbwt_encode_chunked"] = alone(
+            name, lambda: pbwt_torch.pbwt_encode_chunked(aw, at, sw),
+            2 * aw.numel() + at.nbytes + sw.nbytes + 8 * H,
+            "pbwt_encode_chunked", card)
         del aw, at, sw
     del staged
     ser_ms = wall_ms(lambda: ingest().serialize(), **host_loop)
@@ -1810,27 +1683,13 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     gt_dev = decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
     require(bool((gt_dev.cpu().numpy() == gt).all()),
             f"{name}: fused decode to gt codes is not bit-exact")
-    del gt_dev
+    del gt_dev, gt
 
     def decode_device():
         return decoder_torch._decode_block_full_gt(*dstaged, 0, h, w)
 
     dec_dev_ms = cuda_ms(decode_device, **dev_loop)
-    # the same decode with the flush in torch, as before the run flush
-    dec_dev_torch_flush_ms = (None if slots32 else
-                              torch_flush_ms(name, decode_device, gt,
-                                             **dev_loop))
-    if slots32:        # the old torch form must still give the block's gt
-        with swapped(pbwt_torch, {"pbwt_decode_chunked": as_chunked(
-                pbwt_torch.pbwt_decode_blocked)}):
-            require(bool((decode_device().cpu().numpy() == gt).all()),
-                    f"{name}: the decode with the blocked decode is not "
-                    f"bit-exact")
-    del gt
     dec_dev_peak = once_peak_gb(decode_device)
-    dec_dev_old_ms, dec_dev_peak_old = old_wah(decode_device)
-    dec_dev_blocked_ms, dec_dev_peak_blocked = old_torch(
-        decode_device, "pbwt_decode_chunked", "pbwt_decode_blocked")
 
     def decode_once():
         dec.host_inputs()                 # the per-block host parse
@@ -1860,35 +1719,16 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     if slots32:
         ys = wah_kernels.wah_expand_bits(*seen["wah_expand_bits"])
         sorts = dstaged[1]
-        for route in ("pbwt_decode_chunked", "pbwt_decode_blocked"):
-            parts[route] = alone(
-                name, lambda f=getattr(pbwt_torch, route): f(ys, sorts),
-                2 * ys.numel() + sorts.nbytes + 8 * H, route, card)
+        parts["pbwt_decode_chunked"] = alone(
+            name, lambda: pbwt_torch.pbwt_decode_chunked(ys, sorts),
+            2 * ys.numel() + sorts.nbytes + 8 * H, "pbwt_decode_chunked",
+            card)
         del ys, sorts
     del dstaged
     rec_ms = wall_ms(lambda: records(payload), **host_loop)
     gt_bytes = L * H * 4
     ratio = gt_bytes / len(payload)
-
-    def old(ms, unit=" ms"):
-        return "" if ms is None else f" (old WAH pipeline {ms:.3f}{unit})"
-
-    def torch_flush(ms):
-        return "" if ms is None else f" (with the flush in torch {ms:.3f} ms)"
-
-    def old_form(ms, peak, form):
-        return ("" if ms is None else
-                f" (with {form} {ms:.3f} ms, peak {peak:.3f} GB)")
-    enc_scan = old_form(enc_scan_ms, enc_core_peak_scan, "the packed-key scan")
-    dec_blocked = old_form(dec_dev_blocked_ms, dec_dev_peak_blocked,
-                           "the blocked decode")
-
     rc = scans["rank_chain"]
-    chain = (f", of which the rank chain {rc['ms']:.3f} ms (its plain "
-             f"version {rc['plain_ms']:.3f} ms; the encode core with "
-             f"the plain chain {enc_plain_chain_ms:.3f} ms, peak "
-             f"{enc_core_peak_plain_chain:.3f} GB)")
-
     print(f"[{name}] encode core: {enc_ms:.3f} ms/block = "
           f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
           f"| decode to gt codes (host parse + device): {dec_ms:.3f} "
@@ -1896,13 +1736,10 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
           f"{dec_peak_gb:.3f} GB) | serialize (ingest + prepare + device + "
           f"assemble): {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
-    print(f"[{name}] device alone: encode core {enc_ms:.3f} ms"
-          f"{old(enc_old_ms)}{chain}, peak {enc_core_peak:.3f} GB"
-          f"{old(enc_core_peak_old, ' GB')}{enc_scan}"
-          f" | decode {dec_dev_ms:.3f} ms"
-          f"{old(dec_dev_old_ms)}{torch_flush(dec_dev_torch_flush_ms)}, "
-          f"peak {dec_dev_peak:.3f} GB"
-          f"{old(dec_dev_peak_old, ' GB')}{dec_blocked} ({card})")
+    print(f"[{name}] device alone: encode core {enc_ms:.3f} ms, of which "
+          f"the rank chain {rc['ms']:.3f} ms (its plain version "
+          f"{rc['plain_ms']:.3f} ms), peak {enc_core_peak:.3f} GB | decode "
+          f"{dec_dev_ms:.3f} ms, peak {dec_dev_peak:.3f} GB ({card})")
     checks = (block_chain_checks(name, seen, card)
               + wah_block_checks(name, seen, card) + list(scans.values())
               + decode_checks)
@@ -1913,14 +1750,8 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
         checks.append(fc)
     return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
             "encode_ms": enc_ms, "block_checks": checks,
-            "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": rc["ms"], "rank_chain_plain_ms": rc["plain_ms"],
-            "encode_old_wah_ms": enc_old_ms,
             "decode_device_ms": dec_dev_ms,
-            "decode_device_old_wah_ms": dec_dev_old_ms,
-            "decode_device_torch_flush_ms": dec_dev_torch_flush_ms,
-            "encode_packed_key_scan_ms": enc_scan_ms,
-            "decode_device_blocked_ms": dec_dev_blocked_ms,
             "wide_path_alone": parts,
             "decode_ms": dec_ms, "serialize_ms": ser_ms,
             "index_checks": index_checks_ms(dec.host_inputs),
@@ -1930,16 +1761,7 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
                                "decode": dec_peak_gb,
                                "encode_core_once": enc_core_peak,
-                               "encode_core_once_old_wah": enc_core_peak_old,
-                               "encode_core_once_plain_rank_chain":
-                                   enc_core_peak_plain_chain,
-                               "decode_device_once": dec_dev_peak,
-                               "decode_device_once_old_wah":
-                                   dec_dev_peak_old,
-                               "encode_core_once_packed_key_scan":
-                                   enc_core_peak_scan,
-                               "decode_device_once_blocked":
-                                   dec_dev_peak_blocked}}
+                               "decode_device_once": dec_dev_peak}}
 
 
 def to_device(*arrays):
@@ -2021,9 +1843,6 @@ def track_block_phase(name: str, card: str) -> dict:
             *dstaged, 0, *pairs_dev, h, w)
 
     dev_ms = cuda_ms(decode_device, iters=10, warmup=2)
-    # the same decode with the flush in torch, as before the run flush
-    dev_torch_flush_ms = torch_flush_ms(name, decode_device, gt, iters=10,
-                                        warmup=2)
     del dstaged, pairs_dev
 
     prep = enc.prepare()
@@ -2045,9 +1864,6 @@ def track_block_phase(name: str, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     enc_ms = cuda_ms(encode_core, iters=10, warmup=2)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
-        enc_plain_chain_ms = cuda_ms(encode_core, iters=5, warmup=1)
-        enc_peak_plain_chain = once_peak_gb(encode_core)
     with captured_args() as seen:
         encode_core()
     scans = scan_block_checks(name, seen, card)
@@ -2068,43 +1884,28 @@ def track_block_phase(name: str, card: str) -> dict:
     print(f"[{name}] encode core with tracks: {enc_ms:.3f} ms/block = "
           f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB), "
           f"of which the rank chain {rc['ms']:.3f} ms (its plain version "
-          f"{rc['plain_ms']:.3f} ms; the encode core with the plain chain "
-          f"{enc_plain_chain_ms:.3f} ms, peak {enc_peak_plain_chain:.3f} "
-          f"GB) "
-          f"| fused decode with overlays (host parse + device): "
+          f"{rc['plain_ms']:.3f} ms) | fused decode with overlays (host "
+          f"parse + device): "
           f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
           f"{dec_peak_gb:.3f} GB), of which the host's track walk "
-          f"{walk_ms:.1f} ms and the device {dev_ms:.3f} ms (with the "
-          f"flush in torch {dev_torch_flush_ms:.3f} ms) | serialize: "
+          f"{walk_ms:.1f} ms and the device {dev_ms:.3f} ms | serialize: "
           f"{ser_ms:.1f} ms | "
           f"decode_block_records: {rec_ms:.1f} ms | compression "
           f"{ratio:.2f}x ({card})")
     return {"launches": launches, "H": H, "encode_ms": enc_ms,
             "block_checks": list(scans.values()),
-            "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": rc["ms"], "rank_chain_plain_ms": rc["plain_ms"],
             "decode_ms": dec_ms, "decode_track_walk_ms": walk_ms,
             "index_checks": index_checks_ms(
                 lambda: (dec.host_inputs(), carrier_pairs())),
-            "decode_device_ms": dev_ms,
-            "decode_device_torch_flush_ms": dev_torch_flush_ms,
-            "serialize_ms": ser_ms,
+            "decode_device_ms": dev_ms, "serialize_ms": ser_ms,
             "decode_records_ms": rec_ms, "compression_ratio": ratio,
             "payload_bytes": len(payload), "wah_lines": n_wah,
             "track_rows": len(rows), "track_cap": trk_cap,
             "missing_carriers": n_carriers[0],
             "eov_carriers": n_carriers[1],
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
-                               "encode_core_once_plain_rank_chain":
-                                   enc_peak_plain_chain,
                                "decode": dec_peak_gb}}
-
-
-def parity_scan_in_place(alleles, alts, sorts, chunk=16, parity=False):
-    """pbwt_torch.pbwt_encode_chunked(..., parity=True) with the packed-key
-    parity scan in the chains' place: the mixed encode as it ran before
-    them, timed beside them in the same run."""
-    return pbwt_torch.pbwt_encode_scan_parity(alleles, alts, sorts)
 
 
 def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
@@ -2116,12 +1917,11 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
     WAH grids) and decode (per-line-width expand, the mixed scan's run
     route) run through TorchBlockEncoder.serialize and
     decode_block_records without offsets; their steps are timed one by
-    one: the encode core beside the same core with the packed-key parity
-    scan in the chains' place (its outputs held equal), the parity route
-    and the even-slot compaction alone, the peaks both ways.  At the wide
-    block the host loops run once and the stepping kernel, which its path
-    does not run, is timed over fewer calls and its plain version not at
-    all."""
+    one: the encode core, the parity route and the even-slot compaction
+    alone, with their peaks, and the decode beside the same decode with
+    the stepping kernel forced over all its lines.  At the wide block the
+    host loops run once and the stepping kernel, which its path does not
+    run, is timed over fewer calls and its plain version not at all."""
     H = 2 * N
     mac = int(H * 0.001)
     aet = aet_dtype_for(H)
@@ -2170,33 +1970,18 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
     enc_ms = cuda_ms(encode_core, **loop)
     enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_core_peak = once_peak_gb(encode_core)
-    # the same core with the packed-key parity scan in the chains' place
-    # (as it ran before them): the same outputs, its time and peak
-    want = encode_core()
-    with swapped(pbwt_torch, {"pbwt_encode_chunked": parity_scan_in_place}):
-        got = encode_core()
-        require(all(diff(got[k], want[k]) == 0 for k in want),
-                f"{name}: the encode core with the packed-key parity scan "
-                f"differs from the chains'")
-        del got, want
-        enc_scan_ms = cuda_ms(encode_core, **loop)
-        enc_core_peak_scan = once_peak_gb(encode_core)
     aw, at = args[0].index_select(0, args[2]), args[1].index_select(0, args[2])
     ones = torch.ones(n_wah, dtype=torch.bool, device=DEVICE)
 
     def parity_route():
         return pbwt_torch.pbwt_encode_chunked(aw, at, ones, parity=True)
 
-    # each reads the WAH lines' alleles and flags and writes their bits,
-    # their parities and the final arrangement
+    # reads the WAH lines' alleles and flags and writes their bits, their
+    # parities and the final arrangement
     nbytes = 3 * aw.numel() + at.nbytes + ones.nbytes + 8 * H
     parts = {"pbwt_encode_chunked(parity=True)": alone(
                  name, parity_route, nbytes,
-                 "pbwt_encode_chunked(parity=True)", card),
-             "pbwt_encode_scan_parity": alone(
-                 name, lambda: pbwt_torch.pbwt_encode_scan_parity(aw, at,
-                                                                  ones),
-                 nbytes, "pbwt_encode_scan_parity", card)}
+                 "pbwt_encode_chunked(parity=True)", card)}
     ys, par, _ = parity_route()
     hy, hpar = ys.index_select(0, args[4]), par.index_select(0, args[4])
     del ys, par
@@ -2205,12 +1990,6 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
         name, lambda: encoder_torch.even_slot_rows(hy, hpar),
         2 * hy.numel() + hy.shape[0] * N, "even_slot_rows", card)
     del hy, hpar
-    # the parity route and the encode core with the plain rank chain in
-    # the kernel's place (as they ran before it)
-    with swapped(pbwt_kernels, {"rank_chain": plain_rank_chain}):
-        route_plain_chain_ms = cuda_ms(parity_route, iters=3, warmup=1)
-        enc_plain_chain_ms = cuda_ms(encode_core, iters=3, warmup=1)
-        enc_core_peak_plain = once_peak_gb(encode_core)
     # the path's own inputs of each kernel (captured after the peaks: the
     # copies are not the path's memory), checked before the decode's peaks
     with captured_args() as seen:
@@ -2239,22 +2018,14 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dec_dev_ms = cuda_ms(decode_device, iters=5 if wide else 10, warmup=2)
     dec_dev_peak = once_peak_gb(decode_device)
-    # the device decode with the stepping kernel forced over all the
-    # block's lines (the route before the run route), and with its plain
-    # version (one Python step per line, as it ran before the kernel;
-    # not at the wide block)
-    def forced(fn):
-        return {"pbwt_decode_scan_mixed":
-                lambda ys, so, hp, _host, keep_final=True: fn(ys, so, hp)}
-    with swapped(pbwt_torch, forced(pbwt_kernels.decode_scan_mixed)):
+    # the device decode with the stepping kernel, the route of short runs,
+    # forced over all the block's lines
+    def stepping(ys, so, hp, _host, keep_final=True):
+        return pbwt_kernels.decode_scan_mixed(ys, so, hp)
+    with swapped(pbwt_torch, {"pbwt_decode_scan_mixed": stepping}):
         dec_dev_step_ms = cuda_ms(decode_device, iters=2 if wide else 10,
                                   warmup=1 if wide else 2)
         dec_dev_peak_step = once_peak_gb(decode_device)
-    dec_dev_plain_ms = None
-    if not wide:
-        with swapped(pbwt_torch,
-                     forced(pbwt_kernels.decode_scan_mixed_plain)):
-            dec_dev_plain_ms = cuda_ms(decode_device, iters=1, warmup=1)
     with captured_args() as seen_dec:
         decode_device()
     seen.update(seen_dec)
@@ -2294,14 +2065,11 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
           f"offsets bit-exact on all {L} records; peak device memory of the "
           f"run {peak_gb:.3f} GB")
     print(f"[{name}] encode core (mixed): {enc_ms:.3f} ms/block = "
-          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB); "
-          f"with the packed-key parity scan in the chains' place "
-          f"{enc_scan_ms:.3f} ms | the parity route "
-          f"{parts['pbwt_encode_chunked(parity=True)']['ms']:.3f} ms (the "
-          f"packed-key parity scan "
-          f"{parts['pbwt_encode_scan_parity']['ms']:.3f} ms), of which the "
-          f"rank chain {pchain['ms']:.3f} ms and {pc['name']} {pc['ms']:.4f} "
-          f"ms | decode (host parse + device): "
+          f"{gt_bytes / enc_ms / 1e6:.2f} GB/s (peak {enc_peak_gb:.3f} GB) "
+          f"| the parity route "
+          f"{parts['pbwt_encode_chunked(parity=True)']['ms']:.3f} ms, of "
+          f"which the rank chain {pchain['ms']:.3f} ms and {pc['name']} "
+          f"{pc['ms']:.4f} ms | decode (host parse + device): "
           f"{dec_ms:.3f} ms/block = {gt_bytes / dec_ms / 1e6:.2f} GB/s (peak "
           f"{dec_peak_gb:.3f} GB), of which wah_expand_varw_bits "
           f"{exp_ms:.4f} ms and the mixed scan (run route, no final "
@@ -2309,33 +2077,23 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
           f"serialize: {ser_ms:.1f} ms | decode_block_records: {rec_ms:.1f} "
           f"ms | compression {ratio:.2f}x ({card})")
     plain_scan = ("" if dscan is None else
-                  f"; the stepping scan {dscan['plain_ms']:.3f} ms, the "
-                  f"device decode {dec_dev_plain_ms:.3f} ms")
-    print(f"[{name}] with the plain versions in the kernels' place: the "
-          f"rank chain {pchain['plain_ms']:.3f} ms, the parity route "
-          f"{route_plain_chain_ms:.3f} ms, the encode core "
-          f"{enc_plain_chain_ms:.3f} ms (peak {enc_core_peak_plain:.3f} GB)"
-          f"{plain_scan} ({card})")
+                  f", the stepping scan {dscan['plain_ms']:.3f} ms")
+    print(f"[{name}] the plain versions alone: the rank chain "
+          f"{pchain['plain_ms']:.3f} ms{plain_scan} ({card})")
     step_scan = ("" if dscan is None else
                  f"the scan {dscan['ms']:.3f} ms, ")
     print(f"[{name}] device alone: encode core peak {enc_core_peak:.3f} GB "
-          f"(with the packed-key parity scan {enc_core_peak_scan:.3f} GB) "
           f"| decode {dec_dev_ms:.3f} ms, peak {dec_dev_peak:.3f} GB; with "
           f"the stepping kernel forced over the block's lines: {step_scan}"
           f"the decode {dec_dev_step_ms:.3f} ms, peak "
           f"{dec_dev_peak_step:.3f} GB ({card})")
     return {"launches": launches, "H": H, "aet_dtype": np.dtype(aet).name,
             "encode_ms": enc_ms, "block_checks": checks,
-            "encode_packed_key_parity_scan_ms": enc_scan_ms,
             "parity_path_alone": parts,
             "decode_device_ms": dec_dev_ms,
             "decode_device_stepping_ms": dec_dev_step_ms,
-            "decode_device_plain_scan_ms": dec_dev_plain_ms,
             "encode_parity_route_ms":
                 parts["pbwt_encode_chunked(parity=True)"]["ms"],
-            "encode_parity_scan_ms": parts["pbwt_encode_scan_parity"]["ms"],
-            "encode_parity_route_plain_chain_ms": route_plain_chain_ms,
-            "encode_plain_rank_chain_ms": enc_plain_chain_ms,
             "rank_chain_ms": pchain["ms"],
             "rank_chain_plain_ms": pchain["plain_ms"], "decode_ms": dec_ms,
             "index_checks": index_checks_ms(dec.host_inputs_mixed),
@@ -2349,10 +2107,6 @@ def mixed_block_phase(name: str, N: int, seed: int, card: str) -> dict:
             "peak_device_gb": {"path": peak_gb, "encode_core": enc_peak_gb,
                                "decode": dec_peak_gb,
                                "encode_core_once": enc_core_peak,
-                               "encode_core_once_packed_key_parity_scan":
-                                   enc_core_peak_scan,
-                               "encode_core_once_plain_rank_chain":
-                                   enc_core_peak_plain,
                                "decode_device_once": dec_dev_peak,
                                "decode_device_once_stepping":
                                    dec_dev_peak_step}}

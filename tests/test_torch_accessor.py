@@ -32,6 +32,7 @@ from xsqueezeit_tpu_torch.mixed import Xcf
 from xsqueezeit_tpu_torch.ops import pbwt_np
 from tests import fixtures
 from tests.test_torch_parity import FIXTURES
+from tests.jax_build import jax_native_built  # noqa: F401 (autouse)
 
 ORDER = [5, 60, 3, 119, 55, 0, 80, 49, 50]
 

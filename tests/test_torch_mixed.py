@@ -1,8 +1,8 @@
 """Mixed-ploidy blocks (haploid and diploid records interleaved, as at a
 chrX PAR boundary) in the torch port vs the JAX package and the NumPy
-oracles, on CPU tensors (the kernels' plain versions): the parity scan,
-the mixed decode scan, the per-line-width WAH expand, the encoder's
-payloads and decode_block_records.  Every value is an integer or a byte:
+oracles, on CPU tensors (the kernels' plain versions): the encode with
+the parity payload, the mixed decode scan, the per-line-width WAH
+expand, the encoder's payloads and decode_block_records.  Every value is an integer or a byte:
 the tolerance is exact equality."""
 import numpy as np
 import pytest
@@ -34,15 +34,18 @@ def _mixed_alleles(rng, L, H):
 
 
 @pytest.mark.parametrize("H,L", [(6, 1), (64, 40), (130, 7), (1000, 100),
-                                 (2466, 70)])
+                                 (2466, 70), (65538, 17)])
 def test_parity_scan_matches_jax_and_numpy(H, L):
+    """The chunked encode with the parity payload (15 lines a chunk)
+    against the JAX package's parity scan and the NumPy oracle; the last
+    case crosses a chunk boundary above the 16-bit slot field."""
     rng = np.random.default_rng(H + L)
     alleles, _ = _mixed_alleles(rng, L, H)
     alts = rng.integers(1, 3, L).astype(np.int32)
     sorts = rng.random(L) < 0.7
-    ys, par, af = (x.numpy() for x in pbwt_torch.pbwt_encode_scan_parity(
+    ys, par, af = (x.numpy() for x in pbwt_torch.pbwt_encode_chunked(
         torch.from_numpy(alleles), torch.from_numpy(alts),
-        torch.from_numpy(sorts)))
+        torch.from_numpy(sorts), parity=True))
     jys, jpar, jaf = pbwt_jax.pbwt_encode_scan_parity(
         jnp.asarray(alleles), jnp.asarray(alts), jnp.asarray(sorts),
         jnp.arange(H, dtype=jnp.int32))
@@ -55,38 +58,30 @@ def test_parity_scan_matches_jax_and_numpy(H, L):
 
 @pytest.mark.parametrize("carry_parity", [False, True])
 def test_encode_keys_match_jax(carry_parity):
+    """The chunked encode's rows and final arrangement at a mixed block's
+    lines, uniform against the JAX package's packed-key scan, with the
+    parity payload against its parity scan."""
     rng = np.random.default_rng(17 + carry_parity)
     alleles, _ = _mixed_alleles(rng, 45, 300)
     alts = rng.integers(1, 3, 45).astype(np.int32)
     sorts = rng.random(45) < 0.6
-    got, r_fin = pbwt_torch.pbwt_encode_keys(
+    got = pbwt_torch.pbwt_encode_chunked(
         torch.from_numpy(alleles), torch.from_numpy(alts),
-        torch.from_numpy(sorts), carry_parity=carry_parity)
-    want, want_r = pbwt_jax.pbwt_encode_keys(
-        jnp.asarray(alleles), jnp.asarray(alts), jnp.asarray(sorts),
-        jnp.arange(300, dtype=jnp.int32), carry_parity=carry_parity)
-    np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(want).astype(np.int64))
-    np.testing.assert_array_equal(r_fin.numpy(), np.asarray(want_r))
-
-
-def test_parity_scan_sorts_in_slices(monkeypatch):
-    # the row sort runs in slices of lines: any slice size, same result
-    rng = np.random.default_rng(5)
-    alleles, _ = _mixed_alleles(rng, 37, 200)
-    args = (torch.from_numpy(alleles), torch.ones(37, dtype=torch.int32),
-            torch.from_numpy(rng.random(37) < 0.8))
-    whole = pbwt_torch.pbwt_encode_scan_parity(*args)
-    monkeypatch.setattr(pbwt_torch, "SORT_SLICE_ELEMS", 3 * 200)
-    for a, b in zip(whole, pbwt_torch.pbwt_encode_scan_parity(*args)):
-        assert torch.equal(a, b)
+        torch.from_numpy(sorts), parity=carry_parity)
+    jargs = (jnp.asarray(alleles), jnp.asarray(alts), jnp.asarray(sorts),
+             jnp.arange(300, dtype=jnp.int32))
+    want = (pbwt_jax.pbwt_encode_scan_parity(*jargs) if carry_parity
+            else pbwt_jax.pbwt_encode_scan(*jargs))
+    assert len(got) == len(want) == 2 + carry_parity
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("H", [5, 200, 4932])
 def test_rank_chain_callers_bit_identical(H):
-    """The rank chain's key width is a parameter now: the chunked callers'
-    16-bit form is unchanged, and the parity scan's b-bit form equals the
-    JAX chain."""
+    """The rank chain's key width is a parameter: its b-bit form (the key
+    width of the JAX package's parity scan) equals the JAX chain, and its
+    default is the chunked encode's 16-bit form."""
     rng = np.random.default_rng(H)
     b = pbwt_jax._hap_bits(H)
     C = 30 - b

@@ -5,14 +5,14 @@ A mixed block's encode carries each haplotype's slot parity h & 1 in bit
 15 of its 16-bit register, in chunks of 15 lines, and the encode chain
 emits it beside each line's bit (pbwt_encode_chunked(..., parity=True),
 chain_encode(..., parity=True)).  Held against the JAX package's
-pbwt_encode_scan_parity, the NumPy oracle pbwt_np.pbwt_encode_parity and
-the port's own packed-key scan on the same seeded inputs, at H = 6 to
-70,002 (the wide cases a few dozen lines), with lines that do not sort
-and L not a multiple of 15; the mixed payloads against GtBlockEncoder's
-and the JAX package's DeviceBlockEncoder's with the packed-key scan made
-to raise.  The CUDA routes are held against these plain versions on the
-card in tests/test_torch_cuda.py and chip_smoke.py.  Tolerance: exact
-equality (bits, permutations, bytes).
+pbwt_jax.pbwt_encode_scan_parity and the NumPy oracle
+pbwt_np.pbwt_encode_parity on the same seeded inputs, at H = 6 to 70,002
+(the wide cases a few dozen lines), with lines that do not sort and L
+not a multiple of 15; the mixed payloads against GtBlockEncoder's and
+the JAX package's DeviceBlockEncoder's, the encode chain seen to run
+with the parity payload.  The CUDA routes are held against these plain
+versions on the card in tests/test_torch_cuda.py and chip_smoke.py.
+Tolerance: exact equality (bits, permutations, bytes).
 """
 import numpy as np
 import pytest
@@ -56,7 +56,7 @@ CASES = [(6, 1, "all"), (130, 47, "some"), (2466, 30, "all"),
 
 
 @pytest.mark.parametrize("H,L,kind", CASES)
-def test_parity_chunked_encode_matches_the_scans(H, L, kind):
+def test_parity_chunked_encode_matches_jax_and_numpy(H, L, kind):
     rng = np.random.default_rng(H + L)
     alleles = _mixed_alleles(rng, L, H)
     alts = rng.integers(1, 3, L).astype(np.int32)
@@ -70,9 +70,8 @@ def test_parity_chunked_encode_matches_the_scans(H, L, kind):
     jax_out = pbwt_jax.pbwt_encode_scan_parity(
         jnp.asarray(alleles), jnp.asarray(alts), jnp.asarray(sorts),
         jnp.arange(H, dtype=jnp.int32))
-    scan = pbwt_torch.pbwt_encode_scan_parity(*args)
     oracle = pbwt_np.pbwt_encode_parity(alleles, alts, sorts)
-    for want in (jax_out, scan, oracle):
+    for want in (jax_out, oracle):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, np.asarray(w))
     # the uniform encode of the same lines: the same bits, 16 lines a chunk
@@ -165,9 +164,9 @@ def _records(rng, n_samples, L):
 def test_mixed_block_codec_takes_the_parity_chains(n_samples, L,
                                                    monkeypatch):
     """A mixed block through TorchBlockEncoder on the CPU: the payload
-    equals GtBlockEncoder's and the JAX package's DeviceBlockEncoder's,
-    with the packed-key scan made to raise; the encode chain ran once,
-    with the parity payload and 15 lines a chunk."""
+    equals GtBlockEncoder's and the JAX package's DeviceBlockEncoder's;
+    the encode chain ran once, with the parity payload and 15 lines a
+    chunk."""
     H = 2 * n_samples
     recs = _records(np.random.default_rng(n_samples), n_samples, L)
     kw = dict(n_samples=n_samples, block_bcf_lines=10_000,
@@ -180,11 +179,6 @@ def test_mixed_block_codec_takes_the_parity_chains(n_samples, L,
             enc.encode_record(gt, na)
         payloads.append(enc.serialize())
 
-    def refuse(*a, **k):
-        raise AssertionError("the packed-key scan ran")
-    for name in ("pbwt_encode_scan_parity", "pbwt_encode_scan",
-                 "_sorted_rows"):
-        monkeypatch.setattr(pbwt_torch, name, refuse)
     calls = []
     chain = pbwt_kernels.chain_encode
 

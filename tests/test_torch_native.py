@@ -50,6 +50,7 @@ from xsqueezeit_tpu_torch.ops import sparse_np
 from tests import fixtures
 from tests.gt_synth import make_record
 from tests.test_torch_parity import FIXTURES
+from tests.jax_build import jax_native_built  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

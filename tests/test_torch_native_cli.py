@@ -20,6 +20,7 @@ from xsqueezeit_tpu_torch.interop import native
 from xsqueezeit_tpu_torch.io.bcf import BcfReader
 from tests.test_torch_native import vcf_to_bcf
 from tests.test_torch_parity import FIXTURES
+from tests.jax_build import jax_native_built  # noqa: F401 (autouse)
 
 #: name -> the environment of a route set
 ROUTES = {

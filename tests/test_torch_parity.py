@@ -28,6 +28,7 @@ from xsqueezeit_tpu_torch.format.container import XsiReader
 from xsqueezeit_tpu_torch.format.header import XsiHeader
 from xsqueezeit_tpu_torch.io.unified import GtInput
 from tests import fixtures
+from tests.jax_build import jax_native_built  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -46,6 +46,7 @@ from xsqueezeit_tpu_torch.format.dictionary import (
 from xsqueezeit_tpu_torch.format.header import XsiHeader
 from xsqueezeit_tpu_torch.io.unified import GtInput
 from tests import fixtures
+from tests.jax_build import jax_native_built  # noqa: F401 (autouse)
 
 DEVICES = ("cpu", "numpy")
 #: the crafted stored-index cases: name -> (container, stream, haploid

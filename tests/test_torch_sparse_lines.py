@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from xsqueezeit_tpu.codec import decoder_jax
 from xsqueezeit_tpu.codec.gt_block_decoder import GtBlockDecoder
+from xsqueezeit_tpu.ops import pbwt_jax
 from xsqueezeit_tpu_torch.codec import decoder_torch
 from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu_torch.ops import pbwt_kernels, pbwt_torch, sparse_kernels
@@ -183,7 +184,9 @@ def test_chunked_decode_takes_whole_chunk_rows(n, H):
     rng = np.random.default_rng(n * H)
     ys = torch.from_numpy((rng.random((n, H)) < 0.4).astype(np.uint8))
     sorts = torch.from_numpy(rng.random(n) < 0.8)
-    want, a_want = pbwt_torch.pbwt_decode_blocked(ys, sorts)
+    want, a_want = (torch.from_numpy(np.asarray(x)) for x in
+                    pbwt_jax.pbwt_decode_blocked(jnp.asarray(ys.numpy()),
+                                                 jnp.asarray(sorts.numpy())))
     R = pbwt_torch.chunk_rows(n, H)
     whole = torch.zeros((R, H), dtype=torch.uint8)
     whole[:n] = ys

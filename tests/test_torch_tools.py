@@ -32,6 +32,7 @@ from xsqueezeit_tpu_torch.utils.stats import xsi_block_stats
 from tests import fixtures
 from tests.test_phasing_stats import _haplotype_panel_vcf
 from tests.test_torch_parity import FIXTURES
+from tests.jax_build import jax_native_built  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: Fixtures whose every record is uniformly diploid: the JAX package's XSI

@@ -1,10 +1,10 @@
 """The torch port above the 16-bit slot field: H > 65,535 haplotypes.
 
-The packed-key scan (pbwt_torch.pbwt_encode_scan) and the blocked decode
-(pbwt_torch.pbwt_decode_blocked) are the JAX package's wide forms
-(pbwt_jax.pbwt_encode_scan, pbwt_decode_blocked) and the chunk chains'
-plain counterparts there; the codec's route, the chains with the decode's
-wide state, is held in tests/test_torch_wide_chains.py.  Wide blocks'
+The chunked encode and decode (pbwt_torch.pbwt_encode_chunked,
+pbwt_decode_chunked) against the JAX package's forms at any width
+(pbwt_jax.pbwt_encode_scan, pbwt_jax.pbwt_decode_blocked), from a few
+haplotypes to 65,600; the decode's wide state and the route arithmetic
+by width are held in tests/test_torch_wide_chains.py.  Wide blocks'
 sparse and track streams are 32-bit.  The same
 seeded numpy inputs go through the port (CPU tensors, the kernels' plain
 versions) and the JAX package (XLA forms, the host codec, its CLI with
@@ -39,6 +39,7 @@ from xsqueezeit_tpu_torch.ops import pbwt_torch, wah_kernels, wah_torch
 from tests import fixtures
 from tests.gt_synth import make_record
 from tests.test_e2e import read_all
+from tests.jax_build import jax_native_built  # noqa: F401 (autouse)
 
 N_SAMPLES = 32800
 H = 2 * N_SAMPLES                  # 65,600: above the 16-bit slot field
@@ -58,9 +59,9 @@ def _sorts(rng, L, kind):
     return rng.random(L) < 0.8
 
 
-# (L, width, sort flags): L a multiple of the chunk lines or not (the scan
-# packs C = 32 - ceil(log2 H) - 1 lines per chunk: 21 at 300, 14 at
-# 65,600; the blocked decode 16), every line sorting, some, or none
+# (L, width, sort flags): L a multiple of the chunk lines or not (the
+# encode takes 16 lines a chunk at every width, the decode 16 up to 65,536
+# haplotypes and 15 at 65,600), every line sorting, some, or none
 SHAPES = [(42, 300, "all"), (37, 300, "some"), (5, 7, "some"),
           (64, 1001, "all"), (33, 1001, "none"), (1, 65600, "all"),
           (29, 65600, "some"), (48, 65600, "all")]
@@ -68,11 +69,12 @@ SHAPES = [(42, 300, "all"), (37, 300, "some"), (5, 7, "some"),
 
 @pytest.mark.parametrize("L,width,kind", SHAPES)
 def test_encode_scan_matches_jax(L, width, kind):
+    """The chunked encode against the JAX package's packed-key scan."""
     rng = np.random.default_rng(L * 7 + width)
     x = _lines(rng, L, width)
     alts = np.ones(L, np.int32)
     sorts = _sorts(rng, L, kind)
-    ys, a_fin = pbwt_torch.pbwt_encode_scan(
+    ys, a_fin = pbwt_torch.pbwt_encode_chunked(
         torch.from_numpy(x), torch.from_numpy(alts), torch.from_numpy(sorts))
     want_y, want_a = pbwt_jax.pbwt_encode_scan(
         jnp.asarray(x), jnp.asarray(alts), jnp.asarray(sorts),
@@ -84,10 +86,11 @@ def test_encode_scan_matches_jax(L, width, kind):
 
 @pytest.mark.parametrize("L,width,kind", SHAPES)
 def test_decode_blocked_matches_jax(L, width, kind):
+    """The chunked decode against the JAX package's blocked decode."""
     rng = np.random.default_rng(L * 11 + width)
     ys = _lines(rng, L, width).astype(np.uint8)     # any bits decode
     sorts = _sorts(rng, L, kind)
-    vals, a_fin = pbwt_torch.pbwt_decode_blocked(torch.from_numpy(ys),
+    vals, a_fin = pbwt_torch.pbwt_decode_chunked(torch.from_numpy(ys),
                                                  torch.from_numpy(sorts))
     want_v, want_a = pbwt_jax.pbwt_decode_blocked(jnp.asarray(ys),
                                                   jnp.asarray(sorts))
@@ -98,18 +101,22 @@ def test_decode_blocked_matches_jax(L, width, kind):
 
 @pytest.mark.parametrize("L,width", [(37, 300), (29, 65600)])
 def test_scan_then_blocked_decode_round_trips(L, width):
+    """The chunked encode, then the chunked decode: the lines and the
+    final arrangement back."""
     rng = np.random.default_rng(L + width)
     x = _lines(rng, L, width)
     sorts = torch.from_numpy(rng.random(L) < 0.9)
-    ys, a_enc = pbwt_torch.pbwt_encode_scan(
+    ys, a_enc = pbwt_torch.pbwt_encode_chunked(
         torch.from_numpy(x), torch.ones(L, dtype=torch.int32), sorts)
-    vals, a_dec = pbwt_torch.pbwt_decode_blocked(ys, sorts)
+    vals, a_dec = pbwt_torch.pbwt_decode_chunked(ys, sorts)
     np.testing.assert_array_equal(vals.numpy(), x.astype(np.uint8))
     np.testing.assert_array_equal(a_dec.numpy(), a_enc.numpy())
 
 
 def test_decode_blocked_of_no_lines():
-    vals, a = pbwt_torch.pbwt_decode_blocked(
+    """The chunked decode of no lines: no rows, and the block-start
+    identity as the final arrangement."""
+    vals, a = pbwt_torch.pbwt_decode_chunked(
         torch.zeros((0, 9), dtype=torch.uint8), torch.zeros(0, dtype=bool))
     assert vals.shape == (0, 9)
     assert a.tolist() == list(range(9))

@@ -5,10 +5,10 @@ The encode chain keeps 16-bit registers and no slot, so it takes every
 width in chunks of 16 lines; the decode chain's state (chunk-start slot <<
 C) | beta keeps C = 16 lines a chunk up to 65,536 slots and C = 32 -
 ceil(log2 W) above (pbwt_kernels.decode_chunk), with the run flush
-reading the same shift.  Held against the wide forms they replace on the
-card path (pbwt_torch.pbwt_encode_scan, pbwt_decode_blocked) and against
-the JAX package's (pbwt_jax.pbwt_encode_scan, pbwt_decode_blocked,
-pbwt_decode_scan_mixed) on the same seeded numpy inputs, at H = 65,600
+reading the same shift.  Held against the JAX package's wide forms
+(pbwt_jax.pbwt_encode_scan, pbwt_jax.pbwt_decode_blocked,
+pbwt_jax.pbwt_decode_scan_mixed) on the same seeded numpy inputs, and
+the encode against the NumPy oracle, at H = 65,600
 and the odd 70,001 with a few dozen lines.  The route arithmetic (cluster
 sizes, shared memory, shifts) is held at the widths the card takes.  The
 CUDA kernels are held against these plain versions on the card in
@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from xsqueezeit_tpu.ops import pbwt_jax
+from xsqueezeit_tpu.ops import pbwt_jax, pbwt_np
 from xsqueezeit_tpu_torch.codec import decoder_torch
 from xsqueezeit_tpu_torch.codec.encoder_torch import TorchBlockEncoder
 from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
@@ -47,25 +47,21 @@ WIDE = [(29, 65600, "some"), (30, 65600, "all"), (17, 65600, "none"),
 
 
 @pytest.mark.parametrize("L,width,kind", WIDE)
-def test_wide_decode_matches_blocked_and_jax(L, width, kind):
+def test_wide_decode_matches_jax(L, width, kind):
     rng = np.random.default_rng(L * 13 + width)
     ys = _lines(rng, L, width).astype(np.uint8)     # any bits decode
     sorts = _sorts(rng, L, kind)
     vals, a_fin = pbwt_torch.pbwt_decode_chunked(torch.from_numpy(ys),
                                                  torch.from_numpy(sorts))
-    bv, ba = pbwt_torch.pbwt_decode_blocked(torch.from_numpy(ys),
-                                            torch.from_numpy(sorts))
     jv, ja = pbwt_jax.pbwt_decode_blocked(jnp.asarray(ys),
                                           jnp.asarray(sorts))
     assert vals.dtype == torch.uint8 and vals.shape == (L, width)
-    np.testing.assert_array_equal(vals.numpy(), bv.numpy())
-    np.testing.assert_array_equal(a_fin.numpy(), ba.numpy())
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(a_fin.numpy(), np.asarray(ja))
 
 
 @pytest.mark.parametrize("L,width,kind", WIDE)
-def test_wide_encode_matches_scan_and_jax(L, width, kind):
+def test_wide_encode_matches_jax_and_numpy(L, width, kind):
     rng = np.random.default_rng(L * 7 + width)
     x = _lines(rng, L, width)
     alts = np.ones(L, np.int32)
@@ -73,15 +69,16 @@ def test_wide_encode_matches_scan_and_jax(L, width, kind):
     args = (torch.from_numpy(x), torch.from_numpy(alts),
             torch.from_numpy(sorts))
     ys, a_fin = pbwt_torch.pbwt_encode_chunked(*args)
-    sy, sa = pbwt_torch.pbwt_encode_scan(*args)
     jy, ja = pbwt_jax.pbwt_encode_scan(
         jnp.asarray(x), jnp.asarray(alts), jnp.asarray(sorts),
         jnp.arange(width, dtype=jnp.int32))
     assert ys.dtype == torch.uint8 and ys.shape == (L, width)
-    np.testing.assert_array_equal(ys.numpy(), sy.numpy())
-    np.testing.assert_array_equal(a_fin.numpy(), sa.numpy())
     np.testing.assert_array_equal(ys.numpy(), np.asarray(jy))
     np.testing.assert_array_equal(a_fin.numpy(), np.asarray(ja))
+    # the NumPy oracle's bits and arrangement (its parities left aside)
+    oy, _, oa = pbwt_np.pbwt_encode_parity(x, alts, sorts)
+    np.testing.assert_array_equal(ys.numpy(), oy)
+    np.testing.assert_array_equal(a_fin.numpy(), oa)
     # and back through the wide decode
     vals, a_dec = pbwt_torch.pbwt_decode_chunked(ys, args[2])
     np.testing.assert_array_equal(vals.numpy(), x.astype(np.uint8))
@@ -135,24 +132,25 @@ def test_wide_state_packing_at_a_narrow_width(H, C, shift, monkeypatch):
 @pytest.mark.parametrize("C", [13, 14])
 def test_decode_route_with_the_shift_forced(C, monkeypatch):
     """The whole decode route (chains, composition, flush) at a narrow
-    width with the wide state's chunk lines forced: equal to the blocked
-    decode."""
+    width with the wide state's chunk lines forced: equal to the JAX
+    package's blocked decode."""
     monkeypatch.setattr(pbwt_kernels, "decode_chunk", lambda W: C)
     rng = np.random.default_rng(C)
     ys = _lines(rng, 3 * C + 5, 1001).astype(np.uint8)
     sorts = rng.random(3 * C + 5) < 0.8
     vals, a = pbwt_torch.pbwt_decode_chunked(torch.from_numpy(ys),
                                              torch.from_numpy(sorts))
-    bv, ba = pbwt_torch.pbwt_decode_blocked(torch.from_numpy(ys),
-                                            torch.from_numpy(sorts))
-    np.testing.assert_array_equal(vals.numpy(), bv.numpy())
-    np.testing.assert_array_equal(a.numpy(), ba.numpy())
+    bv, ba = pbwt_jax.pbwt_decode_blocked(jnp.asarray(ys),
+                                          jnp.asarray(sorts))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(bv))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ba))
 
 
 def test_wide_state_top_bit_is_unsigned():
     """At 65,600 slots the state is (slot << 15) | beta: slots from 65,536
     set its top bit.  The int32 buffer (widen=False) holds the uint32 bits,
-    and the flush reads them unsigned: the decode equals the blocked one."""
+    and the flush reads them unsigned: the decode equals the JAX package's
+    blocked one."""
     H, L = 65600, 30
     rng = np.random.default_rng(65600)
     assert pbwt_kernels.decode_chunk(H) == 15
@@ -168,9 +166,8 @@ def test_wide_state_top_bit_is_unsigned():
     assert sorted((p[0] >> C).tolist()) == list(range(H))
     vals, _ = pbwt_torch.pbwt_decode_chunked(torch.from_numpy(ys),
                                              torch.from_numpy(sorts))
-    bv, _ = pbwt_torch.pbwt_decode_blocked(torch.from_numpy(ys),
-                                           torch.from_numpy(sorts))
-    np.testing.assert_array_equal(vals.numpy(), bv.numpy())
+    bv, _ = pbwt_jax.pbwt_decode_blocked(jnp.asarray(ys), jnp.asarray(sorts))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(bv))
 
 
 @pytest.mark.parametrize("H,C,match", [
@@ -309,9 +306,10 @@ H = 2 * N_SAMPLES
 def test_wide_block_codec_takes_the_chains(kind, monkeypatch):
     """A 65,600-haplotype block through the torch codec on the CPU: the
     payload equals the host encoder's and decodes to its records, through
-    the chain wrappers and the run flush (the wide state), with the
-    packed-key scans and the blocked decode made to raise (a mixed block's
-    encode takes the chain with the parity payload, 15 lines a chunk)."""
+    the chain wrappers and the run flush (the wide state), with the mixed
+    scan's stepping kernel made to raise (a mixed block's encode takes the
+    chain with the parity payload, 15 lines a chunk, and every run of its
+    decode the chains)."""
     rng = np.random.default_rng(41 if kind == "uniform" else 42)
     recs = []
     for i in range(24):
@@ -328,10 +326,9 @@ def test_wide_block_codec_takes_the_chains(kind, monkeypatch):
         enc.encode_record(gt, na)
 
     def refuse(*a, **k):
-        raise AssertionError("a plain wide form ran")
-    for name in ("pbwt_encode_scan", "pbwt_encode_scan_parity",
-                 "pbwt_decode_blocked", "_sorted_rows"):
-        monkeypatch.setattr(pbwt_torch, name, refuse)
+        raise AssertionError("the stepping kernel ran")
+    for name in ("decode_scan_mixed", "decode_scan_mixed_plain"):
+        monkeypatch.setattr(pbwt_kernels, name, refuse)
     if kind == "mixed":     # a few lines a run: put each on the chains
         monkeypatch.setattr(pbwt_torch, "MIN_RUN_LINES_WIDE", 1)
     seen = {}

@@ -62,8 +62,7 @@ class Accessor:
         self.path = path
         self.xsi = XsiReader(path)
         self.n_samples = self.xsi.n_samples
-        self.n_haps = (self.n_samples * 2 if self.xsi.header.ploidy != 1
-                       else self.n_samples * 2)
+        self.n_haps = self.n_samples * 2
         self._decoders: dict[int, GtBlockDecoder] = {}
 
     # -------------------------------------------------------------- naming

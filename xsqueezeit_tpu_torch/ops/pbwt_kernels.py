@@ -5,8 +5,10 @@ plain versions.
 Port of xsqueezeit_tpu/ops/pbwt_pallas.py (chain_encode, chain_decode)
 and of two XLA scans of xsqueezeit_tpu/ops/pbwt_jax.py (_rank_chain,
 pbwt_decode_scan_mixed): see rank_chain, and decode_scan_mixed and
-decode_run_flush below (the mixed scan's stepping kernel and its run
-flush; ops/pbwt_torch.py pbwt_decode_scan_mixed composes them).
+decode_run_flush below (the mixed scan's stepping kernel and the run
+flush; ops/pbwt_torch.py composes them: pbwt_decode_chunked is
+chain_decode and the run flush, pbwt_decode_scan_mixed adds the stepping
+kernel for short runs).
 A chunk holds C <= 16 lines; its state is one value per haplotype slot in
 arrangement order, and every sorting line stably partitions the slots by
 the line's bit (zeros first, order kept).  Each wrapper launches a kernel
@@ -29,8 +31,8 @@ bound follows from chain_max_h.  ``cluster`` picks the route explicitly
 route (:func:`chain_route`).  With ``parity=True`` the encode carries
 each haplotype's slot parity in bit 15 of its register (chunks of
 PARITY_CHUNK = 15 lines) and emits it beside each line's bit: the
-mixed-ploidy encode's route, in place of the row sort of
-pbwt_jax.pbwt_encode_scan_parity.
+mixed-ploidy encode's route, with the contract of the JAX package's
+pbwt_jax.pbwt_encode_scan_parity (a row sort of packed keys there).
 
 The kernels own the row by warp tiles of 512 bytes (32 lanes x 16 bytes)
 and pad it to whole tiles; :func:`chain_smem_bytes` mirrors their shared

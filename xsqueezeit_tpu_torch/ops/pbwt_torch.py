@@ -1,30 +1,29 @@
-"""PBWT arrangement transforms in PyTorch: the chunked encode and decode,
-their forms for any width, and the mixed-ploidy scans.
+"""PBWT arrangement transforms in PyTorch: the chunked encode and decode
+at every width, and the mixed-ploidy decode.
 
-Port of xsqueezeit_tpu/ops/pbwt_jax.py (pbwt_encode_chunked,
-pbwt_decode_chunked, pbwt_encode_keys, pbwt_encode_scan,
-pbwt_encode_scan_parity, pbwt_decode_blocked, pbwt_decode_scan_mixed;
-its _rank_chain is ops/pbwt_kernels.py rank_chain).  The encode groups
-lines into chunks of C = 16 at every width: a 16-bit register per
-haplotype carries the chunk's bits through the partitions, which run in
-the chunk-chain kernels of ops/pbwt_kernels.py; the mixed-ploidy encode
-takes chunks of 15 lines and carries the haplotype's slot parity in the
-register's bit 15 (pbwt_encode_chunked(..., parity=True)).  The decode's
-chain carries (chunk-start slot << C) | beta in 32 bits, so its chunks
-hold C = 16 lines up to 65,536 haplotypes and C = 32 - ceil(log2 H) above
-(pbwt_kernels.decode_chunk).  Cross-chunk state comes from a rank chain
-(encode: the rank_chain kernels) or from composing the chunks'
-arrangements (decode: the run flush kernel composes them and writes the
-rows).  The chains take every width the format allows (the decode above
-one CTA's 28,928 haplotypes with its rows in device memory).  The
-packed-key scans
-(pbwt_encode_scan, pbwt_encode_scan_parity) and the blocked three-phase
-decode (pbwt_decode_blocked) are the JAX package's forms at any width and
-the chains' plain counterparts: no card path calls them.
-Mixed-ploidy blocks decode run by run (pbwt_decode_scan_mixed): a long
-run of one ploidy is a uniform chunked decode (at width ceil(H / 2) for a
-haploid run, over the samples) with the run flush kernel, and short runs
-take the stepping kernel.
+Port of xsqueezeit_tpu/ops/pbwt_jax.py, whose forms the tests hold these
+against: pbwt_encode_chunked has the contracts of
+pbwt_jax.pbwt_encode_scan and pbwt_jax.pbwt_encode_scan_parity at every
+width, pbwt_decode_chunked that of pbwt_jax.pbwt_decode_blocked, and
+pbwt_decode_scan_mixed that of pbwt_jax.pbwt_decode_scan_mixed; its
+_rank_chain is ops/pbwt_kernels.py rank_chain.  The
+encode groups lines into chunks of C = 16 at every width: a 16-bit
+register per haplotype carries the chunk's bits through the partitions,
+which run in the chunk-chain kernels of ops/pbwt_kernels.py; the
+mixed-ploidy encode takes chunks of 15 lines and carries the haplotype's
+slot parity in the register's bit 15 (pbwt_encode_chunked(...,
+parity=True)).  The decode's chain carries (chunk-start slot << C) | beta
+in 32 bits, so its chunks hold C = 16 lines up to 65,536 haplotypes and
+C = 32 - ceil(log2 H) above (pbwt_kernels.decode_chunk).  Cross-chunk
+state comes from a rank chain (encode: the rank_chain kernels) or from
+composing the chunks' arrangements (decode: the run flush kernel composes
+them and writes the rows).  The chains take every width the format
+allows (the decode above one CTA's 28,928 haplotypes with its rows in
+device memory).  Mixed-ploidy blocks decode run by run
+(pbwt_decode_scan_mixed): a long run of one ploidy is a uniform chunked
+decode (at width ceil(H / 2) for a haploid run, over the samples) with
+the run flush kernel, and short runs take the stepping kernel.  On the
+CPU every kernel wrapper runs its plain version.
 
 Where the JAX package applies permutations with packed row sorts (fast on a
 TPU), this module scatters and gathers.  The block-start arrangement is the
@@ -38,7 +37,6 @@ import torch
 from . import pbwt_kernels
 from ..utils import trace
 
-DECODE_CHUNK = 16
 #: Runs of one ploidy shorter than this many WAH lines take the mixed
 #: scan's stepping kernel, longer ones the chunk chains.  On an H100 the
 #: stepping kernel took about 3 us a line while its state fits shared
@@ -51,115 +49,13 @@ DECODE_CHUNK = 16
 #: (MIN_RUN_LINES_WIDE).  PERF.md §6 has every sweep (chip_smoke.py).
 MIN_RUN_LINES = 256
 MIN_RUN_LINES_WIDE = 16
-#: Keys per row-sort call of pbwt_encode_scan_parity (about 1 GB of int64
-#: values and indices).
-SORT_SLICE_ELEMS = 1 << 26
 
 
 _inverse = pbwt_kernels._inverse
-_compose_prefix = pbwt_kernels._compose_prefix
 
 
 def _hap_bits(h: int) -> int:
     return max(int(h - 1).bit_length(), 1)
-
-
-def pbwt_encode_keys(alleles: torch.Tensor, alts: torch.Tensor,
-                     sorts: torch.Tensor, carry_parity: bool = False
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Packed per-line PBWT keys (pbwt_jax.pbwt_encode_keys, a0 = iota).
-
-    Lines group into chunks of C = 32 - b - vb (b = ceil(log2 H) rank
-    bits, vb = 1, or 2 with carry_parity) so that a key (chunk-local
-    history P << (b + vb)) | (chunk-start rank << vb) | [parity << 1] |
-    bit fits 32 bits.  Sorting row l ascending puts the line's bits in the
-    arrangement in force before line l, LSB first.  Returns (packed
-    int64[L, H], r_final int64[H]).
-    """
-    L, H = alleles.shape
-    dev = alleles.device
-    b = _hap_bits(H)
-    vb = 2 if carry_parity else 1
-    C = 32 - b - vb
-    if C < 2:
-        raise ValueError(f"H={H} too large for packed PBWT encode")
-    x = (alleles.to(torch.int32) == alts[:, None]).to(torch.uint8)
-    sorts = sorts.to(torch.bool)
-    pad = (-L) % C
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        sorts = torch.nn.functional.pad(sorts, (0, pad))
-    n_ch = (L + pad) // C
-    xc = x.reshape(n_ch, C, H)
-    ssi = sorts.reshape(n_ch, C).to(torch.int32)
-    sh = torch.cumsum(ssi, 1, dtype=torch.int32) - ssi
-    # history prefix P_j of each chunk line (exclusive of line j), built
-    # one line at a time so the temporaries stay [n_ch, H]; C <= 30 bits,
-    # so the totals fit int32 (the rank chain kernel's input type)
-    packed = torch.empty((n_ch, C, H), dtype=torch.int64, device=dev)
-    T = torch.zeros((n_ch, H), dtype=torch.int32, device=dev)
-    for j in range(C):
-        packed[:, j] = T
-        T |= (xc[:, j].to(torch.int32) << sh[:, j:j + 1]) & -ssi[:, j:j + 1]
-
-    r_fin, r_starts = pbwt_kernels.rank_chain(T, torch.arange(H, device=dev),
-                                             b)
-    low = r_starts << vb
-    if carry_parity:
-        low |= (torch.arange(H, device=dev) & 1) << 1
-    for j in range(C):       # temporaries [n_ch, H], as above
-        packed[:, j] = (packed[:, j] << (b + vb)) | low | xc[:, j]
-    return packed.reshape(n_ch * C, H)[:L], r_fin
-
-
-def _sorted_rows(packed: torch.Tensor):
-    """Each row of the packed keys sorted ascending, in slices of rows of
-    about SORT_SLICE_ELEMS keys (bounds the sort's memory): yields (first
-    row, sorted slice)."""
-    L, H = packed.shape
-    step = max(1, SORT_SLICE_ELEMS // max(H, 1))
-    for a in range(0, L, step):
-        yield a, torch.sort(packed[a:a + step], dim=1).values
-
-
-def pbwt_encode_scan(alleles: torch.Tensor, alts: torch.Tensor,
-                     sorts: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Arrangement-ordered bits for every line at any width, block start
-    at the identity (pbwt_jax.pbwt_encode_scan): one batched row sort of
-    the packed keys puts each line's bits in the arrangement in force
-    before it, in the key's lowest bit.  pbwt_encode_chunked's plain
-    counterpart at every width (no card path calls it).  Returns (ys
-    uint8[L, H], a_final int64[H])."""
-    packed, r_fin = pbwt_encode_keys(alleles, alts, sorts)
-    ys = torch.empty(packed.shape, dtype=torch.uint8, device=packed.device)
-    for a, s in _sorted_rows(packed):
-        ys[a:a + s.shape[0]] = s & 1
-    return ys, _inverse(r_fin)
-
-
-def pbwt_encode_scan_parity(alleles: torch.Tensor, alts: torch.Tensor,
-                            sorts: torch.Tensor
-                            ) -> tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """Bits and slot parity in arrangement order for every line, block
-    start at the identity (pbwt_jax.pbwt_encode_scan_parity; oracle
-    pbwt_np.pbwt_encode_parity).
-
-    The mixed-ploidy encoder needs, per line, the arrangement-ordered bit
-    and the parity (a & 1) of the haplotype at each position.  One batched
-    row sort of the packed keys gives both.  pbwt_encode_chunked(...,
-    parity=True)'s plain counterpart at every width (no card path calls
-    it).  Returns (ys uint8[L, H], par uint8[L, H], a_final int64[H]).
-    """
-    packed, r_fin = pbwt_encode_keys(alleles, alts, sorts,
-                                     carry_parity=True)
-    ys = torch.empty(packed.shape, dtype=torch.uint8, device=packed.device)
-    par = torch.empty_like(ys)
-    for a, s in _sorted_rows(packed):
-        ys[a:a + s.shape[0]] = s & 1
-        par[a:a + s.shape[0]] = (s >> 1) & 1
-    return ys, par, _inverse(r_fin)
 
 
 def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
@@ -176,7 +72,7 @@ def pbwt_encode_chunked(alleles: torch.Tensor, alts: torch.Tensor,
     = 15 lines, bit 15 of each register is the haplotype's slot parity h &
     1, and chain_encode emits it beside each line's bit: returns (ys, par
     uint8[L, H] the parity of the haplotype at each position, a_final),
-    the contract of pbwt_encode_scan_parity.
+    the contract of pbwt_jax.pbwt_encode_scan_parity.
     """
     L, H = alleles.shape
     if H > pbwt_kernels.MAX_RANK_H:
@@ -254,64 +150,12 @@ def pbwt_decode_chunked(ys: torch.Tensor, sorts: torch.Tensor,
                          f"{pbwt_kernels.MAX_RANK_H} haplotypes (got {H})")
     vals = (torch.empty((n, H), dtype=torch.uint8, device=ys.device)
             if out is None else out)
+    if n == 0:
+        return vals, torch.arange(H, device=ys.device)
     a_fin = _decode_run(ys.to(torch.uint8), sorts,
                         torch.arange(H, device=ys.device), False, vals,
                         end=True, line_of=line_of)
     return vals, a_fin
-
-
-def pbwt_decode_blocked(ys: torch.Tensor, sorts: torch.Tensor,
-                        chunk: int = DECODE_CHUNK
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """PBWT decode at any width (pbwt_jax.pbwt_decode_blocked): bits back
-    to natural order, block start at the identity.  pbwt_decode_chunked's
-    plain counterpart at every width (no card path calls it).
-
-    Three phases over chunks of `chunk` lines, every step a batched
-    scatter over the chunks ([n_ch, H], one chunk line at a time):
-      1. per chunk, the chunk-start slot of each slot after the chunk's
-         lines (the stable partitions applied to the identity);
-      2. the arrangement at every chunk start, by composing those maps
-         (_compose_prefix);
-      3. each chunk's arrangement carried through its lines again, every
-         line's bits scattered to natural order on the way.
-    ys: uint8[L, H] bits in arrangement order; sorts: bool[L] (all-zero
-    padding rows may pass True).  Returns (vals uint8[L, H] natural-order
-    bits, a_final int64[H]).
-    """
-    L, H = ys.shape
-    dev = ys.device
-    iota = torch.arange(H, device=dev)
-    if L == 0:
-        return torch.zeros((0, H), dtype=torch.uint8, device=dev), iota
-    C = chunk
-    pad = (-L) % C
-    sorts = sorts.to(torch.bool)
-    y = ys.to(torch.uint8)
-    if pad:
-        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
-        sorts = torch.nn.functional.pad(sorts, (0, pad))
-    n_ch = (L + pad) // C
-    yc = y.reshape(n_ch, C, H)
-    ss = sorts.reshape(n_ch, C)
-
-    def moved(j, state):
-        """state carried through chunk line j's partition."""
-        dest = pbwt_kernels._partition_dest(yc[:, j].to(torch.int64),
-                                            ss[:, j])
-        return torch.empty_like(state).scatter_(1, dest, state)
-
-    o = iota.expand(n_ch, H).clone()        # 1. start slot per slot
-    for j in range(C):
-        o = moved(j, o)
-    inc = _compose_prefix(o)                # 2. haplotype per end slot
-    g = torch.cat([iota[None], inc[:-1]])   # haplotype per start slot
-    vals = torch.empty((n_ch, C, H), dtype=torch.uint8, device=dev)
-    for j in range(C):                      # 3. the lines' bits
-        vals[:, j] = torch.empty((n_ch, H), dtype=torch.uint8,
-                                 device=dev).scatter_(1, g, yc[:, j])
-        g = moved(j, g)
-    return vals.reshape(n_ch * C, H)[:L], inc[-1]
 
 
 def mixed_runs(hap: np.ndarray, H: int) -> list[tuple[int, int, str]]:
