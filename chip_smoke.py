@@ -172,7 +172,8 @@ from xsqueezeit_tpu_torch.io.sites import (
 )
 from xsqueezeit_tpu_torch.io.unified import GtInput
 from xsqueezeit_tpu_torch.ops import _build, pbwt_kernels, pbwt_torch
-from xsqueezeit_tpu_torch.ops import sparse_kernels, wah_kernels, wah_torch
+from xsqueezeit_tpu_torch.ops import (product_kernels, sparse_kernels,
+                                      wah_kernels, wah_torch)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -241,7 +242,8 @@ PLAIN_PASSES = ((wah_torch, ("pack_bits", "unpack_bits", "wah_word_offsets")),
                 (pbwt_kernels, ("rank_chain_plain", "decode_scan_mixed_plain",
                                 "chain_decode_plain",
                                 "decode_run_flush_plain")),
-                (sparse_kernels, ("sparse_lines_plain",)))
+                (sparse_kernels, ("sparse_lines_plain",)),
+                (product_kernels, ("dot_rows_plain",)))
 #: The plain passes a block's path takes by design: none (the rank chain
 #: and the chains run their kernels at every width).
 PLAIN_ROUTES: dict = {}
@@ -310,6 +312,9 @@ ROUTES = {  # name -> (source, TPU kernel it replaces)
     # where and an XOR over the block's plane), not a Pallas kernel
     "sparse_lines": ("sparse_lines.cu",
                      "xsqueezeit_tpu/codec/decoder_jax.py:58"),
+    # the dot_prod tool's product, jitted XLA in the JAX package (no Pallas
+    # kernel there)
+    "dot_rows": ("dot_rows.cu", "xsqueezeit_tpu/bench/tools.py:171"),
 }
 
 
@@ -362,6 +367,9 @@ KERNEL_NAMES = {
                                   "decode_run_flush_cluster_kernel"),),
     # the sparse lines' fill, then their carriers: two launches a call
     "sparse_lines": (("sparse_line_fill_kernel", "sparse_carrier_kernel"),),
+    # the partial sums, then (more than one tile a row) their sum; each
+    # timed by the launches the profiler recorded, as it misses some
+    "dot_rows": (("dot_rows_kernel",), ("dot_rows_sum_kernel",)),
 }
 
 
@@ -606,7 +614,7 @@ def diff(a, b) -> int:
 
 def counters() -> tuple[dict, ...]:
     return (pbwt_kernels.launches, wah_kernels.launches,
-            sparse_kernels.launches)
+            sparse_kernels.launches, product_kernels.launches)
 
 
 def reset_counts() -> None:
@@ -1088,6 +1096,65 @@ def sparse_check(label: str, staged, h: int, card: str) -> dict:
     return c
 
 
+#: The product's agreement with float64 dots: the widest gap over
+#: max(|dot|, 1), as the benchmark's dot_rel_err.
+PRODUCT_RTOL = 1e-6
+
+
+def product_check(label: str, vals, n_samples: int, card: str) -> dict:
+    """The product kernel at a block's own plane, every line kept (K = L,
+    as in the cells' phased biallelic blocks), diploid weights from a
+    seeded draw: within PRODUCT_RTOL of float64 dots and the same bits on
+    two calls; timed beside its plain version and library_ms, the form the
+    port used before (index_select, a float32 copy of the rows, cuBLAS's
+    gemv), a yardstick the port no longer calls.  Bound: the K x H row
+    bytes read once, keep (8 B) and the dot (4 B) a row, the weights (4 B
+    a sample)."""
+    L, h = vals.shape
+    dev = vals.device
+    g = torch.Generator(device=dev).manual_seed(L + h)
+    y = torch.rand(n_samples, device=dev, generator=g)
+    y_dip = y.repeat_interleave(2)
+    keep = torch.arange(L, device=dev)
+
+    def kern():
+        return product_kernels.dot_rows(vals, keep, y, "diploid")
+
+    def plain():
+        return product_kernels.dot_rows_plain(vals, keep, y, "diploid")
+
+    def library():
+        return vals.index_select(0, keep).to(torch.float32) @ y_dip
+
+    got, again, ref = kern(), kern(), plain()
+    want = torch.cat([vals[k:k + 256].double() @ y_dip.double()
+                      for k in range(0, L, 256)])
+    rel = float(((got.double() - want).abs()
+                 / want.abs().clamp(min=1)).max())
+    err = float((got - ref).abs().max())
+    shape = f"K={L} of {L} lines, H={h}, diploid"
+    require(torch.equal(got, again), f"dot_rows at {label} ({shape}): two "
+                                     "calls gave other bits")
+    require(rel <= PRODUCT_RTOL, f"dot_rows at {label} ({shape}): relative "
+                                 f"error {rel:.3g} against float64")
+    c = timed_check("dot_rows", label, shape, err, cuda_ms(kern),
+                    cuda_ms(plain, iters=3, warmup=1),
+                    L * h + 12 * L + 4 * n_samples, "", card,
+                    kernel_device_ms("dot_rows", kern), host_ms(kern),
+                    agree=f"within relative {rel:.3g} of float64 dots, "
+                          f"max abs {err:.3g} from plain, the same bits on "
+                          f"two calls")
+    c["max_rel_err"] = rel
+    c["library_ms"] = cuda_ms(library, iters=5, warmup=1)
+    print(f"kernel dot_rows [{label}]: library_ms (index_select + float32 "
+          f"copy + gemv) {c['library_ms']:.4f} ms, "
+          f"{c['library_ms'] / c['ms']:.2f}x the wrapper ({card})")
+    c["default_route"] = label == "1KGP3"
+    if not c["default_route"]:
+        c["row"] = f"dot_rows@{label}"
+    return c
+
+
 def mixed_route_checks(label: str, ys, so, hp, hnp, card: str,
                        flush: bool = True, step_iters: int = 5
                        ) -> tuple[dict, list[dict]]:
@@ -1191,17 +1258,19 @@ def mixed_crossover(card: str) -> list[dict]:
 
 
 def timed_check(name, label, shape, err, ms, plain_ms, nbytes, note,
-                card, kernel_ms, enqueue_ms, floor=None) -> dict:
+                card, kernel_ms, enqueue_ms, floor=None,
+                agree="bit-exact vs plain") -> dict:
     """Print one kernel check and return its record (with the bound).
     ms: the wrapper per call by CUDA events; kernel_ms: the kernel alone
     (profiler; None: not measured); enqueue_ms: the host's time per call;
     floor: a scan's sequential steps on these inputs (rank_floor,
-    mixed_floor), printed beside the byte bound."""
+    mixed_floor), printed beside the byte bound; agree: how the kernel's
+    output was held against the plain version's."""
     b_ms = bound_ms(nbytes)
     alone = ("not measured" if kernel_ms is None else
              f"{kernel_ms:.4f} ms (share {b_ms / kernel_ms:.4f})")
     seq = "" if floor is None else f"; sequential floor {floor}"
-    print(f"kernel {name} [{label}: {shape}]: bit-exact vs plain{note}; "
+    print(f"kernel {name} [{label}: {shape}]: {agree}{note}; "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
           f"({nbytes} B), roofline share {b_ms / ms:.4f}{seq}; the kernel "
           f"alone {alone}; host enqueue {enqueue_ms:.4f} ms/call ({card})")
@@ -1216,7 +1285,7 @@ def kernel_row(check: dict) -> dict:
     single PyTorch call computes a chunk chain of stable partitions, a WAH
     expansion or compression, or a whole rank chain or mixed scan (their
     plain versions take a sort or a dozen ops per chunk or line):
-    library_ms is null."""
+    library_ms is null but for the product (product_check)."""
     src, replaces = ROUTES[check["name"]]
     row = {"name": check["name"], "route": "cuda", "source": SRC + src,
            "replaces": replaces if "/" in replaces else PALLAS + replaces,
@@ -1224,11 +1293,13 @@ def kernel_row(check: dict) -> dict:
            "max_abs_err": check["max_abs_err"], "ms": check["ms"],
            "plain_ms": check["plain_ms"], "kernel_ms": check["kernel_ms"],
            "bound_ms": check["bound_ms"], "bound_by": "bytes",
-           "library_ms": None}
+           "library_ms": check.get("library_ms")}
     if check.get("sequential_floor"):
         row["sequential_floor"] = check["sequential_floor"]
     if check.get("levels_plain_ms") is not None:
         row["levels_plain_ms"] = check["levels_plain_ms"]
+    if check.get("max_rel_err") is not None:
+        row["max_rel_err"] = check["max_rel_err"]
     return row
 
 
@@ -1711,6 +1782,9 @@ def block_phase(name: str, n_samples: int, seed: int, card: str) -> dict:
     require(len(mapped) == 1, f"{name}: the decode made {len(mapped)} "
                               f"line-mapped run flush calls, want 1")
     decode_checks = [sparse_check(name, dstaged, h, card)]
+    plane = decoder_torch._decode_block_vals(*dstaged, h, w)
+    decode_checks.append(product_check(name, plane, n_samples, card))
+    del plane
     fm = flush_check(f"{name} block", *mapped[0], card)
     fm["default_route"] = False
     fm["row"] = f"{fm['name']}@{name} line map"
@@ -2262,7 +2336,7 @@ def tools_phase(card: str) -> dict:
     launch counter is set to 0 just before each dot_prod on the card and
     read just after: wah_expand_bits, chain_decode and the run flush once
     per block, the sparse-line kernel at most once (a block may hold no
-    sparse line), nothing else.  The counts are the tools' own: they stay out of the
+    sparse line), the product kernel once per block, nothing else.  The counts are the tools' own: they stay out of the
     kernels line, which reads the block paths."""
     from xsqueezeit_tpu_torch.accessor import Accessor
     from xsqueezeit_tpu_torch.bench import tools
@@ -2310,6 +2384,9 @@ def tools_phase(card: str) -> dict:
         sparse = launches.pop("sparse_lines")
         require(sparse <= n_blocks, f"{label}: {sparse} sparse-line "
                                     f"launches for {n_blocks} blocks")
+        products = launches.pop("dot_rows")
+        require(products == n_blocks, f"{label}: {products} product "
+                                      f"launches for {n_blocks} blocks")
         ran = {k: v for k, v in launches.items() if v}
         want = {"wah_expand_bits": n_blocks, "chain_decode": n_blocks,
                 "decode_run_flush": n_blocks}

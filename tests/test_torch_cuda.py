@@ -17,7 +17,8 @@ from xsqueezeit_tpu_torch.codec.gt_block import GtBlockEncoder
 from xsqueezeit_tpu_torch.codec.gt_block_decoder import GtBlockDecoder
 from xsqueezeit_tpu_torch.format.constants import INT32_VECTOR_END
 from xsqueezeit_tpu_torch.ops import (pbwt_kernels, pbwt_torch,
-                                      sparse_kernels, wah_kernels, wah_torch)
+                                      product_kernels, sparse_kernels,
+                                      wah_kernels, wah_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -513,6 +514,87 @@ def test_sparse_lines_kernel_matches_plain(dev, L, H, wah_share):
     assert sparse_kernels.launches["sparse_lines"] == n0 + 1
 
 
+def _dots64(vals, keep, y, mode, hap, rows_at_once=256):
+    """float64 dots of the kept rows with the mode's weights (the float32
+    y widened), on the card, a slice of rows at a time."""
+    H = vals.shape[1]
+    h = torch.arange(H, device=vals.device)
+    w = y.double().index_select(0, h if mode == "haploid" else h >> 1)
+    w_even = torch.where(h % 2 == 0, w, torch.zeros_like(w))
+    out = []
+    for k in range(0, keep.shape[0], rows_at_once):
+        rows = vals.index_select(0, keep[k:k + rows_at_once]).double()
+        d = rows @ w
+        if hap is not None:
+            d = torch.where(hap[k:k + rows_at_once], rows @ w_even, d)
+        out.append(d)
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.float64,
+                                                   device=vals.device)
+
+
+def _rel_err(got, want):
+    """The widest gap of a dot over max(its float64 dot, 1)."""
+    if not want.numel():
+        return 0.0
+    return float(((got.double() - want).abs()
+                  / want.abs().clamp(min=1)).max())
+
+
+@pytest.mark.parametrize("mode", product_kernels.DOT_MODES)
+@pytest.mark.parametrize("L,H,K,offset", [
+    (8192, 5008, 8192, 0), (8192, 64976, 8191, 0),
+    (8192, 194512, 8189, 0),
+    (300, 4573, 301, 0),         # ragged width: the byte loads
+    (600, 97255, 777, 0),
+    (64, 2048, 33, 1),           # a width of whole pieces, plane unaligned
+    (16, 1, 9, 0), (40, 1040, 5, 0), (12, 1024, 1, 0)])
+def test_dot_rows_kernel_matches_plain(dev, L, H, K, offset, mode):
+    """The product kernel at the 1KGP3, HRC and TOPMed blocks' widths and
+    ragged ones, K not a multiple of any row group, kept lines out of
+    order with repeats (the first and last among them), in every weight
+    mode: within relative 1e-6 of float64 (over max(|dot|, 1), as
+    dot_rel_err), as its plain version is, and the same bits on a second
+    call."""
+    g = torch.Generator(device=dev).manual_seed(L * 7 + H + K)
+    flat = torch.randint(0, 2, (L * H + offset,), dtype=torch.uint8,
+                         device=dev, generator=g)
+    vals = flat[offset:].view(L, H)
+    keep = torch.randint(0, L, (K,), device=dev, generator=g)
+    keep[0], keep[-1] = L - 1, 0
+    y = torch.rand(product_kernels.samples_needed(H, mode), device=dev,
+                   generator=g)
+    hap = (torch.rand(K, device=dev, generator=g) < 0.5
+           if mode == "mixed" else None)
+    n0 = product_kernels.launches["dot_rows"]
+    got = product_kernels.dot_rows(vals, keep, y, mode, hap)
+    again = product_kernels.dot_rows(vals, keep, y, mode, hap)
+    torch.cuda.synchronize()
+    assert product_kernels.launches["dot_rows"] == n0 + 2
+    assert got.dtype == torch.float32 and got.shape == (K,)
+    assert torch.equal(got, again)
+    want = _dots64(vals, keep, y, mode, hap)
+    plain = product_kernels.dot_rows_plain(vals, keep, y, mode, hap)
+    assert _rel_err(got, want) <= 1e-6
+    assert _rel_err(plain, want) <= 1e-6
+
+
+def test_dot_rows_kernel_edges(dev):
+    """No kept line: no launch, an empty result; a kept line outside the
+    plane: NaN there, the other rows as the plain version's."""
+    vals = torch.randint(0, 2, (10, 3000), dtype=torch.uint8, device=dev)
+    y = torch.rand(1500, device=dev)
+    n0 = product_kernels.launches["dot_rows"]
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    assert product_kernels.dot_rows(vals, empty, y, "diploid").shape == (0,)
+    assert product_kernels.launches["dot_rows"] == n0
+    keep = torch.tensor([3, 10, 9, -1, 0], device=dev)
+    got = product_kernels.dot_rows(vals, keep, y, "diploid").cpu()
+    assert got[[1, 3]].isnan().all()
+    ok = torch.tensor([0, 2, 4])
+    want = _dots64(vals, keep[ok.to(dev)], y, "diploid", None).cpu()
+    assert _rel_err(got[ok], want) <= 1e-6
+
+
 @pytest.mark.parametrize("L,H", [(1, 1), (7, 15), (40, 301), (64, 5008),
                                  (6, 64976), (3, 16383 * 15 + 60)])
 def test_wah_kernels_match_plain(dev, L, H):
@@ -971,7 +1053,8 @@ def test_dot_prod_on_card(dev, tmp_path, name):
     walk's, which equals the plain VCF walk's to 1e-12; wah_expand_bits,
     chain_decode and the run flush launch once per device block
     (uniformly diploid or haploid), wah_expand_varw_bits and decode_scan_mixed once per mixed
-    block, and no encode route launches."""
+    block, the product kernel once per block of either, and no encode
+    route launches."""
     from xsqueezeit_tpu_torch.bench import tools
     write, block, (n_dev, n_mixed) = DOT_PROD_FILES[name]
     vcf = write(str(tmp_path / "in.vcf"))
@@ -982,15 +1065,17 @@ def test_dot_prod_on_card(dev, tmp_path, name):
     assert host["variants"] == plain["variants"] > 0
     np.testing.assert_allclose(host["dots"], plain["dots"], rtol=1e-12,
                                atol=0)
-    n0 = {**pbwt_kernels.launches, **wah_kernels.launches}
+    n0 = {**pbwt_kernels.launches, **wah_kernels.launches,
+          **product_kernels.launches}
     got = tools.dot_prod(xsi)
-    n1 = {**pbwt_kernels.launches, **wah_kernels.launches}
+    n1 = {**pbwt_kernels.launches, **wah_kernels.launches,
+          **product_kernels.launches}
     ran = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
     assert got["variants"] == host["variants"] and got["device"] == "cuda"
     np.testing.assert_allclose(got["dots"], host["dots"], rtol=1e-6, atol=0)
     assert (got["device_blocks"], got["mixed_blocks"],
             got["host_blocks"]) == (n_dev, n_mixed, 0)
-    want = {}
+    want = {"dot_rows": n_dev + n_mixed}
     if n_dev:
         want.update(wah_expand_bits=n_dev, chain_decode=n_dev,
                     decode_run_flush=n_dev)

@@ -30,6 +30,7 @@ from xsqueezeit_tpu_torch.io.bcf import BcfReader
 from xsqueezeit_tpu_torch.ops import (
     pbwt_kernels,
     pbwt_torch,
+    product_kernels,
     sparse_kernels,
     wah_kernels,
 )
@@ -109,6 +110,10 @@ def test_spans_nest_as_named(container, tracing):
         upload = [s for s in _children(spans, b)
                   if s.name == "decode.upload"][0]
         assert upload.attrs["bytes"] > 0
+        product = [s for s in _children(spans, b)
+                   if s.name == "dot_prod.product"][0]
+        assert product.attrs["mode"] == "diploid"
+        assert product.attrs["rows"] > 0 and product.attrs["width"] > 0
     for s in spans:
         up = next((p for p in spans if p.id == s.parent), None)
         if up is not None:
@@ -202,7 +207,7 @@ def test_launch_counts_are_unchanged(container, on):
     """The CPU runs the kernels' plain versions: no launch is counted,
     tracing on or off, and the trace's counters hold no launch."""
     before = {**pbwt_kernels.launches, **wah_kernels.launches,
-              **sparse_kernels.launches}
+              **sparse_kernels.launches, **product_kernels.launches}
     trace.collect()
     if on:
         trace.enable()
@@ -211,7 +216,7 @@ def test_launch_counts_are_unchanged(container, on):
     finally:
         trace.disable()
     assert {**pbwt_kernels.launches, **wah_kernels.launches,
-            **sparse_kernels.launches} == before
+            **sparse_kernels.launches, **product_kernels.launches} == before
     assert set(trace.collect()["counters"]) <= {
         "dot_prod.records", "decode.chunks", "decode.carriers",
         "decode.sparse_lines"}

@@ -237,16 +237,18 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
     TorchBlockDecoder.decode_bits takes decodes on the device (on "cuda":
     wah_expand_bits, then chain_decode and the run flush; a mixed-ploidy
     block through wah_expand_varw_bits and the mixed scan);
-    its bi-allelic records' lines are gathered there and multiplied in
-    float32 with the phenotype weights, one product per block: y[h >> 1] on
-    a diploid block, y on a uniformly haploid one (n_samples wide), and on
-    a mixed block y at the even slots for its haploid lines (they come back
+    its bi-allelic records' lines are multiplied there in float32 with the
+    phenotype weights, one product_kernels.dot_rows call per block (a hand
+    kernel that reads each kept row once on "cuda"): y[h >> 1] on a
+    diploid block, y on a uniformly haploid one (n_samples wide), and on a
+    mixed block y at the even slots for its haploid lines (they come back
     slot-duplicated).  Only the per-variant dots leave the device.  Other
     blocks (sort != select) take the per-record host walk.  Checksum-
     compatible with the host walk."""
     import torch
 
     from ..codec.decoder_torch import TorchBlockDecoder
+    from ..ops import product_kernels
     from ..utils.devprobe import torch_device
 
     dev = torch_device(device)
@@ -258,10 +260,6 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
             rng = np.random.default_rng(seed)
             y = rng.random(n_samples)
             y32 = torch.from_numpy(y.astype(np.float32)).to(dev)
-            y_dip = y32.repeat_interleave(2)                # y[h >> 1]
-            y_even = torch.zeros_like(y_dip)
-            y_even[0::2] = y32                              # haploid rows
-            w_mixed = torch.stack([y_dip, y_even], dim=1)   # [H, 2]
 
         # per block: each record's n_allele, and each bi-allelic record's
         # index among the file's variants
@@ -302,21 +300,21 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
                     continue
                 vals, route = dec.decode_bits()
                 span.set(route=route)
-                with trace.span("dot_prod.product"):
-                    rows = vals.index_select(
-                        0, torch.from_numpy(keep).to(dev)
-                    ).to(torch.float32)
-                    if route == "mixed":
-                        routes["mixed_blocks"] += 1
-                        both = rows @ w_mixed
+                if route == "mixed":
+                    routes["mixed_blocks"] += 1
+                    mode = "mixed"
+                else:
+                    routes["device_blocks"] += 1
+                    routes["haploid_blocks"] += int(dec.uniform_haploid)
+                    mode = "haploid" if dec.uniform_haploid else "diploid"
+                with trace.span("dot_prod.product", rows=len(keep),
+                                width=vals.shape[1], mode=mode):
+                    hap = None
+                    if mode == "mixed":
                         hap = torch.from_numpy(
                             m.haploid_line[keep].astype(bool)).to(dev)
-                        block_dots = torch.where(hap, both[:, 1], both[:, 0])
-                    else:
-                        routes["device_blocks"] += 1
-                        routes["haploid_blocks"] += int(dec.uniform_haploid)
-                        block_dots = rows @ (y32 if dec.uniform_haploid
-                                             else y_dip)
+                    block_dots = product_kernels.dot_rows(
+                        vals, torch.from_numpy(keep).to(dev), y32, mode, hap)
                 with trace.span("dot_prod.readback"):
                     got = block_dots.cpu().numpy().astype(np.float64)
                 dots[variants] = got

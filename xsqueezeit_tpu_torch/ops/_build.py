@@ -48,6 +48,7 @@ ENTRY_POINTS = {
     "xsi_decode_run_flush": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _P),
     "xsi_sparse_lines": (_P, _P, _P, _P, _P, _I, _I, _S, _P),
+    "xsi_dot_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
