@@ -1101,6 +1101,13 @@ def sparse_check(label: str, staged, h: int, card: str) -> dict:
 PRODUCT_RTOL = 1e-6
 
 
+def product_bytes(K: int, H: int, n_samples: int) -> int:
+    """Bytes dot_rows must move for K kept rows of H: the rows read once as
+    uint8, keep (8 B) and the dot (4 B) a row, the weights (4 B a
+    sample)."""
+    return K * H + 12 * K + 4 * n_samples
+
+
 def product_check(label: str, vals, n_samples: int, card: str) -> dict:
     """The product kernel at a block's own plane, every line kept (K = L,
     as in the cells' phased biallelic blocks), diploid weights from a
@@ -1139,7 +1146,7 @@ def product_check(label: str, vals, n_samples: int, card: str) -> dict:
                                  f"error {rel:.3g} against float64")
     c = timed_check("dot_rows", label, shape, err, cuda_ms(kern),
                     cuda_ms(plain, iters=3, warmup=1),
-                    L * h + 12 * L + 4 * n_samples, "", card,
+                    product_bytes(L, h, n_samples), "", card,
                     kernel_device_ms("dot_rows", kern), host_ms(kern),
                     agree=f"within relative {rel:.3g} of float64 dots, "
                           f"max abs {err:.3g} from plain, the same bits on "

@@ -2,6 +2,9 @@
 micro_*.vcf test matrix, written from scratch)."""
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 
 HEADER = """##fileformat=VCFv4.2
@@ -152,3 +155,30 @@ ALL_MICRO = {
     "micro_missing_non_uniform_phasing": micro_missing_non_uniform_phasing,
     "micro_missing_non_uniform_phasing_ploidy": micro_missing_non_uniform_phasing_ploidy,
 }
+
+
+#: GRCh38 PAR1's last base: a male's chrX is diploid up to it.
+PAR1_END = 2781479
+
+
+def males_chrx_config(n_samples: int, n_records: int = 300,
+                      par_records: int = 128) -> dict:
+    """The benchmark's topmed-r2-chrx-males configuration cut to n_samples
+    males and n_records records, the window placed so that its first
+    par_records lie in PAR1 (diploid) and the rest outside it (haploid)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "configs",
+        "topmed-r2-chrx-males.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg.update(samples=n_samples, records=n_records,
+               first_pos=PAR1_END - cfg["spacing_bp"] * (par_records - 1))
+    return cfg
+
+
+def males_chrx_bcf(path: str, cfg: dict, seed: int) -> str:
+    """The seed's panel of `cfg` (males_chrx_config) written as a BCF by
+    the benchmark's generator (benchmark/harness/gen_ploidy.py)."""
+    from benchmark.harness import gen_ploidy
+    gen_ploidy.write_bcf(path, cfg, seed, "cpu", threads=2)
+    return path

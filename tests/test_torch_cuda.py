@@ -1084,6 +1084,63 @@ def test_dot_prod_on_card(dev, tmp_path, name):
     assert ran == want
 
 
+#: The males of the benchmark's topmed-r2-chrx-males cell: 97,256 slots in
+#: PAR1's diploid lines, 48,628 in the haploid ones, neither a multiple of
+#: 16.
+CHRX_MALES = 48628
+
+
+def test_dot_prod_of_males_chrx_on_card(dev, tmp_path):
+    """dot_prod on the card of a males-chrX file at the cell's widths (300
+    records in blocks of 256, PAR1's end after record 127), compressed by
+    the card: block 0 on the mixed route (wah_expand_varw_bits, the mixed
+    scan's runs on the chains, no stepping kernel), block 1 uniformly
+    haploid (wah_expand_bits at H = 48,628), each block's product in one
+    dot_rows launch, byte by byte; every dot within relative 1e-6 of the
+    float64 reference and of the host walk; the same bits on two calls; no
+    encode route launches."""
+    from benchmark.reference import dots as ref_dots
+    from benchmark.reference import ploidy_dots
+    from xsqueezeit_tpu_torch.bench import tools
+    from xsqueezeit_tpu_torch.cli import main
+    from xsqueezeit_tpu_torch.utils import trace
+    fixtures, seed, phen = _fixtures(), 2**31 + 29, 7
+    cfg = fixtures.males_chrx_config(CHRX_MALES, 300, 128)
+    bcf = fixtures.males_chrx_bcf(str(tmp_path / "in.bcf"), cfg, seed)
+    xsi = str(tmp_path / "o.xsi")
+    assert main(["-c", "-f", bcf, "-o", xsi, "--device", "cuda",
+                 "--variant-block-length", "256",
+                 "--maf", str(cfg["maf"])]) == 0
+    n0 = {**pbwt_kernels.launches, **wah_kernels.launches,
+          **product_kernels.launches}
+    trace.collect()
+    trace.enable()
+    try:
+        got = tools.dot_prod(xsi, seed=phen)
+    finally:
+        trace.disable()
+    spans = trace.collect()["spans"]
+    n1 = {**pbwt_kernels.launches, **wah_kernels.launches,
+          **product_kernels.launches}
+    ran = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+    assert (got["mixed_blocks"], got["haploid_blocks"], got["device_blocks"],
+            got["host_blocks"]) == (1, 1, 1, 0)
+    assert ran["dot_rows"] == 2
+    assert ran["wah_expand_varw_bits"] == 1 and ran["wah_expand_bits"] == 1
+    assert "decode_scan_mixed" not in ran
+    assert not [k for k in ran if k.startswith(("chain_encode",
+                                                 "wah_compress"))]
+    products = [s.attrs for s in spans if s.name == "dot_prod.product"]
+    assert [(p["mode"], p["width"], p["loads"]) for p in products] == [
+        ("mixed", 2 * CHRX_MALES, 1), ("haploid", CHRX_MALES, 1)]
+    again = tools.dot_prod(xsi, seed=phen)
+    assert np.array_equal(got["dots"], again["dots"])
+    want = ploidy_dots.dots(cfg, seed, phen, "cpu")
+    host = tools.dot_prod(xsi, seed=phen, device="host")
+    assert ref_dots.rel_err(got["dots"], want) <= 1e-6
+    assert ref_dots.rel_err(got["dots"], host["dots"]) <= 1e-6
+
+
 def test_accessor_on_a_card_compressed_file(dev, tmp_path):
     """The Accessor reads a file the card wrote (byte-equal to the host
     codec's): genotypes in random order across blocks, allele counts."""

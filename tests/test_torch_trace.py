@@ -4,7 +4,8 @@ spans of dot_prod and of the decompressor's batches nested as named, on
 the worker threads too, each with its operation's id; the record counter;
 the spans' cover of an operation; the decode's chain and run flush
 spans with their shapes and routes, at 16-bit and 32-bit widths, and
-the sparse lines the decode writes; their
+the sparse lines the decode writes; a mixed-ploidy block's decode.mixed
+span with its shapes and the haploid lines counter; their
 marks in a torch.profiler trace
 and in the CLI's --profile trace; the kernel launch counters."""
 import json
@@ -338,6 +339,94 @@ def test_decode_device_counts_its_sparse_lines(tracing, ps, kind):
         assert got["counters"]["decode.sparse_lines"] == n_sparse
         assert "decode.chain" not in names and "decode.flush" not in names
     assert [s.attrs for s in device] == [{"sparse_lines": n_sparse}]
+
+
+def _ploidy_block(n_samples: int, kind: str, n_records: int = 40,
+                  seed: int = 5, ps=(0.0004, 0.3, 0.02, 0.9996, 0.6)):
+    """A block of male chrX records at the codec's default threshold (MAF
+    0.001): kind "mixed", its first half diploid (a PAR) and the rest
+    haploid; kind "haploid", every record haploid.  Returns (payload, aet
+    dtype, the shapes counted as the records are drawn: lines,
+    haploid_lines, wah_lines and sparse_values, a sparse line's head and
+    its stored minority)."""
+    rng = np.random.default_rng(seed)
+    H = 2 * n_samples
+    aet = np.uint16 if H <= 0xFFFF else np.uint32
+    mac = max(1, int(H * 0.001))
+    enc = GtBlockEncoder(n_samples=n_samples, block_bcf_lines=10_000,
+                         mac_threshold=mac, default_phasing=1, aet_dtype=aet)
+    shapes = dict(lines=n_records, haploid_lines=0, wah_lines=0,
+                  sparse_values=0)
+    for i in range(n_records):
+        haploid = kind == "haploid" or i >= n_records // 2
+        n_gt = n_samples if haploid else H
+        alt = rng.random(n_gt) < ps[i % len(ps)]
+        gt = (alt.astype(np.int32) + 1) << 1
+        if not haploid:
+            gt[1::2] |= 1
+        n_alt = int(alt.sum())
+        minority = min(n_alt, n_gt - n_alt)
+        shapes["haploid_lines"] += haploid
+        if minority > mac:
+            shapes["wah_lines"] += 1
+        else:
+            shapes["sparse_values"] += 1 + minority
+        enc.encode_record(gt, 2)
+    return enc.serialize(), aet, shapes
+
+
+@pytest.mark.parametrize("kind", ["mixed", "haploid"])
+@pytest.mark.parametrize("n_samples", [300, 32801], ids=["narrow", "wide"])
+def test_decode_mixed_span_and_haploid_lines(tracing, monkeypatch, n_samples,
+                                            kind):
+    """A mixed block's decode.mixed nests under decode.device with the
+    shapes its byte bound reads, each equal to the block's own; a uniformly
+    haploid block has none.  decode.haploid_lines counts the haploid lines
+    decoded on the device, on decode.device, on both routes; with tracing
+    off the same decode records nothing and calls no torch mark."""
+    payload, aet, shapes = _ploidy_block(n_samples, kind)
+    H = 2 * n_samples
+    dec = TorchBlockDecoder(payload, n_samples, H, aet, device="cpu")
+    assert (dec.mixed_device_ok, dec.uniform_haploid) == (
+        kind == "mixed", kind == "haploid")
+    vals, route = dec.decode_bits()
+    assert route == {"mixed": "mixed", "haploid": "device"}[kind]
+    got = trace.collect()
+    spans = got["spans"]
+    (device,) = [s for s in spans if s.name == "decode.device"]
+    mixed = [s for s in spans if s.name == "decode.mixed"]
+    n_hap = shapes["haploid_lines"]
+    assert 0 < n_hap <= shapes["lines"]
+    assert device.counts["decode.haploid_lines"] == n_hap
+    assert got["counters"]["decode.haploid_lines"] == n_hap
+    host = GtBlockDecoder(payload, n_samples, H, aet)
+    if kind == "haploid":
+        assert mixed == [] and n_hap == shapes["lines"]
+        assert vals.shape == (shapes["lines"], n_samples)
+    else:
+        (m,) = mixed
+        assert m.parent == device.id
+        assert device.start <= m.start <= m.end <= device.end
+        assert [s.parent for s in spans if s.name in ("decode.chain",
+                                                      "decode.flush")] \
+            == [m.id] * sum(s.name in ("decode.chain", "decode.flush")
+                            for s in spans)
+        w_max = max(-(-H // 15), -(-n_samples // 15))
+        assert m.attrs == dict(haps=H, w_max=w_max,
+                               stream_words=host.wah_stream.shape[0],
+                               **shapes)
+        assert vals.shape == (shapes["lines"], H)
+    for line in range(shapes["lines"]):
+        host.seek(line)
+        gt = host.fill_genotype_array_advance(2)
+        row = vals[line].numpy()
+        if host.haploid_line[line] and kind == "mixed":
+            row = row[::2]
+        assert np.array_equal(row, (gt >> 1) - 1)
+    trace.disable()
+    _no_record_function(monkeypatch)
+    TorchBlockDecoder(payload, n_samples, H, aet, device="cpu").decode_bits()
+    assert trace.collect() == {"spans": [], "counters": {}}
 
 
 @pytest.mark.parametrize("W,routes", [

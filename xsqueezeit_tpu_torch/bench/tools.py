@@ -308,7 +308,9 @@ def _dot_prod_device(path: str, seed: int, device: str) -> dict:
                     routes["haploid_blocks"] += int(dec.uniform_haploid)
                     mode = "haploid" if dec.uniform_haploid else "diploid"
                 with trace.span("dot_prod.product", rows=len(keep),
-                                width=vals.shape[1], mode=mode):
+                                width=vals.shape[1], mode=mode,
+                                samples=n_samples,
+                                loads=product_kernels.load_width(vals)):
                     hap = None
                     if mode == "mixed":
                         hap = torch.from_numpy(

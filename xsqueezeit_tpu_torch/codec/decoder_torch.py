@@ -412,7 +412,12 @@ class TorchBlockDecoder:
         decode.parse span carries aet_bits, the width of the block's sparse
         and track values (16 up to 65,535 haplotypes, else 32); the
         decode.device span sparse_lines, the lines the sparse-line kernel
-        writes (counted in decode.sparse_lines)."""
+        writes (counted in decode.sparse_lines), and the counter
+        decode.haploid_lines the haploid lines it decodes.  A mixed block's
+        decode.device holds decode.mixed around _decode_block_mixed, with
+        the shapes its byte bound reads: haps, w_max, lines, wah_lines,
+        haploid_lines, stream_words and sparse_values (the stored sparse
+        heads and indices)."""
         aet_bits = 8 * self.aet_dtype.itemsize
         if self.eligible:
             with trace.span("decode.parse", aet_bits=aet_bits):
@@ -420,15 +425,23 @@ class TorchBlockDecoder:
             neg = arrays[4]
             t = self._upload(arrays)
             with trace.span("decode.device", sparse_lines=L - n_wah):
+                if self.uniform_haploid:
+                    trace.count("decode.haploid_lines", L)
                 vals, route = _decode_block_vals(*t, H, W), "device"
         elif self.mixed_device_ok:
             with trace.span("decode.parse", aet_bits=aet_bits):
                 *arrays, H, w_max, L = self.host_inputs_mixed()
             neg = arrays[6]
+            n_wah = arrays[2].shape[0]
+            n_hap = int(np.count_nonzero(self.meta.haploid_line))
             t = self._upload(arrays)
-            with trace.span("decode.device",
-                            sparse_lines=L - arrays[2].shape[0]):
-                vals = _decode_block_mixed(*t, arrays[3], H, w_max)
+            with trace.span("decode.device", sparse_lines=L - n_wah):
+                trace.count("decode.haploid_lines", n_hap)
+                with trace.span("decode.mixed", haps=H, w_max=w_max,
+                                lines=L, wah_lines=n_wah, haploid_lines=n_hap,
+                                stream_words=arrays[0].shape[0],
+                                sparse_values=arrays[8].shape[0] + L - n_wah):
+                    vals = _decode_block_mixed(*t, arrays[3], H, w_max)
             route = "mixed"
         else:
             raise ValueError("the block takes no device route: decode it "

@@ -43,6 +43,13 @@ def samples_needed(H: int, mode: str) -> int:
     return H if mode == "haploid" else (H + 1) // 2
 
 
+def load_width(vals: torch.Tensor) -> int:
+    """Bytes a lane of the kernel loads at once from the plane vals: 16
+    where its width is a multiple of 16 and it starts on a 16-byte
+    boundary (csrc/dot_rows.cu, `vec`), else 1 (byte by byte)."""
+    return 16 if vals.shape[1] % 16 == 0 and vals.data_ptr() % 16 == 0 else 1
+
+
 def dot_rows_plain(vals: torch.Tensor, keep: torch.Tensor, y: torch.Tensor,
                    mode: str, hap: torch.Tensor | None = None
                    ) -> torch.Tensor:
